@@ -1,0 +1,93 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library in the
+package's build directory (listed in ``.gitignore``), named with a hash of
+the source so a stale build is never loaded, and opened with ``ctypes``.
+Nothing is built or imported when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(_PKG, "_build")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCES = ("window_spmm",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}  # name -> nvcc's output (ptxas register use)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                           ).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{h}.so")
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every source not built yet, one nvcc process per source, all
+    started together.  Returns name -> library path; raises with nvcc's
+    output if any build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    paths = {name: _lib_path(name) for name in names}
+    procs = {}
+    for name, path in paths.items():
+        if os.path.exists(path):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, p) in procs.items():
+        out, _ = p.communicate()
+        build_log[name] = out
+        if p.returncode == 0:
+            os.replace(tmp, paths[name])
+        else:
+            os.unlink(tmp)
+            failed.append(f"{name}:\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(build_all((name,))[name])
+            _declare(name, lib)
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "window_spmm":
+        # (A, B, win_step, panel_step_ptr, out,
+        #  n_panels, TM, G, W, n, k, nblk, stream)
+        lib.flex_window_spmm_fwd.argtypes = [p, p, p, p, p,
+                                             i, i, i, i, i, i, i, p]
+        lib.flex_window_spmm_fwd.restype = i

@@ -1,0 +1,488 @@
+"""Windowed-panel hybrid SpMM forward: dense window tiles + ELL residue.
+
+Counterpart of ``flex_tpu.ops.window_spmm`` (row-major layout, row step
+order, fused build).  After a clustering ordering (rbdeg), each row
+panel's nonzeros concentrate in a few W-aligned column blocks.  Blocks
+with at least ``min_count`` nonzeros become dense (TM, W) tiles of A,
+packed G to a step; a step is one (TM, G·W)x(G·W, k) product, and the
+steps of one panel sum into its output rows.  Entries outside every kept
+window form the residue, an ELL plan (:mod:`.ell_spmm`).  The two halves
+add.
+
+- :func:`window_select` (host, NumPy) picks the windows and lays out the
+  steps; it is a copy of the JAX package's host selection.
+- :func:`_build_windowed_ell` builds A, and the residue's ELL buckets, on
+  the device from the resident CSR.
+- :func:`window_spmm_fwd` runs the dense half: the hand-written CUDA kernel
+  ``csrc/window_spmm.cu`` for CUDA tensors, :func:`window_spmm_fwd_plain`
+  for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from flex_tpu_torch.ops.ell_spmm import (
+    EllPlan, _gather_assembly_tables, ell_buckets_core, ell_meta,
+)
+from flex_tpu_torch.sparse.csr import (
+    CSRGraph, indicator_cumsum, repeat_arange, repeat_values,
+)
+from flex_tpu_torch.sparse.device import DeviceCSR, plan_device, rows_from_row_ptr
+
+G = 4  # default windows per step (per-step product: (TM, G*W) x (G*W, k))
+
+MIN_COVERAGE = 0.15
+MAX_DENSE_BYTES = 8 << 30
+
+
+# ---------------------------------------------------------------------------
+# host selection (copy of the JAX package's host path)
+# ---------------------------------------------------------------------------
+
+def _host_panel_key(g, tm: int, W: int, P: int, nblk: int) -> np.ndarray:
+    """Host (panel, block) key per nnz, int32 (P·nblk < 2^31 is checked by
+    the caller), built without np.repeat: panel ids come from the
+    indicator-cumsum over the panel start offsets."""
+    m, nnz = g.m, g.nnz
+    pstarts = g.row_ptr[np.minimum(
+        np.arange(1, P, dtype=np.int64) * tm, m)]
+    panel = indicator_cumsum(pstarts, nnz, dtype=np.int32)
+    col32 = np.asarray(g.col, dtype=np.int32)
+    block = (col32 >> (W.bit_length() - 1)) if W & (W - 1) == 0 \
+        else col32 // np.int32(W)
+    np.multiply(panel, np.int32(nblk), out=panel)
+    np.add(panel, block, out=panel)
+    return panel
+
+
+def window_select(
+    g: CSRGraph, tm: int = 256, W: int = 128, J: int = 1024,
+    min_count: int = 128, g_step: int = G,
+    max_dense_bytes: int | None = None,
+) -> dict:
+    """Window selection + step layout.
+
+    Per panel: every W-aligned column block with ≥ ``min_count`` nnz is a
+    window; a panel with more than ``J`` keeps the top ones by count.  Kept
+    windows are sorted ascending by block id and packed into G-window
+    steps, panels in row order.  With ``max_dense_bytes`` the count gate
+    rises to the smallest value whose dense array fits the budget (the
+    realized gate is ``min_count_eff``).
+
+    Returns dict with:
+      win_step   int32[total_steps*G] block ids (sentinel = nblk pads)
+      out_panel  int32[total_steps]   dense output-panel index per step
+      first      int32[total_steps]   1 on a panel's first step
+      pstep0     int64[P]             panel -> first step (-1 if none)
+      slot       int16[P*nblk]        0 = residue, j+1 = window slot j
+      used       panels with windows, row_gather int32[P*tm]
+      res_deg    int64[m] residue degree per row, unique_rc (bool)
+      coverage, a_elems, dense_bytes, total_steps, n_used_panels, P,
+      nblk, n_res, G, W, min_count_eff
+    """
+    m, nnz = g.m, g.nnz
+    J = min(J, 32000)  # slot table is int16 (values ≤ J+1)
+    P = max(-(-m // tm), 1)
+    nblk = max(-(-g.n // W), 1)
+    if P * nblk >= 2**31:
+        raise ValueError(
+            f"P*nblk = {P}*{nblk} exceeds int32 — raise tm/W or shard rows")
+    key_h = _host_panel_key(g, tm, W, P, nblk)
+    cnt = np.bincount(key_h, minlength=P * nblk).reshape(P, nblk)
+
+    min_count_eff = max(min_count, 1)
+    if max_dense_bytes is not None:
+        step_bytes = tm * g_step * W * 4
+
+        def _bytes_at(t: int) -> int:
+            nb = np.minimum((cnt >= t).sum(axis=1), J)
+            return int((-(-nb[nb > 0] // g_step)).sum()) * step_bytes
+
+        if _bytes_at(min_count_eff) > max_dense_bytes:
+            lo, hi = min_count_eff, int(cnt.max()) + 1  # hi always fits
+            while lo + 1 < hi:
+                mid = (lo + hi) // 2
+                if _bytes_at(mid) > max_dense_bytes:
+                    lo = mid
+                else:
+                    hi = mid
+            min_count_eff = hi
+
+    valid = cnt >= min_count_eff
+    nb_per = valid.sum(axis=1)
+    over = np.where(nb_per > J)[0]
+    for p in over:  # cap fat panels: keep the top-J blocks by count
+        ids = np.where(valid[p])[0]
+        keep = ids[np.argpartition(-cnt[p, ids], J - 1)[:J]]
+        valid[p] = False
+        valid[p, keep] = True
+    nb_per = np.minimum(nb_per, J)
+
+    used = np.where(nb_per > 0)[0]
+    S_per = -(-nb_per[used] // g_step)
+    total_steps = int(S_per.sum())
+    step_of = repeat_arange(S_per, total=total_steps)
+    first = np.zeros(total_steps, dtype=np.int32)
+    step_starts = np.concatenate([[0], np.cumsum(S_per)[:-1]]) \
+        if total_steps else np.zeros(0, dtype=np.int64)
+    if total_steps:
+        first[step_starts] = 1
+    pstep0 = np.full(P, -1, dtype=np.int64)
+    pstep0[used] = step_starts
+
+    # per-used-panel sorted window ids -> flat win_step with sentinel pads;
+    # np.nonzero walks `valid` row-major, so pairs come grouped by panel
+    # with blocks ascending
+    win_step = np.full(total_steps * g_step, nblk, dtype=np.int32)
+    slot = np.zeros(P * nblk, dtype=np.int16)
+    if len(used):
+        pw, bw = np.nonzero(valid)
+        panel_first = np.r_[True, np.diff(pw) != 0]
+        jj = np.arange(len(pw), dtype=np.int64) - repeat_values(
+            np.arange(len(pw), dtype=np.int64)[panel_first],
+            nb_per[pw[panel_first]], total=len(pw))
+        dense_of_panel = np.full(P, -1, dtype=np.int64)
+        dense_of_panel[used] = np.arange(len(used))
+        flat_slot = step_starts[dense_of_panel[pw]] * g_step + jj
+        win_step[flat_slot] = bw.astype(np.int32)
+        slot[pw * nblk + bw] = (jj + 1).astype(np.int16)
+
+    covered = int(cnt[valid].sum())
+    a_elems = total_steps * tm * g_step * W
+
+    # output assembly: graph row r of panel p lives at row
+    # dense_index(p)*tm + r%tm of the dense half; panels without windows
+    # point at an appended zero row
+    row_src = np.full(P, -1, dtype=np.int64)
+    row_src[used] = np.arange(len(used))
+    total_rows = len(used) * tm
+    rg = np.full(P * tm, total_rows, dtype=np.int64)
+    if len(used):
+        blockrows = (row_src[used][:, None] * tm
+                     + np.arange(tm, dtype=np.int64)[None, :])
+        rg[(used[:, None] * tm + np.arange(tm)[None, :]).ravel()] = \
+            blockrows.ravel()
+
+    # residue degree per row: windowed sum of the residue mask, as an
+    # exclusive cumsum sampled at the row bounds
+    mask32 = (slot[key_h] == 0).astype(np.int32)
+    cs = np.empty(g.nnz + 1, np.int32)
+    cs[0] = 0
+    np.cumsum(mask32, out=cs[1:])
+    res_deg = (cs[g.row_ptr[1:]] - cs[g.row_ptr[:-1]]).astype(np.int64)
+
+    return {
+        "G": g_step,
+        "W": W,
+        "min_count_eff": min_count_eff,
+        "res_deg": res_deg,
+        "unique_rc": pattern_is_unique(g),
+        "win_step": win_step,
+        "out_panel": step_of.astype(np.int32),
+        "first": first,
+        "pstep0": pstep0,
+        "slot": slot,
+        "used": used,
+        "row_gather": rg.astype(np.int32),
+        "coverage": covered / max(nnz, 1),
+        "n_res": nnz - covered,
+        "a_elems": a_elems,
+        "dense_bytes": a_elems * 4,
+        "total_steps": total_steps,
+        "n_used_panels": len(used),
+        "P": P,
+        "nblk": nblk,
+    }
+
+
+def pattern_is_unique(g: CSRGraph) -> bool:
+    """Host duplicate-(row, col) detection: with columns sorted within rows
+    a duplicate is an adjacent equal pair.  Unsorted rows return the
+    conservative False (the build then sums duplicates)."""
+    nnz = g.nnz
+    if nnz <= 1:
+        return True
+    same_row = np.ones(nnz - 1, dtype=bool)
+    b = np.asarray(g.row_ptr[1:-1], dtype=np.int64)
+    b = b[(b > 0) & (b < nnz)]
+    same_row[b - 1] = False  # position i compares entries i and i+1
+    return not np.any(same_row & (g.col[1:] <= g.col[:-1]))
+
+
+def panel_step_ptr(first: np.ndarray) -> np.ndarray:
+    """int32[n_used+1]: the steps of used panel p are
+    ``ptr[p] .. ptr[p+1]`` (a panel's steps are consecutive)."""
+    return np.append(np.flatnonzero(first), len(first)).astype(np.int32)
+
+
+def _device_tables(sel: dict, device: torch.device) -> dict:
+    """The selection's tables as tensors on ``device``, made once and kept
+    in ``sel`` so a repeated prepare moves nothing from the host."""
+    cache = sel.setdefault("torch_tables", {})
+    key = str(device)
+    if key not in cache:
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+        cache[key] = {
+            "slot": put(sel["slot"], np.int32),
+            "pstep0": put(sel["pstep0"], np.int64),
+            "first": put(sel["first"], np.int32),
+            "out_panel": put(sel["out_panel"], np.int32),
+            "win_step": put(sel["win_step"], np.int32),
+            "row_gather": put(sel["row_gather"], np.int32),
+            "panel_step_ptr": put(panel_step_ptr(sel["first"]), np.int32),
+        }
+    return cache[key]
+
+
+# ---------------------------------------------------------------------------
+# device build
+# ---------------------------------------------------------------------------
+
+def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, *, layout,
+                        ell_meta_):
+    """Dense A + residue compaction + residue ELL buckets on the device.
+
+    A is step-major: window j of panel p lives in step pstep0[p] + j//G at
+    in-step slot j%G, i.e. flat element
+    (pstep0[p] + j//G)·(TM·G·W) + (row%TM)·(G·W) + (j%G)·W + col%W.
+    One scatter of the hits into a flat f32 buffer, then a ``view`` to
+    (S, TM, G·W), which copies nothing.  Duplicate (row, col) entries must
+    sum, so the scatter accumulates unless the selection proved the
+    pattern duplicate-free (``unique_rc``).  Residue entries keep CSR
+    order.  Returns (A, buckets, chunk_row)."""
+    nnz, m, TM, W, nblk, total_steps, g_step, unique_rc = layout
+    rows = rows_from_row_ptr(row_ptr, nnz, m)
+    col64 = col.long()
+    p = rows // TM
+    j1 = slot_tab[p * nblk + col64 // W].long()
+    hit = j1 > 0
+    j = j1 - 1
+    flat = ((pstep0[p] + j // g_step) * (TM * g_step * W)
+            + (rows % TM) * (g_step * W) + (j % g_step) * W + col64 % W)
+    A = torch.zeros(total_steps * TM * g_step * W, dtype=torch.float32,
+                    device=col.device)
+    A.index_put_((flat[hit],), vals[hit], accumulate=not unique_rc)
+    A = A.view(total_steps, TM, g_step * W)
+    del rows, p, j1, j, flat
+
+    miss = ~hit
+    res_src = torch.nonzero(miss).squeeze(1)  # ascending: CSR order
+    miss_cum0 = torch.cat([miss.new_zeros(1, dtype=torch.int64),
+                           torch.cumsum(miss, 0)])
+    res_row_ptr = miss_cum0[row_ptr.long()]
+    buckets, chunk_row = ell_buckets_core(res_row_ptr, col[res_src],
+                                          vals[res_src], meta=ell_meta_)
+    return A, buckets, chunk_row
+
+
+# ---------------------------------------------------------------------------
+# dense half: kernel wrapper + plain version
+# ---------------------------------------------------------------------------
+
+def _check_fwd_args(first, out_panel, win_step, A, B, n_panels, W,
+                    panel_step_ptr):
+    if A.dim() != 3 or B.dim() != 2:
+        raise ValueError(f"A must be 3-D and B 2-D, got {A.dim()}, {B.dim()}")
+    S, _, GW = A.shape
+    if W <= 0 or GW % W:
+        raise ValueError(f"A's width {GW} is not a multiple of W={W}")
+    for name, t, size in (("first", first, S), ("out_panel", out_panel, S),
+                          ("win_step", win_step, S * (GW // W)),
+                          ("panel_step_ptr", panel_step_ptr, n_panels + 1)):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != size:
+            raise ValueError(f"{name} must be int32[{size}], got "
+                             f"{t.dtype}{list(t.shape)}")
+    if A.dtype != torch.float32 or B.dtype != torch.float32:
+        raise ValueError(f"A and B must be float32, got {A.dtype}, {B.dtype}")
+    devices = {t.device for t in (first, out_panel, win_step, A, B,
+                                  panel_step_ptr)}
+    if len(devices) != 1:
+        raise ValueError(f"arguments lie on several devices: {devices}")
+
+
+def window_spmm_fwd_plain(first, out_panel, win_step, A, B, *, n_panels, W):
+    """Plain PyTorch version of the dense half: gather the (S, G·W, k)
+    window rows of B (sentinel block and rows ≥ n read as zero), one bmm,
+    then ``index_add_`` of the step products into their panels.  Returns
+    f32 [n_panels·TM, k]."""
+    S, TM, GW = A.shape
+    n, k = B.shape
+    nblk = max(-(-n // W), 1)
+    B_pad = B.new_zeros(((nblk + 1) * W, k))
+    B_pad[:n] = B
+    rows = (win_step.long()[:, None] * W
+            + torch.arange(W, device=B.device)[None, :]).reshape(S, GW)
+    Bw = B_pad[rows]                                   # [S, G*W, k]
+    out = torch.bmm(A, Bw)                             # [S, TM, k]
+    C = A.new_zeros((n_panels, TM, k))
+    C.index_add_(0, out_panel, out)
+    return C.view(n_panels * TM, k)
+
+
+def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
+                    panel_step_ptr):
+    """Dense half of the windowed hybrid: out[p] = Σ over used panel p's
+    steps s and windows g of A[s][:, g·W:(g+1)·W] · B[win_step[s·G+g]·W : +W].
+    Returns f32 [n_panels·TM, k].
+
+    CUDA tensors launch ``csrc/window_spmm.cu`` (and count the launch in
+    ``window_spmm_fwd.launches``); CPU tensors take
+    :func:`window_spmm_fwd_plain`.  Anything else raises."""
+    _check_fwd_args(first, out_panel, win_step, A, B, n_panels, W,
+                    panel_step_ptr)
+    if A.device.type == "cpu":
+        return window_spmm_fwd_plain(first, out_panel, win_step, A, B,
+                                     n_panels=n_panels, W=W)
+    if A.device.type != "cuda":
+        raise ValueError(f"no window kernel for device {A.device}")
+    S, TM, GW = A.shape
+    n, k = B.shape
+    if W % 16:
+        raise ValueError(f"the window kernel needs W % 16 == 0, got W={W}")
+    if not (A.is_contiguous() and B.is_contiguous()):
+        raise ValueError("A and B must be contiguous")
+    if A.data_ptr() % 16:
+        raise ValueError("A must be 16-byte aligned")
+    if max(n_panels, TM, n, k, GW) >= 2**31:
+        raise ValueError("a size exceeds the kernel's int32 arguments")
+    from flex_tpu_torch import kernels
+
+    lib = kernels.load("window_spmm")
+    out = torch.empty((n_panels * TM, k), dtype=torch.float32,
+                      device=A.device)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.flex_window_spmm_fwd(
+            A.data_ptr(), B.data_ptr(), win_step.data_ptr(),
+            panel_step_ptr.data_ptr(), out.data_ptr(), n_panels, TM,
+            GW // W, W, n, k, max(-(-n // W), 1), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"window_spmm kernel launch failed: CUDA error {err}")
+    window_spmm_fwd.launches += 1
+    return out
+
+
+window_spmm_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class WindowedPlan:
+    """Hybrid plan: dense windowed half + ELL residue."""
+    m: int
+    n: int
+    tm: int
+    W: int
+    n_used_panels: int
+    A: torch.Tensor               # f32 [total_steps, TM, G*W]
+    first: torch.Tensor           # i32 [total_steps]
+    out_panel: torch.Tensor       # i32 [total_steps]
+    win_step: torch.Tensor        # i32 [total_steps*G] (sentinel = nblk)
+    row_gather: torch.Tensor      # i32 [P*TM] output-assembly permutation
+    panel_step_ptr: torch.Tensor  # i32 [n_used_panels+1]
+    ell: EllPlan                  # residue
+    coverage: float
+    min_count_eff: int = 0
+
+    def __call__(self, B: torch.Tensor) -> torch.Tensor:
+        return _windowed_call(self, B)
+
+    def dense_half(self, B: torch.Tensor) -> torch.Tensor:
+        """The windowed product alone, f32 [n_used_panels·TM, k]."""
+        return window_spmm_fwd(self.first, self.out_panel, self.win_step,
+                               self.A, B, n_panels=self.n_used_panels,
+                               W=self.W, panel_step_ptr=self.panel_step_ptr)
+
+    @property
+    def stats(self) -> dict:
+        S = int(self.A.shape[0])
+        return {
+            "coverage": self.coverage,
+            "dense_bytes": self.A.numel() * 4,
+            "n_steps": S,
+            "n_res": self.ell.nnz,
+            "min_count_eff": self.min_count_eff,
+            "max_steps_per_panel": int(
+                (self.panel_step_ptr[1:] - self.panel_step_ptr[:-1]).max())
+            if self.n_used_panels else 0,
+        }
+
+
+def _windowed_call(plan: WindowedPlan, B: torch.Tensor) -> torch.Tensor:
+    if B.dim() != 2 or B.shape[0] != plan.n:
+        raise ValueError(f"B must be ({plan.n}, k), got {tuple(B.shape)}")
+    k = B.shape[1]
+    if plan.A.shape[0]:
+        out = plan.dense_half(B)
+        cat = torch.cat([out, out.new_zeros((1, k))])
+        dense = cat.index_select(0, plan.row_gather[:plan.m])
+    else:
+        dense = B.new_zeros((plan.m, k))
+    # the residue adds into the dense half in place
+    return dense if plan.ell.nnz == 0 else plan.ell(B, into=dense)
+
+
+def prepare_windowed(
+    g: CSRGraph,
+    dev: DeviceCSR | None = None,
+    device=None,
+    tm: int = 256,
+    W: int = 128,
+    J: int = 1024,
+    min_count: int = 128,
+    min_coverage: float = MIN_COVERAGE,
+    max_dense_bytes: int = MAX_DENSE_BYTES,
+    sel: dict | None = None,
+) -> WindowedPlan:
+    """Build the hybrid plan on ``dev``'s device (or ``device``; CUDA when
+    neither is given).  Refuses (ValueError) when windows would cover less
+    than ``min_coverage`` of nnz.  When the dense array at ``min_count``
+    would exceed ``max_dense_bytes`` the count gate rises until it fits
+    (see :func:`window_select`).  A ``sel`` from :func:`window_select`
+    is reused, with its device tables."""
+    device = plan_device(dev, device)
+    if dev is None:
+        dev = DeviceCSR.from_graph(g, device)
+    cap = min(max_dense_bytes, (2**31 - 2) * 4)
+    if sel is None:
+        sel = window_select(g, tm=tm, W=W, J=J, min_count=min_count,
+                            max_dense_bytes=cap)
+    if sel["dense_bytes"] > cap:
+        raise ValueError(
+            f"windowed dense array too big: {sel['dense_bytes']/1e9:.2f} GB")
+    if sel["coverage"] < min_coverage:
+        raise ValueError(
+            f"window coverage {sel['coverage']:.3f} < {min_coverage} — "
+            f"use 'ell' (or apply a clustering ordering like rbdeg first)")
+
+    tabs = _device_tables(sel, device)
+    res_deg = np.asarray(sel["res_deg"], dtype=np.int64)
+    meta, padded = ell_meta(res_deg)
+    layout = (g.nnz, g.m, tm, W, sel["nblk"], sel["total_steps"], sel["G"],
+              bool(sel["unique_rc"]))
+    A, buckets, chunk_row = _build_windowed_ell(
+        dev.row_ptr, dev.col, dev.vals, tabs["slot"], tabs["pstep0"],
+        layout=layout, ell_meta_=meta)
+    n_extras = int(chunk_row.shape[0]) - int((res_deg > 0).sum())
+    chunk1, extras = _gather_assembly_tables(chunk_row, m=g.m,
+                                             n_extras=n_extras)
+    ell = EllPlan(m=g.m, buckets=buckets, chunk_row=chunk_row,
+                  padded_nnz=padded, nnz=int(sel["n_res"]), chunk1=chunk1,
+                  extras=extras)
+    return WindowedPlan(
+        m=g.m, n=g.n, tm=tm, W=W, n_used_panels=int(sel["n_used_panels"]),
+        A=A, first=tabs["first"], out_panel=tabs["out_panel"],
+        win_step=tabs["win_step"], row_gather=tabs["row_gather"],
+        panel_step_ptr=tabs["panel_step_ptr"], ell=ell,
+        coverage=sel["coverage"],
+        min_count_eff=int(sel["min_count_eff"]),
+    )

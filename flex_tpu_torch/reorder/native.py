@@ -1,0 +1,96 @@
+"""ctypes binding + build at first use for the C++ rabbit ordering.
+
+``_native/reorder.cc`` (a copy of the JAX package's source) is compiled
+with g++ into the port's build directory.  The library name carries a hash
+of the source, so a stale build is never loaded.  Without a toolchain
+:func:`available` is False and the pure-Python ordering runs instead.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+from flex_tpu_torch.kernels import BUILD_DIR
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native",
+                    "reorder.cc")
+
+_lock = threading.Lock()
+_lib = None
+_build_error: str | None = None
+
+
+def _lib_path() -> str:
+    with open(_SRC, "rb") as f:
+        h = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libflexreorder-{h}.so")
+
+
+def _build(lib_path: str) -> None:
+    # -mtune (not -march): ISA-portable.  Built to a temporary name and
+    # renamed, so processes building at once never load a partial file.
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", "-O3", "-mtune=native", "-std=c++17",
+                        "-shared", "-fPIC", _SRC, "-o", tmp],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _load():
+    global _lib, _build_error
+    with _lock:
+        if _lib is not None or _build_error is not None:
+            return _lib
+        try:
+            lib_path = _lib_path()
+            if not os.path.exists(lib_path):
+                _build(lib_path)
+            lib = ctypes.CDLL(lib_path)
+        except (OSError, subprocess.CalledProcessError) as e:
+            _build_error = str(e)  # no toolchain: pure-Python fallback
+            return None
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        lib.flex_order_rabbit.argtypes = [
+            ctypes.c_int64, i64p, i32p, ctypes.c_int32, ctypes.c_int64,
+            i64p, i64p,
+        ]
+        lib.flex_order_rabbit.restype = None
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def order_rabbit_native(
+    row_ptr: np.ndarray, col: np.ndarray, force_undirected: bool,
+    max_rounds: int = 64, want_labels: bool = False,
+):
+    """Returns perm, or (perm, labels) with labels[old_vertex] = cluster id
+    in emission order when ``want_labels``."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"native reorder unavailable: {_build_error}")
+    n = len(row_ptr) - 1
+    out = np.empty(n, dtype=np.int64)
+    labels = np.empty(n, dtype=np.int64)
+    lib.flex_order_rabbit(
+        n, np.ascontiguousarray(row_ptr, np.int64),
+        np.ascontiguousarray(col, np.int32),
+        1 if force_undirected else 0, max_rounds, out, labels,
+    )
+    return (out, labels) if want_labels else out
