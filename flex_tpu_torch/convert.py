@@ -1,18 +1,24 @@
-"""Carry a JAX plan's format arrays into the port's plans.
+"""Carry a JAX plan's format arrays, and a JAX model's parameters, into
+the port.
 
-The system has no weights: its parameters are the format arrays.  These
-functions take a plan's fields as NumPy arrays (``np.asarray`` of each
-JAX array) and return the port's plan on ``device``, so both packages
-compute on identical formats.
+An SpMM plan has no weights: its parameters are the format arrays.  The
+plan functions take a plan's fields as NumPy arrays (``np.asarray`` of
+each JAX array) and return the port's plan on ``device``, so both
+packages compute on identical formats.
 
 ``ell_plan_from_numpy`` keys: ``m``, ``nnz``, ``padded_nnz``,
 ``buckets`` (sequence of (cols [N,w], vals [N,w])), ``chunk_row``, and
-optionally ``chunk1`` and ``extras`` ((extra_idx, extra_first) or None).
+optionally ``chunk1``, ``extras`` ((extra_idx, extra_first) or None) and
+``bwd_plan`` (a dict of the same keys: the transposed-pattern plan).
 
 ``windowed_plan_from_numpy`` keys: ``m``, ``n``, ``tm``, ``W``,
 ``n_used_panels``, ``A``, ``first``, ``out_panel``, ``win_step``,
 ``row_gather``, ``coverage``, ``ell`` (a dict as above), and optionally
-``min_count_eff``.
+``min_count_eff``.  The backward tables are recomputed from ``win_step``
+and ``out_panel``.
+
+``gcn_params_from_numpy`` loads the JAX GCN's parameter pytree
+(``W1``, ``b1``, ``W2``, ``b2``) into the port's module.
 """
 from __future__ import annotations
 
@@ -20,7 +26,9 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.ell_spmm import EllPlan
-from flex_tpu_torch.ops.window_spmm import WindowedPlan, panel_step_ptr
+from flex_tpu_torch.ops.window_spmm import (
+    WindowedPlan, bwd_device_tables, panel_step_ptr,
+)
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -30,6 +38,7 @@ def _t(a, dtype, device) -> torch.Tensor:
 def ell_plan_from_numpy(d: dict, device) -> EllPlan:
     extras = d.get("extras")
     chunk1 = d.get("chunk1")
+    bwd_plan = d.get("bwd_plan")
     return EllPlan(
         m=int(d["m"]), nnz=int(d["nnz"]), padded_nnz=int(d["padded_nnz"]),
         buckets=tuple((_t(c, np.int32, device), _t(v, np.float32, device))
@@ -38,21 +47,45 @@ def ell_plan_from_numpy(d: dict, device) -> EllPlan:
         chunk1=None if chunk1 is None else _t(chunk1, np.int32, device),
         extras=None if extras is None else tuple(
             _t(e, np.int32, device) for e in extras),
+        bwd_plan=None if bwd_plan is None
+        else ell_plan_from_numpy(bwd_plan, device),
     )
 
 
 def windowed_plan_from_numpy(d: dict, device) -> WindowedPlan:
     first = np.asarray(d["first"], np.int32)
+    win_step = np.asarray(d["win_step"], np.int32)
+    W = int(d["W"])
+    bwd = {}
+    if len(first):
+        bwd = bwd_device_tables(
+            win_step, np.asarray(d["out_panel"], np.int32),
+            max(-(-int(d["n"]) // W), 1), len(win_step) // len(first), W,
+            device)
     return WindowedPlan(
         m=int(d["m"]), n=int(d["n"]), tm=int(d["tm"]), W=int(d["W"]),
         n_used_panels=int(d["n_used_panels"]),
         A=_t(d["A"], np.float32, device),
         first=_t(first, np.int32, device),
         out_panel=_t(d["out_panel"], np.int32, device),
-        win_step=_t(d["win_step"], np.int32, device),
+        win_step=_t(win_step, np.int32, device),
         row_gather=_t(d["row_gather"], np.int32, device),
         panel_step_ptr=_t(panel_step_ptr(first), np.int32, device),
         ell=ell_plan_from_numpy(d["ell"], device),
         coverage=float(d["coverage"]),
         min_count_eff=int(d.get("min_count_eff", 0)),
+        **bwd,
     )
+
+
+def gcn_params_from_numpy(params: dict, model) -> None:
+    """Copy the four arrays of a JAX GCN parameter pytree into ``model``
+    (a :class:`flex_tpu_torch.models.GCN`), on the module's own device."""
+    with torch.no_grad():
+        for name in ("W1", "b1", "W2", "b2"):
+            p = getattr(model, name)
+            a = torch.from_numpy(np.array(params[name], dtype=np.float32))
+            if a.shape != p.shape:
+                raise ValueError(f"{name}: shape {tuple(a.shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(a)

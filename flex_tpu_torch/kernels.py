@@ -19,7 +19,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("window_spmm",)
+SOURCES = ("window_spmm", "window_spmm_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -91,3 +91,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flex_window_spmm_fwd.argtypes = [p, p, p, p, p,
                                              i, i, i, i, i, i, i, p]
         lib.flex_window_spmm_fwd.restype = i
+    elif name == "window_spmm_bwd":
+        # (g, B, win_step, out_panel, g_A, S, TM, G, W, n, k, nblk, stream)
+        lib.flex_window_bwd_gA.argtypes = [p, p, p, p, p,
+                                           i, i, i, i, i, i, i, p]
+        lib.flex_window_bwd_gA.restype = i
+        # (A, g, slot_s, slot_g, slot_ptr, out_panel, out,
+        #  n_blk_used, TM, G, W, k, stream)
+        lib.flex_window_bwd_gB.argtypes = [p, p, p, p, p, p, p,
+                                           i, i, i, i, i, p]
+        lib.flex_window_bwd_gB.restype = i

@@ -4,11 +4,16 @@
 - ``"ell"``      — width-bucketed row chunks.
 - ``"windowed"`` — dense window tiles (hand-written CUDA kernel) + ELL
                    residue, for community graphs after rbdeg/rabbit.
+
+Also here: :func:`gcn_layer` and :func:`pick_association`
+(:mod:`.gcn`), the GCN layer on any prepared plan.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from flex_tpu_torch.ops.gcn import gcn_layer, pick_association  # noqa: F401
 
 
 def spmm(g, B, method: str = "windowed", device=None, **kwargs):

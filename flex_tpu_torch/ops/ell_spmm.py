@@ -1,4 +1,5 @@
-"""ELL SpMM forward: width-bucketed row chunks.
+"""ELL SpMM: width-bucketed row chunks, with an optional
+transposed-pattern backward.
 
 Counterpart of ``flex_tpu.ops.ell_spmm``.  Each row is padded to the
 smallest bucket width ≥ its degree; rows longer than the widest bucket
@@ -10,6 +11,10 @@ rows' extra chunks (``extras``).
 The layout is built on the device from a resident CSR; the host supplies
 only the static bucket sizes.  Plain PyTorch throughout: in the JAX
 package this path is XLA, not a Pallas kernel.
+
+Training: autograd differentiates the plain ops as they stand.  A plan
+that carries a ``bwd_plan`` (:func:`with_bwd_plan`) instead computes
+g_B = Aᵀ·g with the transposed pattern's own ELL forward.
 """
 from __future__ import annotations
 
@@ -191,12 +196,42 @@ class EllPlan:
     max_gather_rows: int = 2 * 1024 * 1024
     chunk1: torch.Tensor | None = None  # i32[m] row -> first chunk
     extras: tuple | None = None         # (extra_idx, extra_first) split rows
+    bwd_plan: "EllPlan | None" = None   # transposed pattern (training)
 
     def __call__(self, B: torch.Tensor, into: torch.Tensor | None = None
                  ) -> torch.Tensor:
-        return _ell_spmm(self.buckets, self.chunk_row, B, m=self.m,
-                         max_gather_rows=self.max_gather_rows, into=into,
-                         chunk1=self.chunk1, extras=self.extras)
+        if self.bwd_plan is not None:
+            return _EllApply.apply(self, B, into)
+        return _ell_raw_call(self, B, into)
+
+
+def _ell_raw_call(plan: EllPlan, B, into):
+    return _ell_spmm(plan.buckets, plan.chunk_row, B, m=plan.m,
+                     max_gather_rows=plan.max_gather_rows, into=into,
+                     chunk1=plan.chunk1, extras=plan.extras)
+
+
+class _EllApply(torch.autograd.Function):
+    """``plan(B, into)`` with g_B = ``plan.bwd_plan(g)`` (A_resᵀ·g through
+    the ELL forward of the transposed pattern) in place of autograd's
+    scatter-add over the padded gathered rows; counterpart of the JAX
+    package's ``_ell_apply_cv`` / ``_ell_apply_cv0``.  The cotangent of
+    ``into`` is g; the plan gets none, so gradients wrt A's values are not
+    propagated here (attach a ``bwd_plan`` only when A is a constant)."""
+
+    @staticmethod
+    def forward(ctx, plan, B, into):
+        ctx.plan = plan
+        ctx.has_into = into is not None
+        if ctx.has_into:
+            ctx.mark_dirty(into)  # the accumulator is updated in place
+        return _ell_raw_call(plan, B, into)
+
+    @staticmethod
+    def backward(ctx, g):
+        g_B = ctx.plan.bwd_plan(g.contiguous()) \
+            if ctx.needs_input_grad[1] else None
+        return None, g_B, g if ctx.has_into else None
 
 
 def prepare_ell_device(row_ptr_dev, col_dev, vals_dev, *, m: int, nnz: int,
@@ -215,6 +250,41 @@ def prepare_ell_device(row_ptr_dev, col_dev, vals_dev, *, m: int, nnz: int,
                                                  n_extras=n_extras)
     return EllPlan(m=m, buckets=buckets, chunk_row=chunk_row,
                    padded_nnz=padded, nnz=nnz, chunk1=chunk1, extras=extras)
+
+
+def prepare_ell_transpose(plan: EllPlan, n: int) -> EllPlan:
+    """Transposed-pattern EllPlan built on the device from ``plan``'s own
+    buckets (so it works for the windowed hybrid's residue, whose CSR never
+    exists as arrays of its own): flatten the padded (col, val, row)
+    triples, sort by col, and feed the transposed CSR to
+    :func:`prepare_ell_device`.  Padding entries ride along as (col 0,
+    val 0) and count into transposed row 0's degree, as in the JAX
+    package.  One O(n) device-to-host copy (the transposed row_ptr) is the
+    only transfer."""
+    if not plan.buckets:
+        return EllPlan(m=n, buckets=(), padded_nnz=0, nnz=0,
+                       chunk_row=plan.chunk_row.new_zeros(0))
+    cols = torch.cat([c.reshape(-1) for c, _ in plan.buckets])
+    vals = torch.cat([v.reshape(-1) for _, v in plan.buckets])
+    offs, rows_parts = 0, []
+    for c, _ in plan.buckets:
+        N, w = c.shape
+        rows_parts.append(plan.chunk_row[offs:offs + N].repeat_interleave(w))
+        offs += N
+    rows = torch.cat(rows_parts)
+    t_row_ptr = torch.cat([cols.new_zeros(1, dtype=torch.int64), torch.cumsum(
+        torch.bincount(cols, minlength=n), 0)])
+    order = torch.sort(cols, stable=True).indices
+    return prepare_ell_device(
+        t_row_ptr, rows[order], vals[order], m=n, nnz=int(cols.shape[0]),
+        res_row_ptr_host=t_row_ptr.cpu().numpy())
+
+
+def with_bwd_plan(plan: EllPlan, n: int) -> EllPlan:
+    """Copy of ``plan`` carrying the transposed-pattern backward plan
+    (``n`` = B's row count); its call then goes through :class:`_EllApply`.
+    Only valid when A's values are constants (a graph adjacency)."""
+    return dataclasses.replace(plan, bwd_plan=prepare_ell_transpose(plan, n))
 
 
 def prepare_ell(g: CSRGraph, dev: DeviceCSR | None = None,

@@ -1,4 +1,5 @@
-"""Windowed-panel hybrid SpMM forward: dense window tiles + ELL residue.
+"""Windowed-panel hybrid SpMM: dense window tiles + ELL residue, forward
+and backward.
 
 Counterpart of ``flex_tpu.ops.window_spmm`` (row-major layout, row step
 order, fused build).  After a clustering ordering (rbdeg), each row
@@ -16,6 +17,10 @@ add.
 - :func:`window_spmm_fwd` runs the dense half: the hand-written CUDA kernel
   ``csrc/window_spmm.cu`` for CUDA tensors, :func:`window_spmm_fwd_plain`
   for CPU tensors.
+- :func:`window_bwd_gA` and :func:`window_bwd_gB` are the dense half's two
+  gradients (``csrc/window_spmm_bwd.cu``, plain versions beside them);
+  :class:`_WindowSpmm` ties the three into one differentiable call, so a
+  plan can be trained through (B and A's values; the tables are constants).
 """
 from __future__ import annotations
 
@@ -219,6 +224,58 @@ def panel_step_ptr(first: np.ndarray) -> np.ndarray:
     return np.append(np.flatnonzero(first), len(first)).astype(np.int32)
 
 
+def _bwd_tables(win_step_h: np.ndarray, out_panel_h: np.ndarray,
+                nblk: int, g_step: int, W: int):
+    """Host backward-slot tables from the selection's flat window list:
+    real slots sorted ascending by block id, so the slots that meet one
+    block of B are consecutive.  Returns ((slot_s, slot_g, panel_of, rank,
+    bfirst, rows), n_blk_used), all O(n_windows) int32, or (None, 0) when
+    there is no real window; ``rows`` are the B rows of the compact
+    rank-indexed g_B output (copy of the JAX package's host tables)."""
+    idx = np.flatnonzero(win_step_h != nblk)
+    if not len(idx):
+        return None, 0
+    order = idx[np.argsort(win_step_h[idx], kind="stable")]
+    blk_sorted = win_step_h[order].astype(np.int64)
+    bfirst = np.r_[True, np.diff(blk_sorted) != 0]
+    rank = (np.cumsum(bfirst) - 1).astype(np.int32)
+    n_blk_used = int(rank[-1]) + 1
+    uniq = blk_sorted[bfirst]
+    rows = (uniq[:, None] * W + np.arange(W, dtype=np.int64)[None, :]
+            ).ravel().astype(np.int32)
+    slot_s = (order // g_step).astype(np.int32)
+    return (slot_s, (order % g_step).astype(np.int32),
+            out_panel_h[slot_s].astype(np.int32), rank,
+            bfirst.astype(np.int32), rows), n_blk_used
+
+
+def slot_ptr(bfirst: np.ndarray) -> np.ndarray:
+    """int32[n_blk_used+1]: the sorted slots of rank r are
+    ``ptr[r] .. ptr[r+1]`` (a CUDA grid has no step order, so the g_B
+    kernel's block loops over its own slots instead of re-initialising on
+    ``bfirst``)."""
+    return np.append(np.flatnonzero(bfirst), len(bfirst)).astype(np.int32)
+
+
+def bwd_device_tables(win_step_h, out_panel_h, nblk: int, g_step: int,
+                      W: int, device) -> dict:
+    """What the backward needs on ``device`` of :func:`_bwd_tables`, as a
+    plan's fields: ``bwd_tabs`` = (slot_s, slot_g, rows), ``slot_ptr`` and
+    ``n_blk_used`` (None, None and 0 when there is no real window).
+    ``panel_of`` is ``out_panel[slot_s]`` and ``rank``/``bfirst`` are
+    ``slot_ptr`` in another form, so they stay on the host."""
+    tabs, n_blk = _bwd_tables(np.asarray(win_step_h), np.asarray(out_panel_h),
+                              nblk, g_step, W)
+    if tabs is None:
+        return {"bwd_tabs": None, "slot_ptr": None, "n_blk_used": 0}
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return {"bwd_tabs": (put(tabs[0]), put(tabs[1]), put(tabs[5])),
+            "slot_ptr": put(slot_ptr(tabs[4])), "n_blk_used": n_blk}
+
+
 def _device_tables(sel: dict, device: torch.device) -> dict:
     """The selection's tables as tensors on ``device``, made once and kept
     in ``sel`` so a repeated prepare moves nothing from the host."""
@@ -237,6 +294,11 @@ def _device_tables(sel: dict, device: torch.device) -> dict:
             "row_gather": put(sel["row_gather"], np.int32),
             "panel_step_ptr": put(panel_step_ptr(sel["first"]), np.int32),
         }
+        # backward-slot tables ride with the forward ones, so a prepare
+        # ships nothing new
+        cache[key].update(bwd_device_tables(
+            sel["win_step"], sel["out_panel"], sel["nblk"], sel["G"],
+            sel["W"], device))
     return cache[key]
 
 
@@ -285,25 +347,46 @@ def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, *, layout,
 # dense half: kernel wrapper + plain version
 # ---------------------------------------------------------------------------
 
-def _check_fwd_args(first, out_panel, win_step, A, B, n_panels, W,
-                    panel_step_ptr):
-    if A.dim() != 3 or B.dim() != 2:
-        raise ValueError(f"A must be 3-D and B 2-D, got {A.dim()}, {B.dim()}")
-    S, _, GW = A.shape
-    if W <= 0 or GW % W:
-        raise ValueError(f"A's width {GW} is not a multiple of W={W}")
-    for name, t, size in (("first", first, S), ("out_panel", out_panel, S),
-                          ("win_step", win_step, S * (GW // W)),
-                          ("panel_step_ptr", panel_step_ptr, n_panels + 1)):
+def _check_operands(tables: dict, floats: dict):
+    """``tables``: name -> (tensor, length), each int32 and 1-D;
+    ``floats``: name -> float32 tensor; all on one device."""
+    for name, (t, size) in tables.items():
         if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != size:
             raise ValueError(f"{name} must be int32[{size}], got "
                              f"{t.dtype}{list(t.shape)}")
-    if A.dtype != torch.float32 or B.dtype != torch.float32:
-        raise ValueError(f"A and B must be float32, got {A.dtype}, {B.dtype}")
-    devices = {t.device for t in (first, out_panel, win_step, A, B,
-                                  panel_step_ptr)}
+    for name, t in floats.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+    devices = {t.device for t, _ in tables.values()} | {
+        t.device for t in floats.values()}
     if len(devices) != 1:
         raise ValueError(f"arguments lie on several devices: {devices}")
+
+
+def _check_kernel_operands(W, **floats):
+    """What the CUDA kernels add to :func:`_check_operands`."""
+    if W % 16:
+        raise ValueError(f"the window kernels need W % 16 == 0, got W={W}")
+    for name, t in floats.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if max(t.shape, default=0) >= 2**31:
+            raise ValueError(f"a size of {name} exceeds the kernel's int32 "
+                             f"arguments")
+
+
+def _window_rows(win_step, W, device):
+    """B row index of every (step, window, row-in-window): i64 [S·G, W]."""
+    return win_step.long()[:, None] * W + torch.arange(W, device=device)
+
+
+def _padded(B, W):
+    """B followed by zero rows up to (nblk+1)·W: the sentinel block, and
+    the last block's rows ≥ n, read as zero (plain versions only)."""
+    n, k = B.shape
+    B_pad = B.new_zeros(((max(-(-n // W), 1) + 1) * W, k))
+    B_pad[:n] = B
+    return B_pad
 
 
 def window_spmm_fwd_plain(first, out_panel, win_step, A, B, *, n_panels, W):
@@ -311,18 +394,12 @@ def window_spmm_fwd_plain(first, out_panel, win_step, A, B, *, n_panels, W):
     window rows of B (sentinel block and rows ≥ n read as zero), one bmm,
     then ``index_add_`` of the step products into their panels.  Returns
     f32 [n_panels·TM, k]."""
-    S, TM, GW = A.shape
-    n, k = B.shape
-    nblk = max(-(-n // W), 1)
-    B_pad = B.new_zeros(((nblk + 1) * W, k))
-    B_pad[:n] = B
-    rows = (win_step.long()[:, None] * W
-            + torch.arange(W, device=B.device)[None, :]).reshape(S, GW)
-    Bw = B_pad[rows]                                   # [S, G*W, k]
+    S, TM, _ = A.shape
+    Bw = _padded(B, W)[_window_rows(win_step, W, B.device).view(S, -1)]
     out = torch.bmm(A, Bw)                             # [S, TM, k]
-    C = A.new_zeros((n_panels, TM, k))
+    C = A.new_zeros((n_panels, TM, B.shape[1]))
     C.index_add_(0, out_panel, out)
-    return C.view(n_panels * TM, k)
+    return C.view(n_panels * TM, B.shape[1])
 
 
 def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
@@ -334,23 +411,24 @@ def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
     CUDA tensors launch ``csrc/window_spmm.cu`` (and count the launch in
     ``window_spmm_fwd.launches``); CPU tensors take
     :func:`window_spmm_fwd_plain`.  Anything else raises."""
-    _check_fwd_args(first, out_panel, win_step, A, B, n_panels, W,
-                    panel_step_ptr)
+    if A.dim() != 3 or B.dim() != 2:
+        raise ValueError(f"A must be 3-D and B 2-D, got {A.dim()}, {B.dim()}")
+    S, TM, GW = A.shape
+    if W <= 0 or GW % W:
+        raise ValueError(f"A's width {GW} is not a multiple of W={W}")
+    _check_operands({"first": (first, S), "out_panel": (out_panel, S),
+                     "win_step": (win_step, S * (GW // W)),
+                     "panel_step_ptr": (panel_step_ptr, n_panels + 1)},
+                    {"A": A, "B": B})
     if A.device.type == "cpu":
         return window_spmm_fwd_plain(first, out_panel, win_step, A, B,
                                      n_panels=n_panels, W=W)
     if A.device.type != "cuda":
         raise ValueError(f"no window kernel for device {A.device}")
-    S, TM, GW = A.shape
     n, k = B.shape
-    if W % 16:
-        raise ValueError(f"the window kernel needs W % 16 == 0, got W={W}")
-    if not (A.is_contiguous() and B.is_contiguous()):
-        raise ValueError("A and B must be contiguous")
+    _check_kernel_operands(W, A=A, B=B)
     if A.data_ptr() % 16:
         raise ValueError("A must be 16-byte aligned")
-    if max(n_panels, TM, n, k, GW) >= 2**31:
-        raise ValueError("a size exceeds the kernel's int32 arguments")
     from flex_tpu_torch import kernels
 
     lib = kernels.load("window_spmm")
@@ -369,6 +447,184 @@ def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
 
 
 window_spmm_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dense half, backward: the two gradients, each a kernel with a plain version
+# ---------------------------------------------------------------------------
+
+def window_bwd_gA_plain(out_panel, win_step, g, B, *, TM, W):
+    """Plain PyTorch version of g_A: gather each step's cotangent panel
+    (S, TM, k) and its window rows of B (S, G·W, k; sentinel block and rows
+    ≥ n as zero), one bmm over k.  Returns f32 [S, TM, G·W]."""
+    S = out_panel.shape[0]
+    k = B.shape[1]
+    g_p = g.view(-1, TM, k)[out_panel.long()]                  # [S, TM, k]
+    Bw = _padded(B, W)[_window_rows(win_step, W, B.device).view(S, -1)]
+    return torch.bmm(g_p, Bw.transpose(1, 2))
+
+
+def window_bwd_gA(out_panel, win_step, g, B, *, TM, W):
+    """Gradient of the dense half wrt A's values:
+    g_A[s][:, j·W:(j+1)·W] = g[out_panel[s]·TM : +TM] · B[win_step[s·G+j]·W : +W]ᵀ.
+    Sentinel windows, and B rows ≥ n, give zeros.  Returns f32 [S, TM, G·W].
+
+    CUDA tensors launch ``csrc/window_spmm_bwd.cu`` (and count the launch
+    in ``window_bwd_gA.launches``); CPU tensors take
+    :func:`window_bwd_gA_plain`.  Anything else raises."""
+    if g.dim() != 2 or B.dim() != 2 or g.shape[1] != B.shape[1]:
+        raise ValueError(f"g and B must be 2-D with one k, got "
+                         f"{tuple(g.shape)}, {tuple(B.shape)}")
+    S = out_panel.shape[0]
+    if W <= 0 or TM <= 0 or g.shape[0] % TM or (S and win_step.shape[0] % S):
+        raise ValueError(f"g rows {g.shape[0]} / win_step "
+                         f"{win_step.shape[0]} do not fit TM={TM}, S={S}")
+    G = win_step.shape[0] // S if S else 0
+    _check_operands({"out_panel": (out_panel, S),
+                     "win_step": (win_step, S * G)}, {"g": g, "B": B})
+    if g.device.type == "cpu":
+        return window_bwd_gA_plain(out_panel, win_step, g, B, TM=TM, W=W)
+    if g.device.type != "cuda":
+        raise ValueError(f"no window kernel for device {g.device}")
+    _check_kernel_operands(W, g=g, B=B)
+    n, k = B.shape
+    from flex_tpu_torch import kernels
+
+    lib = kernels.load("window_spmm_bwd")
+    # every tile is written by the kernel, sentinel tiles as zeros
+    g_A = torch.empty((S, TM, G * W), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.flex_window_bwd_gA(
+            g.data_ptr(), B.data_ptr(), win_step.data_ptr(),
+            out_panel.data_ptr(), g_A.data_ptr(), S, TM, G, W, n, k,
+            max(-(-n // W), 1), ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"window_bwd_gA kernel launch failed: CUDA error "
+                           f"{err}")
+    window_bwd_gA.launches += 1
+    return g_A
+
+
+window_bwd_gA.launches = 0
+
+
+def window_bwd_gB_plain(slot_s, slot_g, slot_ptr, out_panel, A, g, *, W,
+                        n_blk_used):
+    """Plain PyTorch version of the compact g_B: one bmm A[s]ᵀ·g_panel(s)
+    per step (f32 [S, G·W, k], a (W, k) product per window), then
+    ``index_add_`` of the real slots' products into their block's rank.
+    Returns f32 [n_blk_used·W, k]."""
+    S, TM, GW = A.shape
+    k = g.shape[1]
+    g_p = g.view(-1, TM, k)[out_panel.long()]                  # [S, TM, k]
+    gw = torch.bmm(A.transpose(1, 2), g_p).view(S * (GW // W), W, k)
+    flat = slot_s.long() * (GW // W) + slot_g.long()
+    ptr = slot_ptr.long()
+    rank = torch.repeat_interleave(
+        torch.arange(n_blk_used, device=A.device), ptr[1:] - ptr[:-1],
+        output_size=slot_s.shape[0])
+    out = A.new_zeros((n_blk_used, W, k))
+    out.index_add_(0, rank, gw[flat])
+    return out.view(n_blk_used * W, k)
+
+
+def window_bwd_gB(slot_s, slot_g, slot_ptr, out_panel, A, g, *, W,
+                  n_blk_used):
+    """Gradient of the dense half wrt B, compact: for the r-th distinct
+    window block, rows r·W .. r·W+W of the result hold
+    Σ over its slots t of A[s][:, slot_g[t]·W : +W]ᵀ · g[out_panel[s]·TM : +TM],
+    s = slot_s[t].  Slots are sorted by block id:
+    ``slot_ptr[r] .. slot_ptr[r+1]`` are the slots of rank r.
+    Returns f32 [n_blk_used·W, k]; the caller scatters it to B's rows.
+
+    CUDA tensors launch ``csrc/window_spmm_bwd.cu`` (and count the launch
+    in ``window_bwd_gB.launches``); CPU tensors take
+    :func:`window_bwd_gB_plain`.  Anything else raises."""
+    if A.dim() != 3 or g.dim() != 2:
+        raise ValueError(f"A must be 3-D and g 2-D, got {A.dim()}, {g.dim()}")
+    S, TM, GW = A.shape
+    if W <= 0 or GW % W or g.shape[0] % TM:
+        raise ValueError(f"A's width {GW} / g's rows {g.shape[0]} do not fit "
+                         f"W={W}, TM={TM}")
+    n_win = slot_s.shape[0]
+    _check_operands({"slot_s": (slot_s, n_win), "slot_g": (slot_g, n_win),
+                     "slot_ptr": (slot_ptr, n_blk_used + 1),
+                     "out_panel": (out_panel, S)}, {"A": A, "g": g})
+    if A.device.type == "cpu":
+        return window_bwd_gB_plain(slot_s, slot_g, slot_ptr, out_panel, A, g,
+                                   W=W, n_blk_used=n_blk_used)
+    if A.device.type != "cuda":
+        raise ValueError(f"no window kernel for device {A.device}")
+    _check_kernel_operands(W, A=A, g=g)
+    if A.data_ptr() % 16:
+        raise ValueError("A must be 16-byte aligned")
+    k = g.shape[1]
+    from flex_tpu_torch import kernels
+
+    lib = kernels.load("window_spmm_bwd")
+    out = torch.empty((n_blk_used * W, k), dtype=torch.float32,
+                      device=A.device)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.flex_window_bwd_gB(
+            A.data_ptr(), g.data_ptr(), slot_s.data_ptr(), slot_g.data_ptr(),
+            slot_ptr.data_ptr(), out_panel.data_ptr(), out.data_ptr(),
+            n_blk_used, TM, GW // W, W, k, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"window_bwd_gB kernel launch failed: CUDA error "
+                           f"{err}")
+    window_bwd_gB.launches += 1
+    return out
+
+
+window_bwd_gB.launches = 0
+
+
+class _WindowSpmm(torch.autograd.Function):
+    """The dense half as one differentiable call (counterpart of the JAX
+    package's ``_window_pallas_vjp``): forward :func:`window_spmm_fwd`,
+    backward :func:`window_bwd_gA` when A needs a gradient and
+    :func:`window_bwd_gB` when B does.  The plan's integer tables are
+    constants.  A plan stripped of its backward tables gets them derived
+    again from ``win_step`` at each backward, so g_B has one route."""
+
+    @staticmethod
+    def forward(ctx, plan, A, B):
+        ctx.plan = plan
+        ctx.save_for_backward(A, B)
+        return window_spmm_fwd(plan.first, plan.out_panel, plan.win_step, A,
+                               B, n_panels=plan.n_used_panels, W=plan.W,
+                               panel_step_ptr=plan.panel_step_ptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        A, B = ctx.saved_tensors
+        g = g.contiguous()
+        W, n = plan.W, plan.n
+        g_A = g_B = None
+        if ctx.needs_input_grad[1]:
+            g_A = window_bwd_gA(plan.out_panel, plan.win_step, g, B,
+                                TM=A.shape[1], W=W)
+        if ctx.needs_input_grad[2]:
+            nblk = max(-(-n // W), 1)
+            tabs = {"bwd_tabs": plan.bwd_tabs, "slot_ptr": plan.slot_ptr,
+                    "n_blk_used": plan.n_blk_used}
+            if plan.bwd_tabs is None:
+                tabs = bwd_device_tables(
+                    plan.win_step.cpu().numpy(), plan.out_panel.cpu().numpy(),
+                    nblk, A.shape[2] // W, W, A.device)
+            # rows of the last block beyond n are computed and dropped
+            g_B_pad = B.new_zeros((nblk * W, B.shape[1]))
+            if tabs["bwd_tabs"] is not None:   # else no window is real
+                slot_s, slot_g, rows = tabs["bwd_tabs"]
+                blk = window_bwd_gB(slot_s, slot_g, tabs["slot_ptr"],
+                                    plan.out_panel, A, g, W=W,
+                                    n_blk_used=tabs["n_blk_used"])
+                g_B_pad.index_copy_(0, rows.long(), blk)
+            g_B = g_B_pad[:n]
+        return None, g_A, g_B
 
 
 # ---------------------------------------------------------------------------
@@ -392,15 +648,19 @@ class WindowedPlan:
     ell: EllPlan                  # residue
     coverage: float
     min_count_eff: int = 0
+    # block-sorted slot tables of the backward, i32: (slot_s, slot_g, rows);
+    # None = no real window, or derive them at each backward
+    bwd_tabs: tuple | None = None
+    n_blk_used: int = 0                      # distinct window blocks
+    slot_ptr: torch.Tensor | None = None     # i32 [n_blk_used+1]
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
         return _windowed_call(self, B)
 
     def dense_half(self, B: torch.Tensor) -> torch.Tensor:
-        """The windowed product alone, f32 [n_used_panels·TM, k]."""
-        return window_spmm_fwd(self.first, self.out_panel, self.win_step,
-                               self.A, B, n_panels=self.n_used_panels,
-                               W=self.W, panel_step_ptr=self.panel_step_ptr)
+        """The windowed product alone, f32 [n_used_panels·TM, k];
+        differentiable in B and in ``self.A``."""
+        return _WindowSpmm.apply(self, self.A, B)
 
     @property
     def stats(self) -> dict:
@@ -485,4 +745,20 @@ def prepare_windowed(
         panel_step_ptr=tabs["panel_step_ptr"], ell=ell,
         coverage=sel["coverage"],
         min_count_eff=int(sel["min_count_eff"]),
+        bwd_tabs=tabs["bwd_tabs"], n_blk_used=tabs["n_blk_used"],
+        slot_ptr=tabs["slot_ptr"],
     )
+
+
+def with_training_bwd(plan: WindowedPlan) -> WindowedPlan:
+    """Copy of ``plan`` whose residue ELL carries a transposed-pattern
+    backward plan (:func:`.ell_spmm.with_bwd_plan`): the residue's g_B then
+    runs as A_resᵀ·g through the ELL forward instead of autograd's
+    scatter-add over the padded gathered rows.  Valid only when A's values
+    are constants (a graph adjacency): gradients wrt the residue's values
+    are not propagated."""
+    if plan.ell.nnz == 0 or not plan.ell.buckets:
+        return plan
+    from flex_tpu_torch.ops.ell_spmm import with_bwd_plan
+
+    return dataclasses.replace(plan, ell=with_bwd_plan(plan.ell, plan.n))

@@ -1,5 +1,6 @@
-"""Card-only tests of the PyTorch port: the hand CUDA window kernel against
-its plain twin, and whole plans on the card against SciPy.  Every test is
+"""Card-only tests of the PyTorch port: the hand CUDA window kernels
+(forward, g_A, g_B) against their plain twins, whole plans on the card
+against SciPy, gradients against SciPy's Aᵀ·co, and a few GCN train steps.  Every test is
 marked ``cuda`` and skips without a card.  The file imports no JAX, so on
 a machine with PyTorch alone it runs as
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
@@ -11,7 +12,8 @@ from flex_tpu_torch import prepare_ell, prepare_windowed
 from flex_tpu_torch.io import community_graph, make_features
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.ops.window_spmm import (
-    window_spmm_fwd, window_spmm_fwd_plain,
+    window_bwd_gA, window_bwd_gA_plain, window_bwd_gB, window_bwd_gB_plain,
+    window_spmm_fwd, window_spmm_fwd_plain, with_training_bwd,
 )
 from flex_tpu_torch.reorder import reorder
 from flex_tpu_torch.sparse.csr import CSRGraph
@@ -134,3 +136,87 @@ def test_window_kernel_refuses_what_it_cannot_take(cuda):
     A = torch.zeros(size + 1, device=cuda)[1:].view(1, 256, 256)
     with pytest.raises(ValueError, match="aligned"):
         window_spmm_fwd(*t, A, B, **kw)
+
+
+@pytest.mark.parametrize("k", [41, 128])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bwd_kernels_match_plain(cuda, name, k):
+    """g_A and g_B kernels on a plan's own tables against their plain
+    versions (f32 sums in another order: rtol=atol=1e-4)."""
+    make, kw = CASES[name]
+    plan = prepare_windowed(make(), device=cuda, **kw)
+    g = torch.rand((plan.n_used_panels * plan.tm, k), device=cuda) * 2 - 1
+    B = torch.rand((plan.n, k), device=cuda) * 2 - 1
+    before = (window_bwd_gA.launches, window_bwd_gB.launches)
+    gA = window_bwd_gA(plan.out_panel, plan.win_step, g, B, TM=plan.tm,
+                       W=plan.W)
+    slot_s, slot_g, _ = plan.bwd_tabs
+    kw3 = dict(W=plan.W, n_blk_used=plan.n_blk_used)
+    gB = window_bwd_gB(slot_s, slot_g, plan.slot_ptr, plan.out_panel, plan.A,
+                       g, **kw3)
+    assert (window_bwd_gA.launches, window_bwd_gB.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(
+        gA, window_bwd_gA_plain(plan.out_panel, plan.win_step, g, B,
+                                TM=plan.tm, W=plan.W), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        gB, window_bwd_gB_plain(slot_s, slot_g, plan.slot_ptr,
+                                plan.out_panel, plan.A, g, **kw3),
+        rtol=1e-4, atol=1e-4)
+    sentinel = (plan.win_step == -(-plan.n // plan.W)).view(len(gA), -1)
+    S, TM = gA.shape[:2]
+    s_idx, j_idx = sentinel.nonzero(as_tuple=True)
+    assert not bool(gA.view(S, TM, -1, plan.W)[s_idx, :, j_idx].any())
+
+
+@pytest.mark.parametrize("training_bwd", [False, True])
+def test_windowed_grad_matches_scipy_on_card(cuda, training_bwd):
+    g = CASES["community"][0]()
+    plan = prepare_windowed(g, device=cuda, **CASES["community"][1])
+    assert plan.ell.nnz > 0
+    if training_bwd:
+        plan = with_training_bwd(plan)
+    co = np.random.default_rng(0).random((g.m, 41), np.float32)
+    B = torch.from_numpy(make_features(g, 41)).to(cuda).requires_grad_()
+    (plan(B) * torch.from_numpy(co).to(cuda)).sum().backward()
+    np.testing.assert_allclose(B.grad.cpu().numpy(), g.to_scipy().T @ co,
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_plan_without_tables_still_launches_the_gB_kernel(cuda):
+    """A plan stripped of its backward tables derives them again: on the
+    card its g_B comes from the kernel, never from plain tensor ops."""
+    import dataclasses
+
+    g = CASES["community"][0]()
+    plan = prepare_windowed(g, device=cuda, **CASES["community"][1])
+    co = torch.rand((g.m, 41), device=cuda)
+    grads = []
+    for p in (plan, dataclasses.replace(plan, bwd_tabs=None, slot_ptr=None,
+                                        n_blk_used=0)):
+        B = torch.from_numpy(make_features(g, 41)).to(cuda).requires_grad_()
+        n3 = window_bwd_gB.launches
+        (p(B) * co).sum().backward()
+        assert window_bwd_gB.launches == n3 + 1
+        grads.append(B.grad)
+    # the residue's scatter-add sums in an order of its own on each run
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+
+
+def test_gcn_trains_on_card(cuda):
+    from flex_tpu_torch.models import GCN, make_train_step
+
+    g = CASES["community"][0]()
+    plan = prepare_windowed(g, device=cuda, **CASES["community"][1])
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(make_features(g, 32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 7, g.m)).to(cuda)
+    model = GCN(32, 32, 7, nnz=g.nnz,
+                generator=torch.Generator().manual_seed(0)).to(cuda)
+    step = make_train_step(model, plan,
+                           torch.optim.Adam(model.parameters(), lr=1e-2))
+    n3 = window_bwd_gB.launches
+    losses = [float(step(X, y, torch.ones(g.m, device=cuda)))
+              for _ in range(5)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    assert window_bwd_gB.launches == n3 + 10
