@@ -8,9 +8,10 @@
 Phases:
   1. environment: card name and power limit, torch/CUDA versions; TF32 off.
   2. build every CUDA kernel of the package from ``flex_tpu_torch/csrc``.
-  3. each kernel (forward, g_A, g_B) against its plain PyTorch version on
-     random tables at the main path's shapes (k = 128 and k = 41), with
-     the tolerance stated there.
+  3. each kernel (forward, g_A, g_B; transposed forward, band v2 and v1,
+     GE-SpMM partials) against its plain PyTorch version on random tables
+     at its path's shapes (k = 128 and k = 41), with the tolerance stated
+     there.
   4. the forward path at full size: reddit_posts(seed=0) -> rbdeg ->
      window_select(tm=256, W=128, min_count=64, max_dense_bytes=6 GiB) ->
      prepare_windowed on cuda -> plan(B), B = make_features(g, 128),
@@ -29,6 +30,19 @@ Phases:
      finite and falling loss, ms/step, peak memory and the step's split.
   8. the two backward kernels on the main path's own tensors, as in 5
      (g_B at k = 128 and k = 41).
+  9. the transposed windowed plan at full size: the same graph, ordering
+     and selection, ``prepare_windowed(transposed=True)`` through
+     ``bench_spmm`` at k = 41 and k = 32 (err_frac <= 1e-4), the
+     transposed kernel against plain on its tensors, its time beside the
+     row-major kernel's at the same k.
+ 10. GE-SpMM at full size on that graph (w = 32, k = 128 and 41).
+ 11. the baselines ``"xla"`` and ``"bcoo"`` at full size (k = 128).
+ 12. band at full size: banded_graph(262144, 256, 64.0, seed=2), tm = 256,
+     k = 128, the three impls through ``bench_spmm``, both band kernels
+     against plain on the plans' tensors.
+Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
+versions on random tables.  Each path is driven with the launch counts
+set to 0 just before it and read just after.
 Then one JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA card the script exits 2 and prints no
@@ -113,10 +127,30 @@ def random_window_case(torch, rng, steps_per_panel, n, dev, TM=256, G=4,
     return t, n_panels, W, torch.from_numpy(ptr).to(dev)
 
 
+def _worst(torch, err, tol):
+    return float(err.max()), float((err / tol.clamp_min(1e-30)).max()), \
+        bool((err > tol).any())
+
+
+def hold_to_plain(torch, name, label, out, ref, absprod, L):
+    """|kernel - plain| <= 2·L·eps32·(|a|·|b|) elementwise, L the
+    contraction length (a tensor that broadcasts, or a number): the
+    worst-case f32 rounding of two length-L sums taken in different
+    orders.  Returns max_abs_err."""
+    tol = 2 * L * EPS32 * absprod.double()
+    max_err, ratio, bad = _worst(torch, (out.double() - ref.double()).abs(),
+                                 tol)
+    if bad or not bool(torch.isfinite(out).all()) or out.shape != ref.shape:
+        raise AssertionError(f"{name} kernel disagrees with plain on {label}:"
+                             f" max_abs_err={max_err:.3e} ratio={ratio:.3f}")
+    log(f"[kernel-vs-plain] {name} {label}: max_abs_err={max_err:.3e} "
+        f"worst err/bound={ratio:.4f} ok")
+    return max_err
+
+
 def check_window_kernel(torch, t, n_panels, W, ptr, label):
-    """|C_kernel - C_plain| <= 2·L·eps32·(|A|·|B|) elementwise, L = the
-    panel's contraction length (steps·G·W): the worst-case f32 rounding of
-    two length-L sums taken in different orders."""
+    """Kernel 1 against its plain version; L = the panel's contraction
+    length (steps·G·W)."""
     from flex_tpu_torch.ops.window_spmm import (
         window_spmm_fwd, window_spmm_fwd_plain,
     )
@@ -130,16 +164,7 @@ def check_window_kernel(torch, t, n_panels, W, ptr, label):
                                     n_panels=n_panels, W=W)
     TM, GW = t["A"].shape[1], t["A"].shape[2]
     L = ((ptr[1:] - ptr[:-1]).double() * GW).repeat_interleave(TM)[:, None]
-    tol = 2 * L * EPS32 * absprod.double()
-    err = (C_k.double() - C_p.double()).abs()
-    ratio = float((err / tol.clamp_min(1e-30)).max())
-    max_err = float(err.max())
-    if not bool(torch.isfinite(C_k).all()) or bool((err > tol).any()):
-        raise AssertionError(f"window kernel disagrees with plain on {label}:"
-                             f" max_abs_err={max_err:.3e} ratio={ratio:.3f}")
-    log(f"[kernel-vs-plain] window_spmm {label}: max_abs_err={max_err:.3e} "
-        f"worst err/bound={ratio:.4f} ok")
-    return max_err
+    return hold_to_plain(torch, "window_spmm", label, C_k, C_p, absprod, L)
 
 
 def check_window_kernel_ks(torch, t, n_panels, W, ptr, label, ks=(K, 41)):
@@ -164,11 +189,6 @@ def bwd_slot_tables(win_step, out_panel, n, W, G):
         return None
     return {"slot_s": d["bwd_tabs"][0], "slot_g": d["bwd_tabs"][1],
             "slot_ptr": d["slot_ptr"], "n_blk_used": d["n_blk_used"]}
-
-
-def _worst(torch, err, tol):
-    return float(err.max()), float((err / tol.clamp_min(1e-30)).max()), \
-        bool((err > tol).any())
 
 
 def check_gA_kernel(torch, out_panel, win_step, g, B, TM, W, label,
@@ -219,15 +239,8 @@ def check_gB_kernel(torch, tabs, out_panel, A, g, W, label):
     absprod = window_bwd_gB_plain(*args, A.abs(), g.abs(), **kw)
     ptr = tabs["slot_ptr"]
     L = ((ptr[1:] - ptr[:-1]).double() * A.shape[1]).repeat_interleave(W)
-    max_err, ratio, bad = _worst(
-        torch, (out.double() - ref.double()).abs(),
-        2 * L[:, None] * EPS32 * absprod.double())
-    if bad or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"g_B kernel disagrees with plain on {label}: "
-                             f"max_abs_err={max_err:.3e} ratio={ratio:.3f}")
-    log(f"[kernel-vs-plain] window_bwd_gB {label}: max_abs_err={max_err:.3e} "
-        f"worst err/bound={ratio:.4f} ok")
-    return max_err
+    return hold_to_plain(torch, "window_bwd_gB", label, out, ref, absprod,
+                         L[:, None])
 
 
 def check_bwd_kernels(torch, t, n_panels, W, label, ks=(K, 41)):
@@ -244,6 +257,155 @@ def check_bwd_kernels(torch, t, n_panels, W, label, ks=(K, 41)):
         if tabs is not None:
             check_gB_kernel(torch, tabs, t["out_panel"], t["A"], g, W,
                             f"{label} k={k}")
+
+
+def check_window_t_kernel(torch, first, out_panel, win_step, A_T, B_T,
+                          n_panels, W, ptr, label):
+    """Kernel 4 against its plain version; L = the panel's steps·G·W."""
+    from flex_tpu_torch.ops.window_spmm import (
+        window_spmm_t_fwd, window_spmm_t_fwd_plain,
+    )
+
+    args = (first, out_panel, win_step)
+    kw = dict(n_panels=n_panels, W=W)
+    out = window_spmm_t_fwd(*args, A_T, B_T, panel_step_ptr=ptr, **kw)
+    torch.cuda.synchronize()
+    ref = window_spmm_t_fwd_plain(*args, A_T, B_T, **kw)
+    absprod = window_spmm_t_fwd_plain(*args, A_T.abs(), B_T.abs(), **kw)
+    S, GW, TM = A_T.shape
+    L = ((ptr[1:] - ptr[:-1]).double() * GW).repeat_interleave(TM)[None, :]
+    return hold_to_plain(torch, "window_spmm_t_fwd", label, out, ref,
+                         absprod, L)
+
+
+def check_band_kernels(torch, rng, P, TM, W, n, k, label, dev="cuda"):
+    """Kernels 5 and 6 on random band tables: windows anywhere in B,
+    including ones that run past n (B rows >= n read as zero)."""
+    from flex_tpu_torch.ops.pallas_band import (
+        band_spmm_v1, band_spmm_v1_plain, band_spmm_v2, band_spmm_v2_plain,
+    )
+
+    B = torch.rand((n, k), device=dev) * 2 - 1
+    a = [torch.rand((P, TM, W), device=dev) * 2 - 1 for _ in range(2)]
+    iW = rng.integers(0, -(-n // W), P)
+    iW[::3] = -(-n // W) - 1            # the right half lies beyond n
+    iW = torch.from_numpy(iW.astype(np.int32)).to(dev)
+    out = band_spmm_v2(a[0], a[1], iW, B)
+    torch.cuda.synchronize()
+    e2 = hold_to_plain(
+        torch, "band_spmm_v2", label, out, band_spmm_v2_plain(*a, iW, B),
+        band_spmm_v2_plain(a[0].abs(), a[1].abs(), iW, B.abs()), 2 * W)
+    ws = rng.integers(0, -(-n // 128), P)
+    ws[::3] = -(-n // 128) - 1          # the window runs past n
+    ws = torch.from_numpy(ws.astype(np.int32)).to(dev)
+    out = band_spmm_v1(a[0], ws, B)
+    torch.cuda.synchronize()
+    e1 = hold_to_plain(
+        torch, "band_spmm_v1", label, out, band_spmm_v1_plain(a[0], ws, B),
+        band_spmm_v1_plain(a[0].abs(), ws, B.abs()), W)
+    return e2, e1
+
+
+def hub_and_empty_graph(rng, m=5000, w=32):
+    """A zero-degree row, rows shorter than, equal to and longer than the
+    chunk width, one hub row of 40 chunks; the chunk count is not a
+    multiple of 8, so the plan has pad chunks."""
+    from flex_tpu_torch.sparse.csr import CSRGraph
+
+    deg = rng.integers(0, 3 * w, m)
+    deg[:4] = (0, w, w + 1, 40 * w - 5)
+    deg[-1] = 0
+    if int((-(-deg // w)).sum()) % 8 == 0:
+        deg[5] += w
+    rows = np.repeat(np.arange(m), deg)
+    cols = rng.integers(0, m, len(rows))
+    vals = (2 * rng.random(len(rows)) - 1).astype(np.float32)
+    return CSRGraph.from_coo(rows, cols, vals, m, name="hub_and_empty")
+
+
+def check_gespmm_kernel(torch, cols, vals, B, label):
+    """Kernel 7 against its plain version; L = the chunk width."""
+    from flex_tpu_torch.ops.gespmm import (
+        gespmm_partials, gespmm_partials_plain,
+    )
+
+    out = gespmm_partials(cols, vals, B)
+    torch.cuda.synchronize()
+    return hold_to_plain(
+        torch, "gespmm_partials", label, out,
+        gespmm_partials_plain(cols, vals, B),
+        gespmm_partials_plain(cols, vals.abs(), B.abs()), cols.shape[1])
+
+
+def check_plan_against_scipy(g, plan, B, gold, label, limit=1e-4):
+    """plan(B) on the card against SciPy under res_check."""
+    from flex_tpu_torch.utils.check import res_check
+
+    import torch
+
+    C = plan(torch.from_numpy(B).cuda())
+    if tuple(C.shape) != gold.shape or not bool(C.isfinite().all()):
+        raise AssertionError(f"{label}: output {tuple(C.shape)} is not a "
+                             f"finite {gold.shape} tensor")
+    chk = res_check(gold, C.cpu().numpy(), g.degrees)
+    if chk.err_frac > limit:
+        raise AssertionError(f"{label}: err_frac={chk.err_frac} > {limit}")
+    log(f"[plan-vs-scipy] {label}: err_frac={chk.err_frac} "
+        f"max_err={chk.max_err:.3e} ok")
+    return chk.err_frac
+
+
+def phase_new_kernels_vs_plain(torch, dev="cuda"):
+    """Kernels 4-7 against their plain versions on random tables, at
+    k = 128 and k = 41 (and the transposed kernel's own k = 32)."""
+    from flex_tpu_torch.io.csv_loader import make_features
+    from flex_tpu_torch.io.synth import banded_graph
+    from flex_tpu_torch.ops.gespmm import prepare_gespmm
+    from flex_tpu_torch.ops.pallas_band import prepare_band
+    from flex_tpu_torch.ops.ref import spmm_scipy
+
+    rng = np.random.default_rng(2)
+    # kernel 4: sentinels, a 48-step panel, trailing empty panels, n % W != 0
+    steps = np.concatenate([[1, 48], rng.integers(1, 16, 30)])
+    for TM in (256, 128):
+        t, n_panels, W, ptr = random_window_case(
+            torch, rng, steps, 30_000 + 37, dev, TM=TM)
+        A_T = t["A"].transpose(1, 2).contiguous()
+        for k in (K, 41, 32):
+            B_T = torch.rand((k, t["B"].shape[0]), device=dev) * 2 - 1
+            check_window_t_kernel(
+                torch, t["first"], t["out_panel"], t["win_step"], A_T, B_T,
+                n_panels, W, ptr,
+                f"S={int(steps.sum())} panels={n_panels} TM={TM} k={k}")
+        del t, A_T
+    # kernels 5 and 6: TM a multiple of the 128-row tile or not, W = 768
+    # (the full-size band's) and 128, n % W != 0
+    for P, TM, W in ((40, 256, 768), (9, 200, 128), (5, 8, 256)):
+        for k in (K, 41):
+            check_band_kernels(torch, rng, P, TM, W, 20_000 + 77, k,
+                               f"P={P} TM={TM} W={W} k={k}", dev=dev)
+    # m % tm != 0 through the plans, against SciPy
+    gb = banded_graph(5000, 300, 40.0, seed=3)
+    for k in (K, 41):
+        Bb = make_features(gb, k)
+        gold = spmm_scipy(gb, Bb)
+        for impl in ("pallas2", "pallas"):
+            check_plan_against_scipy(
+                gb, prepare_band(gb, device=dev, tm=256, impl=impl), Bb, gold,
+                f"band impl={impl} m=5000 tm=256 k={k}")
+    # kernel 7: pad chunks, a zero-degree row, rows longer than w
+    gh = hub_and_empty_graph(rng)
+    for w in (32, 7):
+        plan = prepare_gespmm(gh, w=w, device=dev)
+        if int((plan.chunk_row == gh.m).sum()) == 0:
+            raise AssertionError("the gespmm case has no pad chunk")
+        for k in (K, 41):
+            Bh = make_features(gh, k)
+            check_gespmm_kernel(torch, plan.cols, plan.vals,
+                                torch.from_numpy(Bh).to(dev),
+                                f"hub+empty N={plan.cols.shape[0]} w={w} k={k}")
+            check_plan_against_scipy(gh, plan, Bh, spmm_scipy(gh, Bh),
+                                     f"gespmm w={w} k={k}")
 
 
 def phase_kernels_vs_plain(torch, dev="cuda"):
@@ -300,7 +462,7 @@ def load_graph():
 def window_bytes_flops(plan, k):
     """Bytes the dense half must move (real windows of A, B, tables, the
     output) and its multiply-adds, for this selection."""
-    S, TM, GW = plan.A.shape
+    TM = plan.tm
     n_win = int((plan.win_step != max(-(-plan.n // plan.W), 1)).sum())
     n_bytes = (n_win * TM * plan.W * 4 + plan.n * k * 4
                + plan.win_step.numel() * 4 + plan.panel_step_ptr.numel() * 4
@@ -413,22 +575,32 @@ def check_gB_against_scipy(g, gB, gold, col_deg, label):
     return chk.err_frac
 
 
-def reset_launches():
+def kernel_wrappers() -> list:
+    """The seven kernel wrappers, in the order of the kernels line."""
+    from flex_tpu_torch.ops.gespmm import gespmm_partials
+    from flex_tpu_torch.ops.pallas_band import band_spmm_v1, band_spmm_v2
     from flex_tpu_torch.ops.window_spmm import (
-        window_bwd_gA, window_bwd_gB, window_spmm_fwd,
+        window_bwd_gA, window_bwd_gB, window_spmm_fwd, window_spmm_t_fwd,
     )
 
-    for fn in (window_spmm_fwd, window_bwd_gA, window_bwd_gB):
+    return [window_spmm_fwd, window_bwd_gA, window_bwd_gB, window_spmm_t_fwd,
+            band_spmm_v2, band_spmm_v1, gespmm_partials]
+
+
+def reset_launches():
+    for fn in kernel_wrappers():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from flex_tpu_torch.ops.window_spmm import (
-        window_bwd_gA, window_bwd_gB, window_spmm_fwd,
-    )
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 
-    return {fn.__name__: fn.launches
-            for fn in (window_spmm_fwd, window_bwd_gA, window_bwd_gB)}
+
+def expect_launches(launches: dict, what: str, **counts):
+    """The named wrappers launched exactly ``counts``; every other, none."""
+    want = {name: counts.get(name, 0) for name in launches}
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, expected {want}")
 
 
 def phase_gradient(torch, g, plan, B_dev):
@@ -457,10 +629,8 @@ def phase_gradient(torch, g, plan, B_dev):
     launches = read_launches()
     log(f"[grad] loss={float(loss.detach()):.6e} launches={launches} peak_mem="
         f"{torch.cuda.max_memory_allocated()}")
-    if launches != {"window_spmm_fwd": 1, "window_bwd_gA": 1,
-                    "window_bwd_gB": 1}:
-        raise AssertionError(f"gradient path launches {launches}, expected "
-                             f"one of each kernel")
+    expect_launches(launches, "the gradient path", window_spmm_fwd=1,
+                    window_bwd_gA=1, window_bwd_gB=1)
     check_gB_against_scipy(g, Bg.grad, gold, col_deg, "plan")
     # g_A of the backward against the plain version, on the same cotangent
     g_dense = dense_cotangent(torch, plan, co)
@@ -483,9 +653,9 @@ def phase_gradient(torch, g, plan, B_dev):
     (tplan(Bg2) * co).sum().backward()
     torch.cuda.synchronize()
     l2 = read_launches()
-    if l2 != {"window_spmm_fwd": 1, "window_bwd_gA": 0, "window_bwd_gB": 1}:
-        raise AssertionError(f"training-backward path launches {l2}: A is a "
-                             f"constant there, so no g_A")
+    # A is a constant there, so no g_A
+    expect_launches(l2, "the training-backward path", window_spmm_fwd=1,
+                    window_bwd_gB=1)
     check_gB_against_scipy(g, Bg2.grad, gold, col_deg, "with_training_bwd")
     diff = float((Bg2.grad - Bg.grad).abs().max())
     log(f"[grad] g_B with vs without the transposed residue backward: "
@@ -616,10 +786,9 @@ def phase_training(torch, g, plan, tplan, X, time_cuda_ms, smi,
     with torch.no_grad():
         after = float(gcn_loss(model, plan, X, y, mask))
     log(f"[train] losses {[round(x, 6) for x in losses]} then {after:.6f}")
-    if launches != {"window_spmm_fwd": 14, "window_bwd_gA": 0,
-                    "window_bwd_gB": 14}:
-        raise AssertionError(f"7 train steps launched {launches}; expected "
-                             f"2 forward and 2 g_B per step and no g_A")
+    # 2 forward and 2 g_B per step, and no g_A
+    expect_launches(launches, "7 train steps", window_spmm_fwd=14,
+                    window_bwd_gB=14)
     if not np.isfinite(losses + [after]).all() or not after < losses[0]:
         raise AssertionError(f"loss {losses[0]} -> {after}: not finite and "
                              f"falling")
@@ -766,6 +935,288 @@ def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
     }]
 
 
+def csr_tensor(torch, g):
+    """The graph as a sparse CSR tensor on the card: the operand of the
+    library yardstick ``torch.sparse.mm``, used nowhere in the package's
+    kernel paths."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(g.row_ptr).cuda(),
+        torch.from_numpy(g.col.astype(np.int64)).cuda(),
+        torch.from_numpy(g.vals).cuda(), size=g.shape)
+
+
+def bench_checked(bench_spmm, g, k, method, label, **kw):
+    """``bench_spmm`` with err_frac held to 1e-4.  Returns (result, plan)."""
+    r, plan = bench_spmm(g, k, method, **kw)
+    if r.err_frac is None or r.err_frac > 1e-4:
+        raise AssertionError(f"{label}: err_frac={r.err_frac} > 1e-4")
+    log(f"[{label}] " + json.dumps({
+        "k": k, "t_pre_s": r.t_pre_s, "t_elap_ms": r.t_elap_ms,
+        "gflops": r.gflops, "err_frac": r.err_frac}))
+    return r, plan
+
+
+def phase_transposed(torch, g, dev, sel, plan, B, gold, peaks, bench_spmm,
+                     time_cuda_ms):
+    """The transposed windowed plan at full size, on the main path's
+    graph, ordering and selection, at k = 41 and k = 32 (the GCN's class
+    count and the narrow width of the JAX package's sweeps); kernel 4
+    beside kernel 1 at the same k.  Returns kernel 4's row."""
+    from flex_tpu_torch.ops.window_spmm import (
+        window_spmm_t_fwd, window_spmm_t_fwd_plain,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, plan_t = {}, None
+    for k in (41, 32):
+        Bk = np.ascontiguousarray(B[:, :k])
+        # A·B[:, :k] is gold[:, :k]: SciPy sums each column on its own
+        r, p = bench_checked(
+            bench_spmm, g, k, "windowed", f"transposed k={k}", dev=dev, B=Bk,
+            gold=np.ascontiguousarray(gold[:, :k]), iters=10, tm=256, W=128,
+            min_count=64, sel=sel, transposed=True)
+        plan_t = plan_t or p
+        res[k] = r
+        del p
+    launches = read_launches()
+    expect_launches(launches, "the transposed path", window_spmm_t_fwd=28)
+    peak = torch.cuda.max_memory_allocated()
+    if not plan_t.transposed or plan_t.bwd_tabs is not None:
+        raise AssertionError("the transposed plan is not one")
+
+    out = {}
+    kw = dict(n_panels=plan_t.n_used_panels, W=plan_t.W)
+    tabs = (plan_t.first, plan_t.out_panel, plan_t.win_step)
+    for k in (41, 32):
+        B_dev = torch.from_numpy(np.ascontiguousarray(B[:, :k])).cuda()
+        B_T = B_dev.t().contiguous()
+        err = check_window_t_kernel(
+            torch, *tabs, plan_t.A, B_T, plan_t.n_used_panels, plan_t.W,
+            plan_t.panel_step_ptr, f"main path k={k}")
+        ms = time_cuda_ms(lambda: window_spmm_t_fwd(
+            *tabs, plan_t.A, B_T, panel_step_ptr=plan_t.panel_step_ptr, **kw),
+            iters=10)
+        plain_ms = time_cuda_ms(lambda: window_spmm_t_fwd_plain(
+            *tabs, plan_t.A, B_T, **kw), iters=5)
+        n_win, n_bytes, n_flops = window_bytes_flops(plan_t, k)
+        bound_ms, bound_by = bound(n_bytes, n_flops, peaks)
+        out[k] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by,
+                      dense_half_ms=time_cuda_ms(plan_t.dense_half, B_dev,
+                                                 iters=10),
+                      kernel1_ms=time_cuda_ms(plan.dense_half, B_dev,
+                                              iters=10),
+                      row_major_t_elap_ms=time_cuda_ms(plan, B_dev, iters=10))
+        log(f"[kernels] window_spmm_t_fwd k={k}: {ms:.3f} ms "
+            f"({n_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+            f"{n_bytes / (ms * 1e-3) / 1e9:.0f} GB/s), with the two "
+            f"transposes {out[k]['dense_half_ms']:.3f} ms; kernel 1 at the "
+            f"same k {out[k]['kernel1_ms']:.3f} ms; plan {res[k].t_elap_ms:.3f}"
+            f" ms against the row-major plan's "
+            f"{out[k]['row_major_t_elap_ms']:.3f} ms")
+        if k == 41:
+            # the library yardstick kernel 1 has: the same tiles as BSR
+            A_bsr = window_as_bsr(torch, plan)
+            B_pad = B_dev.new_zeros((A_bsr.shape[1], k))
+            B_pad[:g.n] = B_dev
+            C_T = window_spmm_t_fwd(*tabs, plan_t.A, B_T,
+                                    panel_step_ptr=plan_t.panel_step_ptr, **kw)
+            lib_err = float((torch.sparse.mm(A_bsr, B_pad) - C_T.t()
+                             ).abs().max())
+            library_ms = time_cuda_ms(torch.sparse.mm, A_bsr, B_pad, iters=3,
+                                      warmup=1)
+            log(f"[kernels] window_spmm_t_fwd yardstick torch.sparse.mm(BSR "
+                f"{plan.W}x{plan.W}) k=41: {library_ms:.3f} ms, max |diff| vs"
+                f" kernel {lib_err:.3e}")
+            del A_bsr, B_pad, C_T
+    log("[transposed] " + json.dumps({
+        "launches": launches["window_spmm_t_fwd"], "peak_memory_allocated":
+        peak, "steps_per_panel_p50_p99_max": steps_percentiles(plan_t),
+        "k41": out[41], "k32": out[32]}))
+    o = out[41]
+    return {
+        "name": "window_spmm_t_fwd", "route": "cuda",
+        "source": "flex_tpu_torch/csrc/window_spmm_t.cu",
+        "replaces": "flex_tpu/ops/window_spmm.py:1051",
+        "launches": launches["window_spmm_t_fwd"], "max_abs_err": o["err"],
+        "ms": o["ms"], "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
+        "bound_by": o["bound_by"], "library_ms": library_ms, "k": 41,
+        "kernel1_ms_same_k": o["kernel1_ms"], "ms_k32": out[32]["ms"],
+        "kernel1_ms_k32": out[32]["kernel1_ms"],
+        "plain_ms_k32": out[32]["plain_ms"],
+        "bound_ms_k32": out[32]["bound_ms"],
+        "max_abs_err_k32": out[32]["err"],
+    }
+
+
+def phase_gespmm(torch, g, dev, B, gold, A_csr, peaks, bench_spmm,
+                 time_cuda_ms):
+    """GE-SpMM at full size on the main path's graph, w = 32, k = 128 and
+    41.  Returns kernel 7's row."""
+    from flex_tpu_torch.ops.gespmm import (
+        gespmm_partials, gespmm_partials_plain,
+    )
+
+    reset_launches()
+    res, plan = {}, None
+    for k in (K, 41):
+        r, p = bench_checked(
+            bench_spmm, g, k, "gespmm", f"gespmm k={k}", dev=dev,
+            B=np.ascontiguousarray(B[:, :k]),
+            gold=np.ascontiguousarray(gold[:, :k]), iters=10, w=32)
+        plan = plan or p
+        res[k] = r
+        del p
+    launches = read_launches()
+    expect_launches(launches, "the GE-SpMM path", gespmm_partials=28)
+    st = plan.stats
+    N = st["n_chunks"]
+    out = {}
+    for k in (K, 41):
+        B_dev = torch.from_numpy(np.ascontiguousarray(B[:, :k])).cuda()
+        err = check_gespmm_kernel(torch, plan.cols, plan.vals, B_dev,
+                                  f"main path k={k}")
+        ms = time_cuda_ms(gespmm_partials, plan.cols, plan.vals, B_dev,
+                          iters=10)
+        plain_ms = time_cuda_ms(gespmm_partials_plain, plan.cols, plan.vals,
+                                B_dev, iters=3, warmup=1)
+        # each input once (cols, vals, B), the partials once; the
+        # operations this graph needs, pads not counted
+        n_bytes = plan.cols.numel() * 8 + B_dev.numel() * 4 + N * k * 4
+        bound_ms, bound_by = bound(n_bytes, 2.0 * g.nnz * k, peaks)
+        library_ms = time_cuda_ms(torch.sparse.mm, A_csr, B_dev, iters=20)
+        out[k] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, library_ms=library_ms,
+                      t_elap_ms=res[k].t_elap_ms)
+        log(f"[kernels] gespmm_partials k={k}: {ms:.3f} ms "
+            f"({2.0 * g.nnz * k / (ms * 1e-3) / 1e9:.0f} GF/s; gathered rows "
+            f"{plan.padded_nnz * k * 4 / (ms * 1e-3) / 1e9:.0f} GB/s), plan "
+            f"{res[k].t_elap_ms:.3f} ms (scatter-add of {N} partials "
+            f"included), library CSR {library_ms:.3f} ms")
+    log("[gespmm] " + json.dumps({"stats": st, "k128": out[K],
+                                  "k41": out[41],
+                                  "launches": launches["gespmm_partials"]}))
+    o = out[K]
+    return {
+        "name": "gespmm_partials", "route": "cuda",
+        "source": "flex_tpu_torch/csrc/gespmm.cu",
+        "replaces": "flex_tpu/ops/gespmm.py:78",
+        "launches": launches["gespmm_partials"], "max_abs_err": o["err"],
+        "ms": o["ms"], "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
+        "bound_by": o["bound_by"], "library_ms": o["library_ms"],
+        "plan_ms": o["t_elap_ms"], "ms_k41": out[41]["ms"],
+        "plan_ms_k41": out[41]["t_elap_ms"],
+        "library_ms_k41": out[41]["library_ms"],
+        "max_abs_err_k41": out[41]["err"],
+    }
+
+
+def phase_baselines(torch, g, dev, B, gold, bench_spmm):
+    """The two baselines without a hand kernel at full size, k = 128."""
+    reset_launches()
+    out = {}
+    for method in ("xla", "bcoo"):
+        torch.cuda.reset_peak_memory_stats()
+        r, plan = bench_checked(bench_spmm, g, K, method, f"baseline {method}",
+                                dev=dev, B=B, gold=gold, iters=10)
+        out[method] = {"t_elap_ms": r.t_elap_ms, "gflops": r.gflops,
+                       "t_pre_s": r.t_pre_s,
+                       "peak_memory_allocated":
+                       torch.cuda.max_memory_allocated()}
+        del plan
+    expect_launches(read_launches(), "the baselines")
+    log("[baselines] " + json.dumps(out))
+    return out
+
+
+def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
+    """Band at full size: the JAX package's own band case, all three
+    impls.  Returns the rows of kernels 5 and 6."""
+    from flex_tpu_torch.io.csv_loader import make_features
+    from flex_tpu_torch.io.synth import banded_graph
+    from flex_tpu_torch.ops.pallas_band import (
+        band_spmm_v1, band_spmm_v1_plain, band_spmm_v2, band_spmm_v2_plain,
+    )
+    from flex_tpu_torch.ops.ref import spmm_scipy
+    from flex_tpu_torch.sparse.device import DeviceCSR
+
+    t0 = time.perf_counter()
+    g = banded_graph(262_144, 256, 64.0, seed=2)
+    B = make_features(g, K)
+    gold = spmm_scipy(g, B)
+    log(f"[band] host: graph {g} + features + SciPy gold "
+        f"{time.perf_counter() - t0:.1f}s")
+    dev = DeviceCSR.from_graph(g, "cuda")
+    reset_launches()
+    res, plans = {}, {}
+    for impl in ("pallas2", "xla", "pallas"):
+        res[impl], plans[impl] = bench_checked(
+            bench_spmm, g, K, "band", f"band impl={impl}", dev=dev, B=B,
+            gold=gold, iters=10, tm=256, impl=impl)
+    launches = read_launches()
+    expect_launches(launches, "the band path", band_spmm_v2=14,
+                    band_spmm_v1=14)
+    del plans["xla"]
+    p2, p1 = plans["pallas2"], plans["pallas"]
+    st = p2.stats
+    P, TM, W = p2.band[0].shape
+    log(f"[band] plan: {st}; m={g.m} nnz={g.nnz}; "
+        f"{2.0 * P * TM * 2 * W * K / 1e12:.4f} TFLOP (split band), "
+        f"{2.0 * P * TM * W * K / 1e12:.4f} TFLOP (unsplit)")
+    B_dev = torch.from_numpy(B).cuda()
+    A_csr = csr_tensor(torch, g)
+    library_ms = time_cuda_ms(torch.sparse.mm, A_csr, B_dev, iters=20)
+    del A_csr
+
+    out2 = band_spmm_v2(*p2.band, p2.ws, B_dev)
+    torch.cuda.synchronize()
+    e2 = hold_to_plain(
+        torch, "band_spmm_v2", "full-size band k=128", out2,
+        band_spmm_v2_plain(*p2.band, p2.ws, B_dev),
+        band_spmm_v2_plain(p2.band[0].abs(), p2.band[1].abs(), p2.ws,
+                           B_dev.abs()), 2 * W)
+    out1 = band_spmm_v1(p1.band, p1.ws, B_dev)
+    torch.cuda.synchronize()
+    e1 = hold_to_plain(
+        torch, "band_spmm_v1", "full-size band k=128", out1,
+        band_spmm_v1_plain(p1.band, p1.ws, B_dev),
+        band_spmm_v1_plain(p1.band.abs(), p1.ws, B_dev.abs()), W)
+    del out1, out2
+    ms2 = time_cuda_ms(band_spmm_v2, *p2.band, p2.ws, B_dev, iters=10)
+    ms1 = time_cuda_ms(band_spmm_v1, p1.band, p1.ws, B_dev, iters=10)
+    plain2 = time_cuda_ms(band_spmm_v2_plain, *p2.band, p2.ws, B_dev, iters=5)
+    plain1 = time_cuda_ms(band_spmm_v1_plain, p1.band, p1.ws, B_dev, iters=5)
+    io_bytes = (B_dev.numel() + P * TM * K) * 4 + P * 4
+    b2, by2 = bound(2 * P * TM * W * 4 + io_bytes,
+                    2.0 * P * TM * 2 * W * K, peaks)
+    b1, by1 = bound(P * TM * W * 4 + io_bytes, 2.0 * P * TM * W * K, peaks)
+    log(f"[kernels] band_spmm_v2: {ms2:.3f} ms "
+        f"({2.0 * P * TM * 2 * W * K / (ms2 * 1e-3) / 1e12:.2f} TFLOP/s dense,"
+        f" {2.0 * g.nnz * K / (ms2 * 1e-3) / 1e9:.0f} GF/s of the SpMM); "
+        f"band_spmm_v1: {ms1:.3f} ms "
+        f"({2.0 * P * TM * W * K / (ms1 * 1e-3) / 1e12:.2f} TFLOP/s dense); "
+        f"impl=xla plan {res['xla'].t_elap_ms:.3f} ms; library CSR "
+        f"{library_ms:.3f} ms")
+    src = "flex_tpu_torch/csrc/band_spmm.cu"
+    return [{
+        "name": "band_spmm_v2", "route": "cuda", "source": src,
+        "replaces": "flex_tpu/ops/pallas_band.py:113",
+        "launches": launches["band_spmm_v2"], "max_abs_err": e2, "ms": ms2,
+        "plain_ms": plain2, "bound_ms": b2, "bound_by": by2,
+        "library_ms": library_ms, "plan_ms": res["pallas2"].t_elap_ms,
+        "t_pre_s": res["pallas2"].t_pre_s,
+    }, {
+        "name": "band_spmm_v1", "route": "cuda", "source": src,
+        "replaces": "flex_tpu/ops/pallas_band.py:191",
+        "launches": launches["band_spmm_v1"], "max_abs_err": e1, "ms": ms1,
+        "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
+        "library_ms": library_ms, "plan_ms": res["pallas"].t_elap_ms,
+        "t_pre_s": res["pallas"].t_pre_s,
+        "impl_xla_plan_ms": res["xla"].t_elap_ms,
+    }]
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     import torch
@@ -801,6 +1252,7 @@ def main() -> int:
 
     # 3. kernel vs plain
     phase_kernels_vs_plain(torch)
+    phase_new_kernels_vs_plain(torch)
     if quick:
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -836,14 +1288,11 @@ def main() -> int:
     r, plan = bench_spmm(g, K, "windowed", dev=dev, B=B, gold=gold, iters=10,
                          tm=256, W=128, min_count=64, sel=sel)
     launches = read_launches()
-    if launches["window_bwd_gA"] or launches["window_bwd_gB"]:
-        raise AssertionError(f"the forward path launched a backward kernel: "
-                             f"{launches}")
+    # 3 warm-up + 10 timed + 1 checked call, and no other kernel
+    expect_launches(launches, "the forward path", window_spmm_fwd=14)
     peak_mem = torch.cuda.max_memory_allocated()
     if r.err_frac is None or r.err_frac > 1e-4:
         raise AssertionError(f"main path err_frac={r.err_frac} > 1e-4")
-    if launches["window_spmm_fwd"] < 1:
-        raise AssertionError("main path never launched the window kernel")
 
     B_dev = torch.from_numpy(B).to("cuda")
     C = plan(B_dev)
@@ -853,10 +1302,7 @@ def main() -> int:
     del C
     dense_ms =time_cuda_ms(plan.dense_half, B_dev, iters=20)
     res_ms = time_cuda_ms(plan.ell, B_dev, iters=20)
-    A_csr = torch.sparse_csr_tensor(
-        torch.from_numpy(g.row_ptr).cuda(),
-        torch.from_numpy(g.col.astype(np.int64)).cuda(),
-        torch.from_numpy(g.vals).cuda(), size=g.shape)
+    A_csr = csr_tensor(torch, g)
     library_ms = time_cuda_ms(torch.sparse.mm, A_csr, B_dev, iters=20)
     st = plan.stats
     log("[main] " + json.dumps({
@@ -902,7 +1348,7 @@ def main() -> int:
     log(f"[kernels] window_spmm_fwd yardstick torch.sparse.mm(BSR "
         f"{plan.W}x{plan.W}): {win_library_ms:.3f} ms, max |diff| vs "
         f"kernel {lib_err:.3e}")
-    del A_bsr, B_pad, C_k, gold
+    del A_bsr, B_pad, C_k
     rows = [{
         "name": "window_spmm_fwd", "route": "cuda",
         "source": "flex_tpu_torch/csrc/window_spmm.cu",
@@ -927,6 +1373,28 @@ def main() -> int:
                               time_cuda_ms)
     log(f"[kernels] launches: forward path {launches}, gradient path "
         f"{launches_grad}, 7 train steps {launches_train}")
+    del co, g_dense, tplan
+
+    # 9. the transposed plan beside the row-major one (both A arrays live)
+    rows.append(phase_transposed(torch, g, dev, sel, plan, B, gold, peaks,
+                                 bench_spmm, time_cuda_ms))
+    del plan
+    sel.pop("torch_tables", None)   # the selection's tables on the card
+    torch.cuda.empty_cache()
+    # 10. GE-SpMM and 11. the baselines on the main path's graph
+    A_csr = csr_tensor(torch, g)
+    gespmm_row = phase_gespmm(torch, g, dev, B, gold, A_csr, peaks,
+                              bench_spmm, time_cuda_ms)
+    del A_csr
+    phase_baselines(torch, g, dev, B, gold, bench_spmm)
+    del dev, B_dev, gold
+    torch.cuda.empty_cache()
+    # 12. band, on its own graph
+    rows += phase_band(torch, peaks, bench_spmm, time_cuda_ms)
+    rows.append(gespmm_row)
+    if len(rows) != 7 or any(r["launches"] < 1 for r in rows):
+        raise AssertionError(f"a kernel was never launched on its path: "
+                             f"{[(r['name'], r['launches']) for r in rows]}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""flex_tpu_torch — the windowed-hybrid SpMM of ``flex_tpu``, and GCN
-training on it, in PyTorch and CUDA for an NVIDIA H100.
+"""flex_tpu_torch — the SpMM strategies of ``flex_tpu``, and GCN training
+on the windowed hybrid, in PyTorch and CUDA for an NVIDIA H100.
 
   C[m, k] = A[m, n] @ B[n, k]      A sparse (graph adjacency, CSR), B dense.
 
@@ -12,8 +12,17 @@ unless the caller passes ``device="cpu"``.
 - :mod:`flex_tpu_torch.ops.window_spmm` — windowed hybrid, differentiable
   in B and in A's values; its dense half is the hand-written kernel
   ``csrc/window_spmm.cu``, its two gradients ``csrc/window_spmm_bwd.cu``.
+  ``prepare_windowed(transposed=True)`` is the narrow-k variant
+  (``csrc/window_spmm_t.cu``).
 - :mod:`flex_tpu_torch.ops.ell_spmm` — ELL (the residue), with the
   transposed-pattern backward for training.
+- :mod:`flex_tpu_torch.ops.pallas_band` — band, split and unsplit
+  (``csrc/band_spmm.cu``, two kernels) and a plain-ops variant.
+- :mod:`flex_tpu_torch.ops.gespmm` — GE-SpMM row chunks
+  (``csrc/gespmm.cu``).
+- :mod:`flex_tpu_torch.ops.xla_spmm`, :mod:`flex_tpu_torch.ops.bcoo_spmm`
+  — the two baselines without a hand kernel: gather + scatter-add, and
+  ``torch.sparse.mm`` on a CSR tensor.
 - :mod:`flex_tpu_torch.ops.gcn`, :mod:`flex_tpu_torch.models` — GCN layer,
   the 2-layer GCN and its train step.
 - :mod:`flex_tpu_torch.kernels` — nvcc build + ctypes loader.
@@ -22,8 +31,12 @@ unless the caller passes ``device="cpu"``.
 """
 
 from flex_tpu_torch.ops import spmm  # noqa: F401
+from flex_tpu_torch.ops.bcoo_spmm import prepare_bcoo  # noqa: F401
 from flex_tpu_torch.ops.ell_spmm import prepare_ell, with_bwd_plan  # noqa: F401
 from flex_tpu_torch.ops.gcn import gcn_layer, pick_association  # noqa: F401
+from flex_tpu_torch.ops.gespmm import prepare_gespmm  # noqa: F401
+from flex_tpu_torch.ops.pallas_band import prepare_band  # noqa: F401
+from flex_tpu_torch.ops.xla_spmm import prepare_xla  # noqa: F401
 from flex_tpu_torch.ops.window_spmm import (  # noqa: F401
     prepare_windowed, with_training_bwd,
 )

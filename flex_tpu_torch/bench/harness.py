@@ -16,6 +16,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from flex_tpu_torch.ops import prepare_fn
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import DeviceCSR
 from flex_tpu_torch.utils.check import res_check
@@ -54,18 +55,6 @@ def time_cuda_ms(fn: Callable, *args, iters: int = 10, warmup: int = 3
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
-def _prepare(method: str) -> Callable:
-    if method == "ell":
-        from flex_tpu_torch.ops.ell_spmm import prepare_ell
-
-        return prepare_ell
-    if method == "windowed":
-        from flex_tpu_torch.ops.window_spmm import prepare_windowed
-
-        return prepare_windowed
-    raise ValueError(f"unknown method {method!r}")
-
-
 def bench_spmm(g: CSRGraph, k: int, method: str = "windowed",
                dev: DeviceCSR | None = None, B: np.ndarray | None = None,
                gold: np.ndarray | None = None, iters: int = 10,
@@ -80,7 +69,7 @@ def bench_spmm(g: CSRGraph, k: int, method: str = "windowed",
         dev = DeviceCSR.from_graph(g, "cuda")
     if B is None:
         B = make_features(g, k)
-    prepare = _prepare(method)
+    prepare = prepare_fn(method)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     plan = prepare(g, dev=dev, **prep_kwargs)

@@ -14,8 +14,16 @@ optionally ``chunk1``, ``extras`` ((extra_idx, extra_first) or None) and
 ``windowed_plan_from_numpy`` keys: ``m``, ``n``, ``tm``, ``W``,
 ``n_used_panels``, ``A``, ``first``, ``out_panel``, ``win_step``,
 ``row_gather``, ``coverage``, ``ell`` (a dict as above), and optionally
-``min_count_eff``.  The backward tables are recomputed from ``win_step``
-and ``out_panel``.
+``min_count_eff`` and ``transposed`` (then ``A`` is the Aᵀ step array
+[S, G·W, TM]).  The backward tables are recomputed from ``win_step`` and
+``out_panel``; a transposed plan carries none.
+
+``band_plan_from_numpy`` keys: ``m``, ``n``, ``tm``, ``w_pad``, ``impl``,
+``band`` (one array [P, TM, W], or the (left, right) pair of
+``impl="pallas2"``) and ``ws``.
+
+``gespmm_plan_from_numpy`` keys: ``m``, ``w``, ``cols``, ``vals``,
+``chunk_row``, ``nnz``, ``padded_nnz``.
 
 ``gcn_params_from_numpy`` loads the JAX GCN's parameter pytree
 (``W1``, ``b1``, ``W2``, ``b2``) into the port's module.
@@ -26,6 +34,8 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.ell_spmm import EllPlan
+from flex_tpu_torch.ops.gespmm import GeSpmmPlan
+from flex_tpu_torch.ops.pallas_band import BandPlan
 from flex_tpu_torch.ops.window_spmm import (
     WindowedPlan, bwd_device_tables, panel_step_ptr,
 )
@@ -56,8 +66,9 @@ def windowed_plan_from_numpy(d: dict, device) -> WindowedPlan:
     first = np.asarray(d["first"], np.int32)
     win_step = np.asarray(d["win_step"], np.int32)
     W = int(d["W"])
+    transposed = bool(d.get("transposed", False))
     bwd = {}
-    if len(first):
+    if len(first) and not transposed:
         bwd = bwd_device_tables(
             win_step, np.asarray(d["out_panel"], np.int32),
             max(-(-int(d["n"]) // W), 1), len(win_step) // len(first), W,
@@ -74,8 +85,26 @@ def windowed_plan_from_numpy(d: dict, device) -> WindowedPlan:
         ell=ell_plan_from_numpy(d["ell"], device),
         coverage=float(d["coverage"]),
         min_count_eff=int(d.get("min_count_eff", 0)),
+        transposed=transposed,
         **bwd,
     )
+
+
+def band_plan_from_numpy(d: dict, device) -> BandPlan:
+    band = d["band"]
+    band = tuple(_t(b, np.float32, device) for b in band) \
+        if isinstance(band, (tuple, list)) else _t(band, np.float32, device)
+    return BandPlan(m=int(d["m"]), n=int(d["n"]), tm=int(d["tm"]),
+                    w_pad=int(d["w_pad"]), band=band,
+                    ws=_t(d["ws"], np.int32, device), impl=str(d["impl"]))
+
+
+def gespmm_plan_from_numpy(d: dict, device) -> GeSpmmPlan:
+    return GeSpmmPlan(
+        m=int(d["m"]), w=int(d["w"]), cols=_t(d["cols"], np.int32, device),
+        vals=_t(d["vals"], np.float32, device),
+        chunk_row=_t(d["chunk_row"], np.int32, device), nnz=int(d["nnz"]),
+        padded_nnz=int(d["padded_nnz"]))
 
 
 def gcn_params_from_numpy(params: dict, model) -> None:

@@ -1,8 +1,14 @@
 """Synthetic graph generators (host, NumPy).
 
-Copy of the generators of ``flex_tpu.io.synth`` that the windowed-hybrid
-path and its tests use.  The same seed gives the same arrays as the JAX
-package.
+Copy of the generators of ``flex_tpu.io.synth`` that the ported SpMM
+strategies and their tests use.  The same seed gives the same arrays as
+the JAX package.
+
+- :func:`rmat_graph` — R-MAT / Kronecker power-law graphs.
+- :func:`uniform_graph` — uniform sparsity (what band and windowed refuse).
+- :func:`banded_graph` — diagonal-band sparsity (the band strategy's case).
+- :func:`community_graph`, :func:`bipartite_projection_graph`,
+  :func:`reddit_posts` — community graphs (the windowed strategy's case).
 """
 from __future__ import annotations
 
@@ -10,6 +16,74 @@ import numpy as np
 
 from flex_tpu_torch.sparse.csr import CSRGraph
 
+
+def _dedupe_coo(rows, cols, m):
+    keys = rows.astype(np.int64) * m + cols
+    keys = np.unique(keys)
+    return keys // m, keys % m
+
+
+def _trim_to_csr(rows, cols, nnz_target, m, rng, name) -> CSRGraph:
+    """Deduplicate, thin to ``nnz_target`` entries and draw the values:
+    the common tail of the three plain generators."""
+    rows, cols = _dedupe_coo(rows, cols, m)
+    if len(rows) > nnz_target:
+        sel = rng.choice(len(rows), nnz_target, replace=False)
+        sel.sort()
+        rows, cols = rows[sel], cols[sel]
+    vals = (2.0 * rng.random(len(rows)) - 1.0).astype(np.float32)
+    return CSRGraph.from_coo(rows, cols, vals, m, name=name)
+
+
+def rmat_graph(
+    m: int,
+    nnz_target: int,
+    a: float = 0.45,
+    b: float = 0.22,
+    c: float = 0.22,
+    seed: int = 0,
+    name: str = "rmat",
+) -> CSRGraph:
+    """R-MAT (Chakrabarti et al., SDM'04) generator, with a skew softer
+    than Graph500's (0.57/0.19/0.19), nearer the GNN benchmark graphs."""
+    rng = np.random.default_rng(seed)
+    scale = int(np.ceil(np.log2(max(m, 2))))
+    n_samples = int(nnz_target * 1.15) + 16  # oversample to survive dedupe
+
+    rows = np.zeros(n_samples, dtype=np.int64)
+    cols = np.zeros(n_samples, dtype=np.int64)
+    p_ab = a + b
+    p_abc = a + b + c
+    for _ in range(scale):
+        r = rng.random(n_samples)
+        # quadrants: a=[0,a) top-left, b=[a,a+b) top-right (sets the column
+        # bit), c=[a+b,a+b+c) bottom-left (sets the row bit), d=rest (both)
+        right = ((r >= a) & (r < p_ab)) | (r >= p_abc)
+        down = r >= p_ab
+        rows = rows * 2 + down
+        cols = cols * 2 + right
+
+    keep = (rows < m) & (cols < m)
+    return _trim_to_csr(rows[keep], cols[keep], nnz_target, m, rng, name)
+
+
+def uniform_graph(m: int, nnz_target: int, seed: int = 0,
+                  name: str = "uniform") -> CSRGraph:
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, m, int(nnz_target * 1.1) + 16)
+    cols = rng.integers(0, m, len(rows))
+    return _trim_to_csr(rows, cols, nnz_target, m, rng, name)
+
+
+def banded_graph(m: int, bandwidth: int, avg_degree: float, seed: int = 0,
+                 name: str = "banded") -> CSRGraph:
+    """Edges concentrated within ±bandwidth of the diagonal."""
+    rng = np.random.default_rng(seed)
+    nnz_target = int(m * avg_degree)
+    rows = rng.integers(0, m, int(nnz_target * 1.2) + 16)
+    off = rng.integers(-bandwidth, bandwidth + 1, len(rows))
+    cols = np.clip(rows + off, 0, m - 1)
+    return _trim_to_csr(rows, cols, nnz_target, m, rng, name)
 
 def community_graph(
     m: int,

@@ -19,7 +19,8 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("window_spmm", "window_spmm_bwd")
+SOURCES = ("window_spmm", "window_spmm_bwd", "window_spmm_t", "band_spmm",
+           "gespmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,6 +84,20 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def launch(name: str, symbol: str, device, *args) -> None:
+    """Call the C entry ``symbol`` of ``csrc/<name>.cu`` with ``args`` and,
+    last, ``device``'s current stream.  The entry returns its launch's
+    ``cudaError_t``; anything but 0 raises."""
+    import torch
+
+    fn = getattr(load(name), symbol)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "window_spmm":
@@ -101,3 +116,22 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flex_window_bwd_gB.argtypes = [p, p, p, p, p, p, p,
                                            i, i, i, i, i, p]
         lib.flex_window_bwd_gB.restype = i
+    elif name == "window_spmm_t":
+        # (AT, BT, win_step, panel_step_ptr, outT,
+        #  n_panels, TM, G, W, n, k, nblk, stream)
+        lib.flex_window_spmm_t_fwd.argtypes = [p, p, p, p, p,
+                                               i, i, i, i, i, i, i, p]
+        lib.flex_window_spmm_t_fwd.restype = i
+    elif name == "band_spmm":
+        # (a_left, a_right, iW, B, out, P, TM, W, n, k, stream)
+        lib.flex_band_spmm_v2.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.flex_band_spmm_v2.restype = i
+        # (band, ws, B, out, P, TM, W, n, k, stream)
+        lib.flex_band_spmm_v1.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.flex_band_spmm_v1.restype = i
+    elif name == "gespmm":
+        # (cols, vals, B, partial, N, w, k, stream)
+        lib.flex_gespmm_partials.argtypes = [p, p, p, p, i, i, i, p]
+        lib.flex_gespmm_partials.restype = i
+    else:
+        raise ValueError(f"no CUDA source named {name!r}")

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.sparse.csr import CSRGraph
-from flex_tpu_torch.sparse.device import DeviceCSR, plan_device
+from flex_tpu_torch.sparse.device import DeviceCSR, resident_csr
 
 # Width ladder (~1.2x steps): padding rows are gathered like real ones, so
 # bucket granularity sets the padding overhead.
@@ -101,6 +101,18 @@ def _bucket_layouts(row_ptr, deg, order, meta):
         yield w, rows_b, starts, lengths
 
 
+def gather_chunks(col_pad, val_pad, starts, lengths, w: int):
+    """One bucket's (cols i32 [N, w], vals f32 [N, w]): chunk c is the
+    w-wide CSR run from ``starts[c]``, masked past ``lengths[c]`` (pads:
+    column 0, value 0).  ``col_pad``/``val_pad`` are the CSR arrays with at
+    least w trailing zeros, so a run may start at nnz."""
+    ar = torch.arange(w, device=col_pad.device)
+    idx = starts.long()[:, None] + ar
+    mask = ar < lengths[:, None]
+    return (torch.where(mask, col_pad[idx], 0),
+            torch.where(mask, val_pad[idx], 0.0))
+
+
 def ell_buckets_core(row_ptr, col, vals, *, meta):
     """Bucket arrays from a device CSR: returns (((cols i32 [N,w],
     vals f32 [N,w]), ...), chunk_row i32).  A bucket's chunk is a w-wide
@@ -119,11 +131,7 @@ def ell_buckets_core(row_ptr, col, vals, *, meta):
     buckets, rows_parts = [], []
     for w, rows_b, starts, lengths in _bucket_layouts(row_ptr, deg, order,
                                                       meta):
-        ar = torch.arange(w, device=dev)
-        idx = starts[:, None] + ar
-        mask = ar < lengths[:, None]
-        buckets.append((torch.where(mask, col_pad[idx], 0),
-                        torch.where(mask, val_pad[idx], 0.0)))
+        buckets.append(gather_chunks(col_pad, val_pad, starts, lengths, w))
         rows_parts.append(rows_b)
     return tuple(buckets), torch.cat(rows_parts).to(torch.int32)
 
@@ -290,9 +298,6 @@ def with_bwd_plan(plan: EllPlan, n: int) -> EllPlan:
 def prepare_ell(g: CSRGraph, dev: DeviceCSR | None = None,
                 device=None) -> EllPlan:
     """Host: O(m) static bucket sizes.  Device: every bucket array."""
-    if dev is None:
-        dev = DeviceCSR.from_graph(g, device)
-    else:
-        plan_device(dev, device)
+    dev = resident_csr(g, dev, device)
     return prepare_ell_device(dev.row_ptr, dev.col, dev.vals, m=g.m,
                               nnz=g.nnz, res_row_ptr_host=g.row_ptr)

@@ -21,10 +21,15 @@ add.
   gradients (``csrc/window_spmm_bwd.cu``, plain versions beside them);
   :class:`_WindowSpmm` ties the three into one differentiable call, so a
   plan can be trained through (B and A's values; the tables are constants).
+- ``prepare_windowed(transposed=True)`` lays each step's tile out
+  transposed, (G·W, TM), for :func:`window_spmm_t_fwd`
+  (``csrc/window_spmm_t.cu``): the narrow-k variant, whose work scales
+  with k.  It computes Cᵀ = Bᵀ·Aᵀ; :class:`_WindowSpmmT` makes it
+  differentiable, with both gradients in plain tensor ops as in the JAX
+  package.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
@@ -33,10 +38,13 @@ import torch
 from flex_tpu_torch.ops.ell_spmm import (
     EllPlan, _gather_assembly_tables, ell_buckets_core, ell_meta,
 )
+from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
 from flex_tpu_torch.sparse.csr import (
     CSRGraph, indicator_cumsum, repeat_arange, repeat_values,
 )
-from flex_tpu_torch.sparse.device import DeviceCSR, plan_device, rows_from_row_ptr
+from flex_tpu_torch.sparse.device import (
+    DeviceCSR, resident_csr, rows_from_row_ptr,
+)
 
 G = 4  # default windows per step (per-step product: (TM, G*W) x (G*W, k))
 
@@ -317,20 +325,26 @@ def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, *, layout,
     (S, TM, G·W), which copies nothing.  Duplicate (row, col) entries must
     sum, so the scatter accumulates unless the selection proved the
     pattern duplicate-free (``unique_rc``).  Residue entries keep CSR
-    order.  Returns (A, buckets, chunk_row)."""
-    nnz, m, TM, W, nblk, total_steps, g_step, unique_rc = layout
+    order.  With ``transposed`` (last of ``layout``) each step's tile is
+    laid out (G·W, TM) instead: the same scatter with the in-step index
+    terms swapped.  Returns (A, buckets, chunk_row)."""
+    nnz, m, TM, W, nblk, total_steps, g_step, unique_rc, transposed = layout
     rows = rows_from_row_ptr(row_ptr, nnz, m)
     col64 = col.long()
     p = rows // TM
     j1 = slot_tab[p * nblk + col64 // W].long()
     hit = j1 > 0
     j = j1 - 1
-    flat = ((pstep0[p] + j // g_step) * (TM * g_step * W)
-            + (rows % TM) * (g_step * W) + (j % g_step) * W + col64 % W)
+    flat = (pstep0[p] + j // g_step) * (TM * g_step * W)
+    if transposed:
+        flat += ((j % g_step) * W + col64 % W) * TM + rows % TM
+    else:
+        flat += (rows % TM) * (g_step * W) + (j % g_step) * W + col64 % W
     A = torch.zeros(total_steps * TM * g_step * W, dtype=torch.float32,
                     device=col.device)
     A.index_put_((flat[hit],), vals[hit], accumulate=not unique_rc)
-    A = A.view(total_steps, TM, g_step * W)
+    A = A.view((total_steps, g_step * W, TM) if transposed
+               else (total_steps, TM, g_step * W))
     del rows, p, j1, j, flat
 
     miss = ~hit
@@ -347,32 +361,11 @@ def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, *, layout,
 # dense half: kernel wrapper + plain version
 # ---------------------------------------------------------------------------
 
-def _check_operands(tables: dict, floats: dict):
-    """``tables``: name -> (tensor, length), each int32 and 1-D;
-    ``floats``: name -> float32 tensor; all on one device."""
-    for name, (t, size) in tables.items():
-        if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != size:
-            raise ValueError(f"{name} must be int32[{size}], got "
-                             f"{t.dtype}{list(t.shape)}")
-    for name, t in floats.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-    devices = {t.device for t, _ in tables.values()} | {
-        t.device for t in floats.values()}
-    if len(devices) != 1:
-        raise ValueError(f"arguments lie on several devices: {devices}")
-
-
-def _check_kernel_operands(W, **floats):
-    """What the CUDA kernels add to :func:`_check_operands`."""
+def _check_window_kernel_operands(W, aligned=(), **floats):
+    """What the window kernels add to :func:`check_operands`."""
     if W % 16:
         raise ValueError(f"the window kernels need W % 16 == 0, got W={W}")
-    for name, t in floats.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if max(t.shape, default=0) >= 2**31:
-            raise ValueError(f"a size of {name} exceeds the kernel's int32 "
-                             f"arguments")
+    check_kernel_operands(aligned, **floats)
 
 
 def _window_rows(win_step, W, device):
@@ -416,7 +409,7 @@ def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
     S, TM, GW = A.shape
     if W <= 0 or GW % W:
         raise ValueError(f"A's width {GW} is not a multiple of W={W}")
-    _check_operands({"first": (first, S), "out_panel": (out_panel, S),
+    check_operands({"first": (first, S), "out_panel": (out_panel, S),
                      "win_step": (win_step, S * (GW // W)),
                      "panel_step_ptr": (panel_step_ptr, n_panels + 1)},
                     {"A": A, "B": B})
@@ -426,22 +419,15 @@ def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
     if A.device.type != "cuda":
         raise ValueError(f"no window kernel for device {A.device}")
     n, k = B.shape
-    _check_kernel_operands(W, A=A, B=B)
-    if A.data_ptr() % 16:
-        raise ValueError("A must be 16-byte aligned")
+    _check_window_kernel_operands(W, ("A",), A=A, B=B)
     from flex_tpu_torch import kernels
 
-    lib = kernels.load("window_spmm")
     out = torch.empty((n_panels * TM, k), dtype=torch.float32,
                       device=A.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.flex_window_spmm_fwd(
-            A.data_ptr(), B.data_ptr(), win_step.data_ptr(),
-            panel_step_ptr.data_ptr(), out.data_ptr(), n_panels, TM,
-            GW // W, W, n, k, max(-(-n // W), 1), ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"window_spmm kernel launch failed: CUDA error {err}")
+    kernels.launch("window_spmm", "flex_window_spmm_fwd", A.device,
+                   A.data_ptr(), B.data_ptr(), win_step.data_ptr(),
+                   panel_step_ptr.data_ptr(), out.data_ptr(), n_panels, TM,
+                   GW // W, W, n, k, max(-(-n // W), 1))
     window_spmm_fwd.launches += 1
     return out
 
@@ -480,28 +466,22 @@ def window_bwd_gA(out_panel, win_step, g, B, *, TM, W):
         raise ValueError(f"g rows {g.shape[0]} / win_step "
                          f"{win_step.shape[0]} do not fit TM={TM}, S={S}")
     G = win_step.shape[0] // S if S else 0
-    _check_operands({"out_panel": (out_panel, S),
+    check_operands({"out_panel": (out_panel, S),
                      "win_step": (win_step, S * G)}, {"g": g, "B": B})
     if g.device.type == "cpu":
         return window_bwd_gA_plain(out_panel, win_step, g, B, TM=TM, W=W)
     if g.device.type != "cuda":
         raise ValueError(f"no window kernel for device {g.device}")
-    _check_kernel_operands(W, g=g, B=B)
+    _check_window_kernel_operands(W, g=g, B=B)
     n, k = B.shape
     from flex_tpu_torch import kernels
 
-    lib = kernels.load("window_spmm_bwd")
     # every tile is written by the kernel, sentinel tiles as zeros
     g_A = torch.empty((S, TM, G * W), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.flex_window_bwd_gA(
-            g.data_ptr(), B.data_ptr(), win_step.data_ptr(),
-            out_panel.data_ptr(), g_A.data_ptr(), S, TM, G, W, n, k,
-            max(-(-n // W), 1), ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"window_bwd_gA kernel launch failed: CUDA error "
-                           f"{err}")
+    kernels.launch("window_spmm_bwd", "flex_window_bwd_gA", g.device,
+                   g.data_ptr(), B.data_ptr(), win_step.data_ptr(),
+                   out_panel.data_ptr(), g_A.data_ptr(), S, TM, G, W, n, k,
+                   max(-(-n // W), 1))
     window_bwd_gA.launches += 1
     return g_A
 
@@ -548,7 +528,7 @@ def window_bwd_gB(slot_s, slot_g, slot_ptr, out_panel, A, g, *, W,
         raise ValueError(f"A's width {GW} / g's rows {g.shape[0]} do not fit "
                          f"W={W}, TM={TM}")
     n_win = slot_s.shape[0]
-    _check_operands({"slot_s": (slot_s, n_win), "slot_g": (slot_g, n_win),
+    check_operands({"slot_s": (slot_s, n_win), "slot_g": (slot_g, n_win),
                      "slot_ptr": (slot_ptr, n_blk_used + 1),
                      "out_panel": (out_panel, S)}, {"A": A, "g": g})
     if A.device.type == "cpu":
@@ -556,24 +536,17 @@ def window_bwd_gB(slot_s, slot_g, slot_ptr, out_panel, A, g, *, W,
                                    W=W, n_blk_used=n_blk_used)
     if A.device.type != "cuda":
         raise ValueError(f"no window kernel for device {A.device}")
-    _check_kernel_operands(W, A=A, g=g)
-    if A.data_ptr() % 16:
-        raise ValueError("A must be 16-byte aligned")
+    _check_window_kernel_operands(W, ("A",), A=A, g=g)
     k = g.shape[1]
     from flex_tpu_torch import kernels
 
-    lib = kernels.load("window_spmm_bwd")
     out = torch.empty((n_blk_used * W, k), dtype=torch.float32,
                       device=A.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.flex_window_bwd_gB(
-            A.data_ptr(), g.data_ptr(), slot_s.data_ptr(), slot_g.data_ptr(),
-            slot_ptr.data_ptr(), out_panel.data_ptr(), out.data_ptr(),
-            n_blk_used, TM, GW // W, W, k, ctypes.c_void_p(stream))
-    if err:
-        raise RuntimeError(f"window_bwd_gB kernel launch failed: CUDA error "
-                           f"{err}")
+    kernels.launch("window_spmm_bwd", "flex_window_bwd_gB", A.device,
+                   A.data_ptr(), g.data_ptr(), slot_s.data_ptr(),
+                   slot_g.data_ptr(), slot_ptr.data_ptr(),
+                   out_panel.data_ptr(), out.data_ptr(), n_blk_used, TM,
+                   GW // W, W, k)
     window_bwd_gB.launches += 1
     return out
 
@@ -628,6 +601,119 @@ class _WindowSpmm(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# dense half, transposed (narrow k): kernel wrapper + plain version
+# ---------------------------------------------------------------------------
+
+def _window_cols_T(win_step, B_T, W):
+    """(B_T padded with zero columns up to (nblk+1)·W: the sentinel block
+    and the last block's columns ≥ n; i64 [S·G·W] column of every (step,
+    window, row-in-window)).  Plain versions only."""
+    k, n = B_T.shape
+    B_pad = B_T.new_zeros((k, (max(-(-n // W), 1) + 1) * W))
+    B_pad[:, :n] = B_T
+    return B_pad, _window_rows(win_step, W, B_T.device).view(-1)
+
+
+def window_spmm_t_fwd_plain(first, out_panel, win_step, A_T, B_T, *,
+                            n_panels, W):
+    """Plain PyTorch version of the transposed dense half: gather the
+    (S, k, G·W) window columns of Bᵀ (sentinel block and columns ≥ n read
+    as zero), one bmm with Aᵀ, ``index_add_`` of the step products into
+    their panels.  Returns Cᵀ, f32 [k, n_panels·TM]."""
+    S, GW, TM = A_T.shape
+    k = B_T.shape[0]
+    B_pad, cols = _window_cols_T(win_step, B_T, W)
+    Bw = B_pad[:, cols].view(k, S, GW).permute(1, 0, 2)     # [S, k, G·W]
+    out = torch.bmm(Bw, A_T)                                # [S, k, TM]
+    C = A_T.new_zeros((n_panels, k, TM))
+    C.index_add_(0, out_panel, out)
+    return C.permute(1, 0, 2).reshape(k, n_panels * TM)
+
+
+def window_spmm_t_fwd(first, out_panel, win_step, A_T, B_T, *, n_panels, W,
+                      panel_step_ptr):
+    """Transposed dense half of the windowed hybrid:
+    outᵀ[:, p·TM : +TM] = Σ over used panel p's steps s and windows g of
+    Bᵀ[:, win_step[s·G+g]·W : +W] · Aᵀ[s][g·W : (g+1)·W, :].
+    ``A_T`` f32 [S, G·W, TM], ``B_T`` f32 [k, n] (the caller's transpose of
+    B, not padded).  Returns Cᵀ, f32 [k, n_panels·TM].
+
+    CUDA tensors launch ``csrc/window_spmm_t.cu`` (and count the launch in
+    ``window_spmm_t_fwd.launches``); CPU tensors take
+    :func:`window_spmm_t_fwd_plain`.  Anything else raises."""
+    if A_T.dim() != 3 or B_T.dim() != 2:
+        raise ValueError(f"A_T must be 3-D and B_T 2-D, got {A_T.dim()}, "
+                         f"{B_T.dim()}")
+    S, GW, TM = A_T.shape
+    if W <= 0 or GW % W:
+        raise ValueError(f"A_T's depth {GW} is not a multiple of W={W}")
+    check_operands({"first": (first, S), "out_panel": (out_panel, S),
+                     "win_step": (win_step, S * (GW // W)),
+                     "panel_step_ptr": (panel_step_ptr, n_panels + 1)},
+                    {"A_T": A_T, "B_T": B_T})
+    if A_T.device.type == "cpu":
+        return window_spmm_t_fwd_plain(first, out_panel, win_step, A_T, B_T,
+                                       n_panels=n_panels, W=W)
+    if A_T.device.type != "cuda":
+        raise ValueError(f"no window kernel for device {A_T.device}")
+    k, n = B_T.shape
+    # the kernel's stages are 32 deep, and it moves A_T and the result by
+    # float4 along TM
+    if W % 32 or TM % 4:
+        raise ValueError(f"the transposed window kernel needs W % 32 == 0 "
+                         f"and TM % 4 == 0, got W={W}, TM={TM}")
+    _check_window_kernel_operands(W, ("A_T",), A_T=A_T, B_T=B_T)
+    from flex_tpu_torch import kernels
+
+    out = torch.empty((k, n_panels * TM), dtype=torch.float32,
+                      device=A_T.device)
+    kernels.launch("window_spmm_t", "flex_window_spmm_t_fwd", A_T.device,
+                   A_T.data_ptr(), B_T.data_ptr(), win_step.data_ptr(),
+                   panel_step_ptr.data_ptr(), out.data_ptr(), n_panels, TM,
+                   GW // W, W, n, k, max(-(-n // W), 1))
+    window_spmm_t_fwd.launches += 1
+    return out
+
+
+window_spmm_t_fwd.launches = 0
+
+
+class _WindowSpmmT(torch.autograd.Function):
+    """The transposed dense half as one differentiable call (counterpart
+    of the JAX package's ``_window_pallas_t_vjp``): forward
+    :func:`window_spmm_t_fwd`; backward in plain tensor ops, as there,
+    g_Aᵀ(s) = Bᵀw(s)ᵀ · g_panelᵀ(s) and g_Bᵀ = Σ g_panelᵀ(s) · Aᵀ(s)ᵀ
+    scatter-added into the gathered window columns."""
+
+    @staticmethod
+    def forward(ctx, plan, A_T, B_T):
+        ctx.plan = plan
+        ctx.save_for_backward(A_T, B_T)
+        return window_spmm_t_fwd(plan.first, plan.out_panel, plan.win_step,
+                                 A_T, B_T, n_panels=plan.n_used_panels,
+                                 W=plan.W, panel_step_ptr=plan.panel_step_ptr)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        A_T, B_T = ctx.saved_tensors
+        S, GW, TM = A_T.shape
+        k, n = B_T.shape
+        g_p = g.reshape(k, plan.n_used_panels, TM).permute(1, 0, 2)[
+            plan.out_panel.long()]                            # [S, k, TM]
+        B_pad, cols = _window_cols_T(plan.win_step, B_T, plan.W)
+        g_AT = g_BT = None
+        if ctx.needs_input_grad[1]:
+            Bw = B_pad[:, cols].view(k, S, GW).permute(1, 2, 0)
+            g_AT = torch.bmm(Bw, g_p)                         # [S, G·W, TM]
+        if ctx.needs_input_grad[2]:
+            gw = torch.bmm(g_p, A_T.transpose(1, 2))          # [S, k, G·W]
+            g_BT = torch.zeros_like(B_pad).index_add_(
+                1, cols, gw.permute(1, 0, 2).reshape(k, S * GW))[:, :n]
+        return None, g_AT, g_BT
+
+
+# ---------------------------------------------------------------------------
 # plan
 # ---------------------------------------------------------------------------
 
@@ -639,7 +725,8 @@ class WindowedPlan:
     tm: int
     W: int
     n_used_panels: int
-    A: torch.Tensor               # f32 [total_steps, TM, G*W]
+    A: torch.Tensor               # f32 [total_steps, TM, G*W]; transposed:
+                                  # [total_steps, G*W, TM]
     first: torch.Tensor           # i32 [total_steps]
     out_panel: torch.Tensor       # i32 [total_steps]
     win_step: torch.Tensor        # i32 [total_steps*G] (sentinel = nblk)
@@ -653,13 +740,17 @@ class WindowedPlan:
     bwd_tabs: tuple | None = None
     n_blk_used: int = 0                      # distinct window blocks
     slot_ptr: torch.Tensor | None = None     # i32 [n_blk_used+1]
+    transposed: bool = False  # Aᵀ step layout + the narrow-k kernel
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
         return _windowed_call(self, B)
 
     def dense_half(self, B: torch.Tensor) -> torch.Tensor:
         """The windowed product alone, f32 [n_used_panels·TM, k];
-        differentiable in B and in ``self.A``."""
+        differentiable in B and in ``self.A``.  A transposed plan makes
+        Bᵀ once per call, runs its kernel for Cᵀ and transposes back."""
+        if self.transposed:
+            return _WindowSpmmT.apply(self, self.A, B.t().contiguous()).t()
         return _WindowSpmm.apply(self, self.A, B)
 
     @property
@@ -671,6 +762,7 @@ class WindowedPlan:
             "n_steps": S,
             "n_res": self.ell.nnz,
             "min_count_eff": self.min_count_eff,
+            "transposed": self.transposed,
             "max_steps_per_panel": int(
                 (self.panel_step_ptr[1:] - self.panel_step_ptr[:-1]).max())
             if self.n_used_panels else 0,
@@ -702,16 +794,23 @@ def prepare_windowed(
     min_coverage: float = MIN_COVERAGE,
     max_dense_bytes: int = MAX_DENSE_BYTES,
     sel: dict | None = None,
+    transposed: bool = False,
 ) -> WindowedPlan:
     """Build the hybrid plan on ``dev``'s device (or ``device``; CUDA when
     neither is given).  Refuses (ValueError) when windows would cover less
     than ``min_coverage`` of nnz.  When the dense array at ``min_count``
     would exceed ``max_dense_bytes`` the count gate rises until it fits
     (see :func:`window_select`).  A ``sel`` from :func:`window_select`
-    is reused, with its device tables."""
-    device = plan_device(dev, device)
-    if dev is None:
-        dev = DeviceCSR.from_graph(g, device)
+    is reused, with its device tables.  ``transposed`` builds the Aᵀ
+    step layout for the narrow-k kernel; such a plan carries no backward
+    tables (its gradients are plain tensor ops)."""
+    if transposed and W % 128 != 0:
+        # kept from the JAX package, so the same calls are refused
+        raise ValueError(
+            f"transposed windowed requires W % 128 == 0, got W={W} — "
+            f"use W=128 or transposed=False")
+    dev = resident_csr(g, dev, device)
+    device = dev.device
     cap = min(max_dense_bytes, (2**31 - 2) * 4)
     if sel is None:
         sel = window_select(g, tm=tm, W=W, J=J, min_count=min_count,
@@ -728,7 +827,7 @@ def prepare_windowed(
     res_deg = np.asarray(sel["res_deg"], dtype=np.int64)
     meta, padded = ell_meta(res_deg)
     layout = (g.nnz, g.m, tm, W, sel["nblk"], sel["total_steps"], sel["G"],
-              bool(sel["unique_rc"]))
+              bool(sel["unique_rc"]), bool(transposed))
     A, buckets, chunk_row = _build_windowed_ell(
         dev.row_ptr, dev.col, dev.vals, tabs["slot"], tabs["pstep0"],
         layout=layout, ell_meta_=meta)
@@ -745,8 +844,10 @@ def prepare_windowed(
         panel_step_ptr=tabs["panel_step_ptr"], ell=ell,
         coverage=sel["coverage"],
         min_count_eff=int(sel["min_count_eff"]),
-        bwd_tabs=tabs["bwd_tabs"], n_blk_used=tabs["n_blk_used"],
-        slot_ptr=tabs["slot_ptr"],
+        bwd_tabs=None if transposed else tabs["bwd_tabs"],
+        n_blk_used=0 if transposed else tabs["n_blk_used"],
+        slot_ptr=None if transposed else tabs["slot_ptr"],
+        transposed=bool(transposed),
     )
 
 

@@ -25,19 +25,6 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def plan_device(dev: "DeviceCSR | None", device=None) -> torch.device:
-    """The device of a prepare call: the resident CSR's when one is given
-    (a ``device`` that names another raises), else :func:`resolve_device`."""
-    if dev is None:
-        return resolve_device(device)
-    if device is not None:
-        want = torch.device(device)
-        if want.type != dev.device.type or (
-                want.index is not None and want.index != dev.device.index):
-            raise ValueError(f"dev lies on {dev.device}, device={device}")
-    return dev.device
-
-
 @dataclasses.dataclass(frozen=True)
 class DeviceCSR:
     row_ptr: torch.Tensor  # int32[m+1]
@@ -70,3 +57,19 @@ def rows_from_row_ptr(row_ptr: torch.Tensor, nnz: int, m: int) -> torch.Tensor:
     deg = (row_ptr[1:m + 1] - row_ptr[:m]).long()
     return torch.repeat_interleave(
         torch.arange(m, device=row_ptr.device), deg, output_size=nnz)
+
+
+def resident_csr(g: CSRGraph, dev: "DeviceCSR | None" = None,
+                 device=None) -> DeviceCSR:
+    """The device CSR a prepare call builds from: ``dev`` when one is given
+    (a ``device`` that names another device raises), else ``g`` moved to
+    ``device`` (:func:`resolve_device`: CUDA unless the caller names
+    another)."""
+    if dev is None:
+        return DeviceCSR.from_graph(g, device)
+    if device is not None:
+        want = torch.device(device)
+        if want.type != dev.device.type or (
+                want.index is not None and want.index != dev.device.index):
+            raise ValueError(f"dev lies on {dev.device}, device={device}")
+    return dev

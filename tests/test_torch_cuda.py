@@ -1,6 +1,7 @@
-"""Card-only tests of the PyTorch port: the hand CUDA window kernels
-(forward, g_A, g_B) against their plain twins, whole plans on the card
-against SciPy, gradients against SciPy's Aᵀ·co, and a few GCN train steps.  Every test is
+"""Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
+forward, g_A, g_B, transposed forward, the two band kernels, GE-SpMM)
+against their plain twins, whole plans on the card against SciPy,
+gradients against SciPy's Aᵀ·co, and a few GCN train steps.  Every test is
 marked ``cuda`` and skips without a card.  The file imports no JAX, so on
 a machine with PyTorch alone it runs as
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
@@ -8,12 +9,21 @@ import numpy as np
 import pytest
 import torch
 
-from flex_tpu_torch import prepare_ell, prepare_windowed
-from flex_tpu_torch.io import community_graph, make_features
+from flex_tpu_torch import (
+    prepare_band, prepare_ell, prepare_gespmm, prepare_windowed, spmm,
+)
+from flex_tpu_torch.io import (
+    banded_graph, community_graph, make_features, rmat_graph,
+)
+from flex_tpu_torch.ops.gespmm import gespmm_partials, gespmm_partials_plain
+from flex_tpu_torch.ops.pallas_band import (
+    band_spmm_v1, band_spmm_v1_plain, band_spmm_v2, band_spmm_v2_plain,
+)
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.ops.window_spmm import (
     window_bwd_gA, window_bwd_gA_plain, window_bwd_gB, window_bwd_gB_plain,
-    window_spmm_fwd, window_spmm_fwd_plain, with_training_bwd,
+    window_spmm_fwd, window_spmm_fwd_plain, window_spmm_t_fwd,
+    window_spmm_t_fwd_plain, with_training_bwd,
 )
 from flex_tpu_torch.reorder import reorder
 from flex_tpu_torch.sparse.csr import CSRGraph
@@ -220,3 +230,170 @@ def test_gcn_trains_on_card(cuda):
               for _ in range(5)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert window_bwd_gB.launches == n3 + 10
+
+
+# ---------------------------------------------------------------------------
+# the other strategies: transposed windowed, band, GE-SpMM, the baselines
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [32, 41, 128])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_window_t_kernel_matches_plain(cuda, name, k):
+    """The transposed kernel on a plan's own tables against its plain
+    version (f32 sums in another order: rtol=atol=1e-4), and the whole
+    transposed plan against SciPy."""
+    make, kw = CASES[name]
+    g = make()
+    plan = prepare_windowed(g, device=cuda, transposed=True, **kw)
+    assert plan.transposed and plan.bwd_tabs is None
+    B = make_features(g, k)
+    B_dev = torch.from_numpy(B).to(cuda)
+    B_T = B_dev.t().contiguous()
+    before = window_spmm_t_fwd.launches
+    args = (plan.first, plan.out_panel, plan.win_step, plan.A, B_T)
+    out = window_spmm_t_fwd(*args, n_panels=plan.n_used_panels, W=plan.W,
+                            panel_step_ptr=plan.panel_step_ptr)
+    assert window_spmm_t_fwd.launches == before + 1
+    ref = window_spmm_t_fwd_plain(*args, n_panels=plan.n_used_panels,
+                                  W=plan.W)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    C = plan(B_dev)
+    assert window_spmm_t_fwd.launches == before + 2
+    assert res_check(spmm_scipy(g, B), C.cpu().numpy(), g.degrees).err_frac == 0
+
+
+def test_transposed_grad_matches_scipy_on_card(cuda):
+    g = CASES["community"][0]()
+    plan = prepare_windowed(g, device=cuda, transposed=True,
+                            **CASES["community"][1])
+    co = np.random.default_rng(0).random((g.m, 41), np.float32)
+    B = torch.from_numpy(make_features(g, 41)).to(cuda).requires_grad_()
+    before = (window_spmm_t_fwd.launches, window_bwd_gB.launches)
+    (plan(B) * torch.from_numpy(co).to(cuda)).sum().backward()
+    # forward by the kernel, backward in plain tensor ops
+    assert (window_spmm_t_fwd.launches, window_bwd_gB.launches) == (
+        before[0] + 1, before[1])
+    np.testing.assert_allclose(B.grad.cpu().numpy(), g.to_scipy().T @ co,
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_window_t_kernel_refuses_what_it_cannot_take(cuda):
+    t = [torch.tensor(a, dtype=torch.int32, device=cuda)
+         for a in ([1], [0], [0, 0], [0, 1])]
+    kw = dict(n_panels=1, W=128, panel_step_ptr=t[3])
+    B_T = torch.ones((8, 300), device=cuda)
+    with pytest.raises(ValueError, match="TM % 4"):
+        window_spmm_t_fwd(*t[:3], torch.zeros((1, 256, 6), device=cuda), B_T,
+                          **kw)
+    A_T = torch.zeros(256 * 8 + 1, device=cuda)[1:].view(1, 256, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        window_spmm_t_fwd(*t[:3], A_T, B_T, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        window_spmm_t_fwd(*t[:3], torch.zeros((1, 256, 8), device=cuda),
+                          torch.ones((300, 8), device=cuda).t(), **kw)
+
+
+BAND_CASES = {
+    "band5000": (lambda: banded_graph(5000, 300, 40.0, seed=3),
+                 dict(tm=256)),                       # m % tm != 0
+    "band600": (lambda: banded_graph(600, 64, 8.0, seed=7),
+                dict(tm=256, min_density=0.005)),
+    "tm8": (lambda: banded_graph(300, 40, 6.0, seed=2),
+            dict(tm=8, min_density=0.0)),
+}
+
+
+@pytest.mark.parametrize("k", [41, 128])
+@pytest.mark.parametrize("name", sorted(BAND_CASES))
+def test_band_kernels_match_plain_and_scipy(cuda, name, k):
+    make, kw = BAND_CASES[name]
+    g = make()
+    B = make_features(g, k)
+    B_dev = torch.from_numpy(B).to(cuda)
+    gold = spmm_scipy(g, B)
+    p2 = prepare_band(g, device=cuda, **kw)
+    p1 = prepare_band(g, device=cuda, impl="pallas", **kw)
+    before = (band_spmm_v2.launches, band_spmm_v1.launches)
+    out2 = band_spmm_v2(*p2.band, p2.ws, B_dev)
+    out1 = band_spmm_v1(p1.band, p1.ws, B_dev)
+    assert (band_spmm_v2.launches, band_spmm_v1.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out2, band_spmm_v2_plain(*p2.band, p2.ws,
+                                                        B_dev),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(out1, band_spmm_v1_plain(p1.band, p1.ws,
+                                                        B_dev),
+                               rtol=1e-5, atol=1e-5)
+    for plan in (p2, p1, prepare_band(g, device=cuda, impl="xla", **kw)):
+        C = plan(B_dev).cpu().numpy()
+        assert res_check(gold, C, g.degrees).err_frac == 0, plan.impl
+
+
+def test_band_kernels_refuse_what_they_cannot_take(cuda):
+    iW = torch.zeros(2, dtype=torch.int32, device=cuda)
+    B = torch.ones((500, 8), device=cuda)
+    narrow = torch.zeros((2, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="W % 128"):
+        band_spmm_v2(narrow, narrow, iW, B)
+    with pytest.raises(ValueError, match="W % 128"):
+        band_spmm_v1(narrow, iW, B)
+    off = torch.zeros(2 * 16 * 128 + 1, device=cuda)[1:].view(2, 16, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        band_spmm_v1(off, iW, B)
+    strided = torch.zeros((2, 16, 256), device=cuda)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        band_spmm_v2(strided, strided, iW, B)
+    with pytest.raises(ValueError, match="several devices"):
+        band_spmm_v1(torch.zeros((2, 16, 128), device=cuda), iW, B.cpu())
+
+
+def _hub_and_empty(w=32, m=3000):
+    rng = np.random.default_rng(4)
+    deg = rng.integers(0, 3 * w, m)
+    deg[:4] = (0, w, w + 1, 40 * w - 5)
+    rows = np.repeat(np.arange(m), deg)
+    vals = (2 * rng.random(len(rows)) - 1).astype(np.float32)
+    return CSRGraph.from_coo(rows, rng.integers(0, m, len(rows)), vals, m,
+                             name="hub_and_empty")
+
+
+@pytest.mark.parametrize("k", [8, 41, 128, 200])
+@pytest.mark.parametrize("w", [7, 32, 40])
+def test_gespmm_kernel_matches_plain_and_scipy(cuda, w, k):
+    """k a multiple of 4 or not, within one 128-column slice or beyond; w
+    below, at and above a warp's 32 entries; pad chunks, empty rows and a
+    row of 40 chunks."""
+    g = _hub_and_empty()
+    plan = prepare_gespmm(g, w=w, device=cuda)
+    B = make_features(g, k)
+    B_dev = torch.from_numpy(B).to(cuda)
+    before = gespmm_partials.launches
+    out = gespmm_partials(plan.cols, plan.vals, B_dev)
+    assert gespmm_partials.launches == before + 1
+    torch.testing.assert_close(
+        out, gespmm_partials_plain(plan.cols, plan.vals, B_dev),
+        rtol=1e-5, atol=1e-5)
+    C = plan(B_dev).cpu().numpy()
+    assert res_check(spmm_scipy(g, B), C, g.degrees).err_frac == 0
+    assert np.all(C[g.degrees == 0] == 0.0)
+
+
+def test_gespmm_kernel_refuses_what_it_cannot_take(cuda):
+    plan = prepare_gespmm(_hub_and_empty(), device=cuda)
+    B = torch.ones((plan.m, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gespmm_partials(plan.cols, plan.vals,
+                        torch.ones((8, plan.m), device=cuda).t())
+    with pytest.raises(ValueError, match="several devices"):
+        gespmm_partials(plan.cols, plan.vals, B.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        gespmm_partials(plan.cols.long(), plan.vals, B)
+
+
+@pytest.mark.parametrize("method", ["xla", "bcoo", "ell", "gespmm"])
+def test_spmm_methods_run_on_the_card_by_default(cuda, method):
+    g = rmat_graph(2048, 32768, seed=3)
+    B = make_features(g, 32)
+    C = spmm(g, B, method=method)
+    assert C.device.type == "cuda"
+    assert res_check(spmm_scipy(g, B), C.cpu().numpy(), g.degrees).err_frac == 0

@@ -33,6 +33,16 @@ GRAPHS = [
     ("bipartite_projection_graph", dict(m=4000, nnz_target=200_000,
                                         n_comm=6, seed=2)),
 ]
+# the plain generators: power-law, uniform and banded sparsity
+PLAIN_GRAPHS = [
+    ("rmat_graph", dict(m=2048, nnz_target=32768, seed=3)),
+    ("rmat_graph", dict(m=500, nnz_target=6000, seed=3, name="ge")),
+    ("rmat_graph", dict(m=1000, nnz_target=9000, a=0.57, b=0.19, c=0.19,
+                        seed=1)),
+    ("uniform_graph", dict(m=2048, nnz_target=16384, seed=1)),
+    ("banded_graph", dict(m=1024, bandwidth=96, avg_degree=12.0, seed=4)),
+    ("banded_graph", dict(m=600, bandwidth=64, avg_degree=8.0, seed=7)),
+]
 
 
 def _assert_same_graph(a, b):
@@ -43,9 +53,11 @@ def _assert_same_graph(a, b):
     assert a.vals.dtype == b.vals.dtype
 
 
-@pytest.mark.parametrize("fn,kw", GRAPHS)
+@pytest.mark.parametrize("fn,kw", GRAPHS + PLAIN_GRAPHS)
 def test_synth_matches_jax(fn, kw):
-    _assert_same_graph(getattr(tsynth, fn)(**kw), getattr(jsynth, fn)(**kw))
+    mine, ref = getattr(tsynth, fn)(**kw), getattr(jsynth, fn)(**kw)
+    _assert_same_graph(mine, ref)
+    assert mine.name == ref.name
 
 
 @pytest.mark.parametrize("method", ["ovo", "rabbit", "rbdeg"])
