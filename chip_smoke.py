@@ -11,25 +11,33 @@ Phases:
   3. each kernel (forward, g_A, g_B; transposed forward, band v2 and v1,
      GE-SpMM partials) against its plain PyTorch version on random tables
      at its path's shapes (k = 128 and k = 41), with the tolerance stated
-     there.
+     there.  The forward and g_B run in work units: their tables hold
+     panels and slot chains of a single step, exactly one unit, one unit
+     plus one and many units, and an all-sentinel step; k = 128, 41, 32
+     and 200; each is launched twice and must give the same bits.
   4. the forward path at full size: reddit_posts(seed=0) -> rbdeg ->
      window_select(tm=256, W=128, min_count=64, max_dense_bytes=6 GiB) ->
      prepare_windowed on cuda -> plan(B), B = make_features(g, 128),
      checked with res_check against SciPy (err_frac <= 1e-4).
   5. the forward kernel on that path's own tensors, at k = 128 and at the
-     train step's k = 41: max error against the plain version, kernel /
-     plain / bound / library times.
+     train step's k = 41 (there also res_check against SciPy): max error
+     against the plain version, kernel / plain / bound / library times, the
+     work units (count, steps per unit, scratch bytes of the partial
+     tiles), the reduce pass alone, the longest panel alone, and the same
+     kernel with one unit per panel.
   6. the gradient path at full size: loss = (plan(B) * co).sum() with B and
      plan.A requiring grad; the backward launches the g_A and g_B kernels;
      g_B against SciPy's A^T.co (res_check err_frac <= 1e-4), g_A against
-     its plain version; once more with ``with_training_bwd``.
+     its plain version; once more with ``with_training_bwd``, and g_B
+     at k = 41.
   7. the training path at full size: GCN(128 -> 128 -> 41) through
      ``make_train_step`` with Adam(1e-2), 2 warm-up and 5 timed steps; the
      parameter gradients of the first step against the same loss taken
      through the plain versions on the card; the launch counts per step, a
      finite and falling loss, ms/step, peak memory and the step's split.
   8. the two backward kernels on the main path's own tensors, as in 5
-     (g_B at k = 128 and k = 41).
+     (g_B at k = 128 and k = 41, with its units, reduce pass, longest
+     chain alone and one unit per chain).
   9. the transposed windowed plan at full size: the same graph, ordering
      and selection, ``prepare_windowed(transposed=True)`` through
      ``bench_spmm`` at k = 41 and k = 32 (err_frac <= 1e-4), the
@@ -52,6 +60,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -101,19 +110,29 @@ def bound(n_bytes: float, n_flops: float, peaks: dict) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def random_window_case(torch, rng, steps_per_panel, n, dev, TM=256, G=4,
-                       W=128, k=K, sentinel_frac=0.2, trailing_empty=2):
+                       W=128, k=K, sentinel_frac=0.2, trailing_empty=2,
+                       sentinel_steps=(), chains=()):
     """Random step tables: panels with the given step counts (then
-    ``trailing_empty`` panels with none), block ids sorted within a panel
-    and including the last, partial block; a fraction of sentinels."""
+    ``trailing_empty`` panels with none), block ids sorted within a step
+    and including the last, partial block; a fraction of sentinels; the
+    steps ``sentinel_steps`` all sentinels.  ``chains`` plants block ids
+    0, 1, ... in exactly that many slots each (the g_B kernel's chains of
+    slots); every other id is >= len(chains)."""
     nblk = -(-n // W)
     S = int(sum(steps_per_panel))
     out_panel = np.repeat(np.arange(len(steps_per_panel)), steps_per_panel)
     first = np.zeros(S, np.int32)
     starts = np.concatenate([[0], np.cumsum(steps_per_panel)[:-1]])
     first[starts] = 1
-    win = np.sort(rng.integers(0, nblk, (S, G)), axis=1)
+    win = np.sort(rng.integers(len(chains), nblk, (S, G)), axis=1)
     win[::7, -1] = nblk - 1                       # rows >= n read as zero
     win[rng.random((S, G)) < sentinel_frac] = nblk
+    win[list(sentinel_steps)] = nblk
+    if chains:
+        free = np.setdiff1d(np.arange(S), sentinel_steps)
+        pos = rng.permutation(len(free) * G)[:int(sum(chains))]
+        win[free[pos // G], pos % G] = np.repeat(np.arange(len(chains)),
+                                                 chains)
     n_panels = len(steps_per_panel) + trailing_empty
     ptr = np.concatenate([[0], np.cumsum(steps_per_panel),
                           np.full(trailing_empty, S)]).astype(np.int32)
@@ -148,16 +167,26 @@ def hold_to_plain(torch, name, label, out, ref, absprod, L):
     return max_err
 
 
-def check_window_kernel(torch, t, n_panels, W, ptr, label):
+def require_same_bits(torch, name, label, a, b):
+    """Two launches on the same inputs: the units' partial tiles are added
+    in a fixed order, so the outputs are equal bit for bit."""
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name} on {label}: a second launch gave other "
+                             f"bits, max |diff| {float((a - b).abs().max())}")
+
+
+def check_window_kernel(torch, t, n_panels, W, ptr, label, units=None):
     """Kernel 1 against its plain version; L = the panel's contraction
-    length (steps·G·W)."""
+    length (steps·G·W).  Launched twice: the outputs must be bit-equal."""
     from flex_tpu_torch.ops.window_spmm import (
         window_spmm_fwd, window_spmm_fwd_plain,
     )
 
     args = (t["first"], t["out_panel"], t["win_step"])
-    C_k = window_spmm_fwd(*args, t["A"], t["B"], n_panels=n_panels, W=W,
-                          panel_step_ptr=ptr)
+    kw = dict(n_panels=n_panels, W=W, panel_step_ptr=ptr, units=units)
+    C_k = window_spmm_fwd(*args, t["A"], t["B"], **kw)
+    require_same_bits(torch, "window_spmm", label, C_k,
+                      window_spmm_fwd(*args, t["A"], t["B"], **kw))
     C_p = window_spmm_fwd_plain(*args, t["A"], t["B"], n_panels=n_panels,
                                 W=W)
     absprod = window_spmm_fwd_plain(*args, t["A"].abs(), t["B"].abs(),
@@ -167,9 +196,12 @@ def check_window_kernel(torch, t, n_panels, W, ptr, label):
     return hold_to_plain(torch, "window_spmm", label, C_k, C_p, absprod, L)
 
 
-def check_window_kernel_ks(torch, t, n_panels, W, ptr, label, ks=(K, 41)):
-    """The forward kernel on one random-table case at each k: k = 41 masks
-    columns of the kernel's 128-wide tile."""
+KS = (K, 41, 32, 200)   # column tiles of 128, 48 and 32, and two of 128
+
+
+def check_window_kernel_ks(torch, t, n_panels, W, ptr, label, ks=KS):
+    """The forward kernel on one random-table case at each k: the column
+    tile follows k, and k = 41 takes the copies of 4 bytes."""
     n = t["B"].shape[0]
     for k in ks:
         B = t["B"] if k == t["B"].shape[1] else \
@@ -188,7 +220,8 @@ def bwd_slot_tables(win_step, out_panel, n, W, G):
     if d["bwd_tabs"] is None:
         return None
     return {"slot_s": d["bwd_tabs"][0], "slot_g": d["bwd_tabs"][1],
-            "slot_ptr": d["slot_ptr"], "n_blk_used": d["n_blk_used"]}
+            "slot_ptr": d["slot_ptr"], "n_blk_used": d["n_blk_used"],
+            "units": d["slot_units"]}
 
 
 def check_gA_kernel(torch, out_panel, win_step, g, B, TM, W, label,
@@ -226,14 +259,17 @@ def check_gA_kernel(torch, out_panel, win_step, g, B, TM, W, label,
 
 def check_gB_kernel(torch, tabs, out_panel, A, g, W, label):
     """|gB_kernel - gB_plain| <= 2·L·eps32·(|A|ᵀ·|g|) elementwise, L = the
-    block's contraction length (its slots · TM).  Returns max_abs_err."""
+    block's contraction length (its slots · TM).  Launched twice: the
+    outputs must be bit-equal.  Returns max_abs_err."""
     from flex_tpu_torch.ops.window_spmm import (
         window_bwd_gB, window_bwd_gB_plain,
     )
 
     kw = dict(W=W, n_blk_used=tabs["n_blk_used"])
     args = (tabs["slot_s"], tabs["slot_g"], tabs["slot_ptr"], out_panel)
-    out = window_bwd_gB(*args, A, g, **kw)
+    out = window_bwd_gB(*args, A, g, units=tabs["units"], **kw)
+    require_same_bits(torch, "window_bwd_gB", label, out,
+                      window_bwd_gB(*args, A, g, units=tabs["units"], **kw))
     torch.cuda.synchronize()
     ref = window_bwd_gB_plain(*args, A, g, **kw)
     absprod = window_bwd_gB_plain(*args, A.abs(), g.abs(), **kw)
@@ -243,7 +279,7 @@ def check_gB_kernel(torch, tabs, out_panel, A, g, W, label):
                          L[:, None])
 
 
-def check_bwd_kernels(torch, t, n_panels, W, label, ks=(K, 41)):
+def check_bwd_kernels(torch, t, n_panels, W, label, ks=KS):
     """Both backward kernels on one random-table case, at each k."""
     TM, GW = t["A"].shape[1], t["A"].shape[2]
     n = t["B"].shape[0]
@@ -409,12 +445,36 @@ def phase_new_kernels_vs_plain(torch, dev="cuda"):
 
 
 def phase_kernels_vs_plain(torch, dev="cuda"):
+    from flex_tpu_torch.ops.window_spmm import (
+        FWD_CHUNK_STEPS as CS, GB_CHUNK_SLOTS as CL, work_units,
+    )
+
     rng = np.random.default_rng(0)
-    # a 1-step panel, a 64-step panel, a spread of others, trailing empties;
+    # panels of a single step, exactly one unit, one unit plus one step and
+    # eight units, a spread of others, trailing empties; an all-sentinel
+    # step inside the long panel; chains of slots of the same four kinds;
     # n % W != 0
-    steps = np.concatenate([[1, 64], rng.integers(1, 24, 60), [1]])
-    t, n_panels, W, ptr = random_window_case(torch, rng, steps, 50_000 + 37, dev)
+    steps = np.concatenate([[1, CS, CS + 1, 8 * CS], rng.integers(1, 24, 60),
+                            [1]])
+    chains = (1, CL, CL + 1, 8 * CL + 3)
+    t, n_panels, W, ptr = random_window_case(
+        torch, rng, steps, 50_000 + 37, dev, sentinel_steps=(2 * CS + 5,),
+        chains=chains)
+    tabs = bwd_slot_tables(t["win_step"], t["out_panel"], 50_037, W, 4)
+    got = np.diff(tabs["slot_ptr"].cpu().numpy())[:len(chains)]
+    units = work_units(ptr.cpu().numpy(), CS)[0]
+    if tuple(got) != chains or int(np.diff(units[:, 1:3]).max()) != CS:
+        raise AssertionError(f"the random case has chains {got}, not "
+                             f"{chains}, or no full unit")
     label = f"S={int(steps.sum())} panels={n_panels} n=50037"
+    check_window_kernel_ks(torch, t, n_panels, W, ptr, label)
+    check_bwd_kernels(torch, t, n_panels, W, label)
+    # TM not a multiple of the 128-row tile, W = 64, G = 2
+    steps = np.array([3, 2 * CS + 1, 1])
+    t, n_panels, W, ptr = random_window_case(
+        torch, rng, steps, 3_000 + 5, dev, TM=200, G=2, W=64,
+        chains=(CL + 1,))
+    label = f"S={int(steps.sum())} TM=200 G=2 W=64 n=3005"
     check_window_kernel_ks(torch, t, n_panels, W, ptr, label)
     check_bwd_kernels(torch, t, n_panels, W, label)
     # all-sentinel panel and a tiny graph with a single partial block
@@ -507,10 +567,12 @@ def steps_percentiles(plan) -> list[int]:
 
 
 def longest_panel_ms(torch, plan, B, time_cuda_ms) -> float:
-    """The window kernel on the longest panel's steps alone: a lower bound
-    on the whole launch's time, since that panel's blocks run its steps in
-    sequence."""
-    from flex_tpu_torch.ops.window_spmm import window_spmm_fwd
+    """The window kernel on the longest panel's steps alone, cut into units
+    as in the whole launch: what the card takes for that panel when nothing
+    else runs."""
+    from flex_tpu_torch.ops.window_spmm import (
+        FWD_CHUNK_STEPS, device_units, window_spmm_fwd,
+    )
 
     ptr = plan.panel_step_ptr.long()
     p = int(torch.argmax(ptr[1:] - ptr[:-1]))
@@ -519,8 +581,47 @@ def longest_panel_ms(torch, plan, B, time_cuda_ms) -> float:
     one = dict(first=plan.first[lo:hi], out_panel=plan.out_panel[lo:hi] - p,
                win_step=plan.win_step[lo * G:hi * G], A=plan.A[lo:hi], B=B)
     ptr1 = torch.tensor([0, hi - lo], dtype=torch.int32, device=B.device)
+    units1 = device_units(np.array([0, hi - lo]), FWD_CHUNK_STEPS, B.device)
     return time_cuda_ms(lambda: window_spmm_fwd(
-        *one.values(), n_panels=1, W=plan.W, panel_step_ptr=ptr1), iters=10)
+        *one.values(), n_panels=1, W=plan.W, panel_step_ptr=ptr1,
+        units=units1), iters=10)
+
+
+def units_report(units) -> dict:
+    """Counts of a unit table: units, steps (slots) per unit at p50 / p99 /
+    max, owners with several units, partial tiles."""
+    tab, splits, n_parts = units
+    u = tab.cpu().numpy()
+    per = u[:, 2] - u[:, 1]
+    return {"units": len(u), "per_unit_p50_p99_max":
+            [int(np.percentile(per, q)) for q in (50, 99, 100)],
+            "split_owners": int(splits.shape[0]), "partial_tiles": n_parts}
+
+
+def reduce_pass_ms(torch, name, symbol, units, rows, k, n_tiles,
+                   time_cuda_ms) -> tuple[float, int]:
+    """The pass that adds the partial tiles, alone, on a scratch of the
+    launch's size.  Returns (ms, scratch bytes)."""
+    from flex_tpu_torch.ops.window_spmm import reduce_partials
+
+    _, splits, n_parts = units
+    scratch = torch.rand((n_parts, rows, k), device="cuda")
+    out = torch.empty((n_tiles * rows, k), device="cuda")
+    ms = time_cuda_ms(reduce_partials, name, symbol, scratch, out, splits,
+                      iters=10)
+    return ms, scratch.numel() * 4
+
+
+# What the kernels that owned a whole panel (a whole chain of slots) took
+# on these tensors before they were cut into units, on an NVIDIA H100 80GB
+# HBM3 at 700 W: printed beside this run's times, not part of the kernels
+# line.
+WHOLE_OWNER_RECORD_MS = {
+    "window_spmm_fwd": {"k128": 20.60, "k41": 20.40, "longest_alone": 15.24},
+    "window_bwd_gB": {"k128": 22.79, "k41": 22.02, "longest_alone": 17.35},
+    "windowed_t_elap": 27.89, "train_ms_per_step": 108.48,
+}
+
 
 def window_T_as_bsr(torch, plan):
     """The dense half's tiles, transposed, as one BSR matrix of (W, W)
@@ -660,6 +761,13 @@ def phase_gradient(torch, g, plan, B_dev):
     diff = float((Bg2.grad - Bg.grad).abs().max())
     log(f"[grad] g_B with vs without the transposed residue backward: "
         f"max |diff| {diff:.3e}")
+    # the train step's second layer takes its g_B at k = 41 (SciPy sums each
+    # column on its own, so gold[:, :41] is the gold of co[:, :41])
+    B41 = B_dev[:, :41].clone().requires_grad_()
+    (tplan(B41) * co[:, :41]).sum().backward()
+    check_gB_against_scipy(g, B41.grad, np.ascontiguousarray(gold[:, :41]),
+                           col_deg, "with_training_bwd k=41")
+    del B41
     return launches, gA_err, co, g_dense, tplan
 
 
@@ -808,7 +916,8 @@ def phase_training(torch, g, plan, tplan, X, time_cuda_ms, smi,
             split[f"kernel3_gB_k{k}"] = time_cuda_ms(
                 lambda: window_bwd_gB(ts, tg, plan.slot_ptr, plan.out_panel,
                                       plan.A, gd, W=plan.W,
-                                      n_blk_used=plan.n_blk_used), iters=5)
+                                      n_blk_used=plan.n_blk_used,
+                                      units=plan.slot_units), iters=5)
             split[f"residue_bwd_k{k}"] = time_cuda_ms(bwd, h, iters=5)
             del gd
         split["fwd_dense_matmul"] = time_cuda_ms(
@@ -836,16 +945,16 @@ def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
     """Phase 8: the two backward kernels on the main path's tensors.
     Returns their rows of the kernels line."""
     from flex_tpu_torch.ops.window_spmm import (
-        window_bwd_gA, window_bwd_gA_plain, window_bwd_gB,
-        window_bwd_gB_plain,
+        GB_CHUNK_SLOTS, device_units, window_bwd_gA, window_bwd_gA_plain,
+        window_bwd_gB, window_bwd_gB_plain,
     )
 
     n_win, _, n_flops = window_bytes_flops(plan, K)
     S, TM, GW = plan.A.shape
     W = plan.W
     ts, tg, rows = plan.bwd_tabs
-    tabs = {"slot_s": ts, "slot_g": tg,
-            "slot_ptr": plan.slot_ptr, "n_blk_used": plan.n_blk_used}
+    tabs = {"slot_s": ts, "slot_g": tg, "slot_ptr": plan.slot_ptr,
+            "n_blk_used": plan.n_blk_used, "units": plan.slot_units}
     tables_bytes = 4 * (plan.win_step.numel() + plan.out_panel.numel())
 
     # kernel 2: reads g and B once, writes every tile of g_A (sentinels too)
@@ -867,9 +976,9 @@ def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
     gd41 = g_dense[:, :41].contiguous()
     gB_err_41 = check_gB_kernel(torch, tabs, plan.out_panel, plan.A, gd41, W,
                                 "main path k=41")
-    gB_call = lambda gd=g_dense: window_bwd_gB(  # noqa: E731
+    gB_call = lambda gd=g_dense, units=plan.slot_units: window_bwd_gB(  # noqa: E731
         ts, tg, plan.slot_ptr, plan.out_panel, plan.A, gd, W=W,
-        n_blk_used=plan.n_blk_used)
+        n_blk_used=plan.n_blk_used, units=units)
     gB_ms = time_cuda_ms(gB_call, iters=10)
     gB_plain_ms = time_cuda_ms(
         lambda: window_bwd_gB_plain(ts, tg, plan.slot_ptr, plan.out_panel,
@@ -881,18 +990,33 @@ def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
         2 * ts.numel() + plan.slot_ptr.numel() + plan.out_panel.numel())
     gB_bound, gB_by = bound(gB_bytes, n_flops, peaks)
     gB_ms_41 = time_cuda_ms(gB_call, gd41, iters=10)
-    # the longest chain of slots alone: a lower bound on the whole launch
+    # one unit per rank: the same kernel with a block behind every whole chain
+    whole = device_units(plan.slot_ptr.cpu().numpy(), 1 << 30, "cuda")
+    gB_whole_ms = time_cuda_ms(gB_call, g_dense, whole, iters=5)
+    # the longest chain of slots alone, cut into units as in the whole launch
     ptr = plan.slot_ptr.long()
     r = int(torch.argmax(ptr[1:] - ptr[:-1]))
     lo, hi = int(ptr[r]), int(ptr[r + 1])
     ptr1 = torch.tensor([0, hi - lo], dtype=torch.int32, device="cuda")
+    units1 = device_units(np.array([0, hi - lo]), GB_CHUNK_SLOTS, "cuda")
     longest_ms = time_cuda_ms(lambda: window_bwd_gB(
-        ts[lo:hi], tg[lo:hi], ptr1, plan.out_panel, plan.A, g_dense, W=W, n_blk_used=1), iters=10)
+        ts[lo:hi], tg[lo:hi], ptr1, plan.out_panel, plan.A, g_dense, W=W,
+        n_blk_used=1, units=units1), iters=10)
+    rep = units_report(plan.slot_units)
+    reduce_ms, scratch_bytes = reduce_pass_ms(
+        torch, "window_spmm_bwd", "flex_window_bwd_gB_reduce",
+        plan.slot_units, W, K, plan.n_blk_used, time_cuda_ms)
     log(f"[kernels] window_bwd_gB: {plan.n_blk_used} blocks, slots per "
-        f"block p50/p99/max {slots_percentiles(plan)}; longest block alone "
-        f"{longest_ms:.3f} ms; k=41 {gB_ms_41:.3f} ms; "
+        f"block p50/p99/max {slots_percentiles(plan)}; {rep['units']} units "
+        f"of at most {GB_CHUNK_SLOTS} slots, slots per unit p50/p99/max "
+        f"{rep['per_unit_p50_p99_max']}, {rep['split_owners']} blocks split, "
+        f"{rep['partial_tiles']} partial tiles = {scratch_bytes} scratch "
+        f"bytes at k={K}, reduce pass alone {reduce_ms:.3f} ms; longest "
+        f"block alone {longest_ms:.3f} ms; one unit per block "
+        f"{gB_whole_ms:.3f} ms; k=41 {gB_ms_41:.3f} ms; "
         f"{n_flops / 1e12:.4f} TFLOP, {gB_bytes / 1e9:.3f} GB, "
-        f"{n_flops / (gB_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+        f"{n_flops / (gB_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved; the "
+        f"whole-chain kernel's record: {WHOLE_OWNER_RECORD_MS['window_bwd_gB']}")
 
     # library yardsticks, timed here and used nowhere in the package
     At = g.to_scipy().T.tocsr()
@@ -930,7 +1054,9 @@ def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
         "ms": gB_ms, "plain_ms": gB_plain_ms, "bound_ms": gB_bound,
         "bound_by": gB_by, "library_ms": gB_library_ms,
         "ms_k41": gB_ms_41, "max_abs_err_k41": gB_err_41,
-        "longest_block_ms": longest_ms,
+        "longest_block_ms": longest_ms, "reduce_ms": reduce_ms,
+        "ms_one_unit_per_block": gB_whole_ms, "scratch_bytes": scratch_bytes,
+        "units": rep["units"],
         "whole_gB_csr_library_ms": whole_gB_ms,
     }]
 
@@ -1228,7 +1354,8 @@ def main() -> int:
     from flex_tpu_torch import kernels
     from flex_tpu_torch.bench.harness import bench_spmm, time_cuda_ms
     from flex_tpu_torch.ops.window_spmm import (
-        window_select, window_spmm_fwd, window_spmm_fwd_plain,
+        FWD_CHUNK_STEPS, device_units, window_select, window_spmm_fwd,
+        window_spmm_fwd_plain,
     )
 
     # 1. environment
@@ -1249,6 +1376,11 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {src}: {line.strip()}")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", out)]
+        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", out)]
+        log(f"[build] {src}: {len(regs)} kernels, most registers "
+            f"{max(regs, default=0)}, most spill stores "
+            f"{max(spills, default=0)} bytes")
 
     # 3. kernel vs plain
     phase_kernels_vs_plain(torch)
@@ -1321,23 +1453,42 @@ def main() -> int:
     # 5. kernels on the main path's tensors
     args = (plan.first, plan.out_panel, plan.win_step, plan.A, B_dev)
     kw = dict(n_panels=plan.n_used_panels, W=plan.W)
+    tabs = {"first": plan.first, "out_panel": plan.out_panel,
+            "win_step": plan.win_step, "A": plan.A}
     max_abs_err = check_window_kernel(
-        torch, {"first": plan.first, "out_panel": plan.out_panel,
-                "win_step": plan.win_step, "A": plan.A, "B": B_dev},
-        plan.n_used_panels, plan.W, plan.panel_step_ptr, "main path k=128")
+        torch, dict(tabs, B=B_dev), plan.n_used_panels, plan.W,
+        plan.panel_step_ptr, "main path k=128", units=plan.panel_units)
     # the train step's second layer calls the kernel at k = 41
+    B41 = B_dev[:, :41].contiguous()
     max_abs_err_41 = check_window_kernel(
-        torch, {"first": plan.first, "out_panel": plan.out_panel,
-                "win_step": plan.win_step, "A": plan.A,
-                "B": B_dev[:, :41].contiguous()},
-        plan.n_used_panels, plan.W, plan.panel_step_ptr, "main path k=41")
+        torch, dict(tabs, B=B41), plan.n_used_panels, plan.W,
+        plan.panel_step_ptr, "main path k=41", units=plan.panel_units)
+    check_plan_against_scipy(g, plan, np.ascontiguousarray(B[:, :41]),
+                             np.ascontiguousarray(gold[:, :41]),
+                             "windowed main path k=41")
     C_k = plan.dense_half(B_dev)
+    dense_ms_41 = time_cuda_ms(plan.dense_half, B41, iters=20)
     plain_ms = time_cuda_ms(lambda: window_spmm_fwd_plain(*args, **kw),
                             iters=5)
-    log(f"[kernels] window_spmm_fwd longest panel alone: "
-        f"{longest_panel_ms(torch, plan, B_dev, time_cuda_ms):.3f} ms; "
-        f"steps per panel p50/p99/max "
-        f"{steps_percentiles(plan)}")
+    # one unit per panel: the same kernel with a block behind every whole panel
+    whole = device_units(plan.panel_step_ptr.cpu().numpy(), 1 << 30, "cuda")
+    whole_ms = time_cuda_ms(lambda: window_spmm_fwd(
+        *args, panel_step_ptr=plan.panel_step_ptr, units=whole, **kw),
+        iters=5)
+    longest_ms = longest_panel_ms(torch, plan, B_dev, time_cuda_ms)
+    rep = units_report(plan.panel_units)
+    reduce_ms, scratch_bytes = reduce_pass_ms(
+        torch, "window_spmm", "flex_window_spmm_reduce", plan.panel_units,
+        plan.tm, K, plan.n_used_panels, time_cuda_ms)
+    log(f"[kernels] window_spmm_fwd: steps per panel p50/p99/max "
+        f"{steps_percentiles(plan)}; {rep['units']} units of at most "
+        f"{FWD_CHUNK_STEPS} steps, steps per unit p50/p99/max "
+        f"{rep['per_unit_p50_p99_max']}, {rep['split_owners']} panels split, "
+        f"{rep['partial_tiles']} partial tiles = {scratch_bytes} scratch "
+        f"bytes at k={K}, reduce pass alone {reduce_ms:.3f} ms; longest "
+        f"panel alone {longest_ms:.3f} ms; one unit per panel "
+        f"{whole_ms:.3f} ms; k=41 {dense_ms_41:.3f} ms; the whole-panel "
+        f"kernel's record: {WHOLE_OWNER_RECORD_MS['window_spmm_fwd']}")
     n_win, n_bytes, n_flops = window_bytes_flops(plan, K)
     bound_ms, bound_by = bound(n_bytes, n_flops, peaks)
     A_bsr = window_as_bsr(torch, plan)
@@ -1347,8 +1498,9 @@ def main() -> int:
     win_library_ms = time_cuda_ms(torch.sparse.mm, A_bsr, B_pad, iters=10)
     log(f"[kernels] window_spmm_fwd yardstick torch.sparse.mm(BSR "
         f"{plan.W}x{plan.W}): {win_library_ms:.3f} ms, max |diff| vs "
-        f"kernel {lib_err:.3e}")
-    del A_bsr, B_pad, C_k
+        f"kernel {lib_err:.3e}; whole product by torch.sparse.mm(CSR) "
+        f"{library_ms:.3f} ms")
+    del A_bsr, B_pad, C_k, B41
     rows = [{
         "name": "window_spmm_fwd", "route": "cuda",
         "source": "flex_tpu_torch/csrc/window_spmm.cu",
@@ -1357,6 +1509,10 @@ def main() -> int:
         "max_abs_err": max_abs_err, "ms": dense_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": win_library_ms, "max_abs_err_k41": max_abs_err_41,
+        "ms_k41": dense_ms_41, "longest_panel_ms": longest_ms,
+        "reduce_ms": reduce_ms, "ms_one_unit_per_panel": whole_ms,
+        "scratch_bytes": scratch_bytes, "units": rep["units"],
+        "whole_product_csr_library_ms": library_ms,
     }]
     log(f"[kernels] window_spmm_fwd: real windows {n_win}, "
         f"{n_flops / 1e12:.4f} TFLOP, {n_bytes / 1e9:.3f} GB, "
@@ -1372,7 +1528,10 @@ def main() -> int:
                               launches_grad, launches_train, peaks,
                               time_cuda_ms)
     log(f"[kernels] launches: forward path {launches}, gradient path "
-        f"{launches_grad}, 7 train steps {launches_train}")
+        f"{launches_grad}, 7 train steps {launches_train}; before the unit "
+        f"kernels the windowed tElap was "
+        f"{WHOLE_OWNER_RECORD_MS['windowed_t_elap']} ms and a train step "
+        f"{WHOLE_OWNER_RECORD_MS['train_ms_per_step']} ms on this card model")
     del co, g_dense, tplan
 
     # 9. the transposed plan beside the row-major one (both A arrays live)
@@ -1395,11 +1554,11 @@ def main() -> int:
     if len(rows) != 7 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
+    log(json.dumps({"kernels": rows}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -15,8 +15,9 @@ optionally ``chunk1``, ``extras`` ((extra_idx, extra_first) or None) and
 ``n_used_panels``, ``A``, ``first``, ``out_panel``, ``win_step``,
 ``row_gather``, ``coverage``, ``ell`` (a dict as above), and optionally
 ``min_count_eff`` and ``transposed`` (then ``A`` is the Aᵀ step array
-[S, G·W, TM]).  The backward tables are recomputed from ``win_step`` and
-``out_panel``; a transposed plan carries none.
+[S, G·W, TM]).  The backward tables and the kernels' work units are
+recomputed from ``first``, ``win_step`` and ``out_panel``; a transposed
+plan carries no backward tables.
 
 ``band_plan_from_numpy`` keys: ``m``, ``n``, ``tm``, ``w_pad``, ``impl``,
 ``band`` (one array [P, TM, W], or the (left, right) pair of
@@ -37,7 +38,8 @@ from flex_tpu_torch.ops.ell_spmm import EllPlan
 from flex_tpu_torch.ops.gespmm import GeSpmmPlan
 from flex_tpu_torch.ops.pallas_band import BandPlan
 from flex_tpu_torch.ops.window_spmm import (
-    WindowedPlan, bwd_device_tables, panel_step_ptr,
+    FWD_CHUNK_STEPS, WindowedPlan, bwd_device_tables, device_units,
+    panel_step_ptr,
 )
 
 
@@ -82,6 +84,8 @@ def windowed_plan_from_numpy(d: dict, device) -> WindowedPlan:
         win_step=_t(win_step, np.int32, device),
         row_gather=_t(d["row_gather"], np.int32, device),
         panel_step_ptr=_t(panel_step_ptr(first), np.int32, device),
+        panel_units=device_units(panel_step_ptr(first), FWD_CHUNK_STEPS,
+                                 device),
         ell=ell_plan_from_numpy(d["ell"], device),
         coverage=float(d["coverage"]),
         min_count_eff=int(d.get("min_count_eff", 0)),

@@ -22,26 +22,32 @@
 //
 // g_B: the TPU grid walked the slots in block-id order and carried a block's
 // sum from step to step; CUDA blocks run in no order.  The host sorts the
-// real slots by block id and derives slot_ptr, and one block here owns one
-// (block rank, BM-row, BN-column) output tile, loops over that rank's slots
-// itself and writes its tile once: no atomics, no zero-init pass,
-// deterministic.  The contraction runs over TM; A is read transposed, but a
-// row of the A tile is already W-contiguous, so the stage through shared
-// memory keeps the global reads coalesced (float4) with no transposing
-// store.  The result is rank-indexed ([n_blk_used*W, k]); the caller
-// scatters it to B's rows.
+// real slots by block id, so the slots of one block of B (one rank) are
+// consecutive.  A block of B met by many panels makes a long chain of slots
+// (on the reddit_posts main path 11 / 223 / 414 slots at p50 / p99 / max
+// over 47,238), and a CUDA block that owned a whole chain left the card idle
+// behind the longest.  So the host cuts every rank's slot range into units
+// of a few slots (ops/window_spmm.py:work_units), and one block owns one
+// (unit, 128-row tile of W, column tile).  A rank with one unit writes its
+// output tile; the units of a longer chain write partial tiles into scratch,
+// and flex_window_bwd_gB_reduce adds a rank's partials in unit order and
+// writes the output once: a fixed order, no atomics, no zero-init pass, the
+// same bits on every launch.  The contraction runs over TM; a row of the A
+// tile is already W-contiguous, so the stage enters shared memory as it lies
+// (16 bytes a copy).  The result is rank-indexed ([n_blk_used*W, k]); the
+// caller scatters it to B's rows.
 //
 // Bound: each window does 2*TM*W*k FMA-operations against TM*W*4 bytes of A
 // read (g_B) or written (g_A): 64 flop/byte at k=128, above the FP32 ridge of
 // an H100 (67 TFLOP/s over 3.35 TB/s = 20 flop/byte), so the FP32 CUDA cores
-// bound both.  The design is the forward's: a shared-memory-tiled SGEMM with
-// an 8x8 register tile per thread.  Exact f32 throughout: no TF32, no split
-// precision.  A block rank met by many panels makes one long chain of slots
-// (the forward's long panels, turned); tensor cores and a split of long
-// chains are later work.
+// bound both.  g_A is a shared-memory-tiled SGEMM with an 8x8 register tile
+// per thread.  g_B shares the forward's pieces (csrc/window_tile.cuh): equal
+// units keep every SM busy, the column tile follows k (32, 48, 64 or 128
+// columns, so k = 41 does the FMAs of 48), and a three-stage cp.async ring
+// keeps the next loads in flight under the FMAs with one barrier per
+// 16-deep stage.  Exact f32 FMA throughout: no TF32, no split precision.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "window_tile.cuh"
 
 namespace {
 
@@ -149,79 +155,100 @@ window_bwd_gA_kernel(const float* __restrict__ g, const float* __restrict__ B,
   }
 }
 
-__global__ void __launch_bounds__(NT)
+namespace fw = flex_window;
+
+// units[u] = (rank, t_lo, t_hi, part): sorted slots t_lo .. t_hi - 1 of block
+// rank `rank`; part < 0 writes the tile of `out`, else tile `part` of
+// `scratch`.
+template <int CN, bool VEC16>
+__global__ void __launch_bounds__(fw::NT, 2)
 window_bwd_gB_kernel(const float* __restrict__ A, const float* __restrict__ g,
                      const int32_t* __restrict__ slot_s,
                      const int32_t* __restrict__ slot_g,
-                     const int32_t* __restrict__ slot_ptr,
+                     const int32_t* __restrict__ units,
                      const int32_t* __restrict__ out_panel,
-                     float* __restrict__ out, int TM, int G, int W, int k) {
-  __shared__ __align__(16) float As[BK][BM];  // A tile rows, [tm][w]
-  __shared__ __align__(16) float Gs[BK][BN];  // cotangent rows, [tm][k]
+                     float* __restrict__ out, float* __restrict__ scratch,
+                     int TM, int G, int W, int k) {
+  constexpr int TN = CN * fw::TC;                // output columns per block
+  constexpr int A_FLOATS = fw::BK * fw::BM;      // A tile rows, [tm][w]
+  constexpr int STAGE_FLOATS = A_FLOATS + fw::BK * TN;  // + cotangent [tm][k]
+  extern __shared__ __align__(16) float smem[];
 
-  const int rank = blockIdx.x;
-  const int row0 = blockIdx.y * BM;  // within W
-  const int col0 = blockIdx.z * BN;  // within k
+  const int row0 = blockIdx.y * fw::BM;  // within W
+  const int col0 = blockIdx.z * TN;      // within k
   const int tid = threadIdx.x;
-  const int tr = tid / (BN / RN);
-  const int tc = tid % (BN / RN);
-  const int64_t GW = (int64_t)G * W;
+  const int tr = tid / fw::TC;
+  const int tc = tid % fw::TC;
+  const int GW = G * W;
+  const int t_lo = units[4 * blockIdx.x + 1];
+  const int t_hi = units[4 * blockIdx.x + 2];
 
-  float acc[RM][RN];
+  float acc[fw::RM][CN];
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
+  for (int i = 0; i < fw::RM; ++i)
 #pragma unroll
-    for (int c = 0; c < RN; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < CN; ++c) acc[i][c] = 0.f;
 
-  const int t_lo = slot_ptr[rank];
-  const int t_hi = slot_ptr[rank + 1];
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int s = slot_s[t];
-    // 64-bit: S*TM*GW ~ 1.6e9 on the main path
-    const float* a_tile = A + (int64_t)s * TM * GW + (int64_t)slot_g[t] * W;
-    const float* g_rows = g + (int64_t)out_panel[s] * TM * k;
-    for (int q0 = 0; q0 < TM; q0 += BK) {
-      // A: BK rows x BM columns, coalesced float4 along W, no transposition
-#pragma unroll
-      for (int u = 0; u < (BK * BM) / (4 * NT); ++u) {
-        const int i = tid + u * NT;
-        const int q = i / (BM / 4);
-        const int w = (i % (BM / 4)) * 4;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + q < TM && row0 + w < W)
-          v = *reinterpret_cast<const float4*>(
-              a_tile + (int64_t)(q0 + q) * GW + row0 + w);
-        *reinterpret_cast<float4*>(&As[q][w]) = v;
-      }
-      // g: BK rows x BN columns, coalesced scalar loads with masks
-#pragma unroll
-      for (int u = 0; u < (BK * BN) / NT; ++u) {
-        const int i = tid + u * NT;
-        const int q = i / BN;
-        const int c = i % BN;
-        float v = 0.f;
-        if (q0 + q < TM && col0 + c < k)
-          v = g_rows[(int64_t)(q0 + q) * k + col0 + c];
-        Gs[q][c] = v;
-      }
-      __syncthreads();
-      tile_fma<BM, BN>(As, Gs, tr, tc, acc);
-      __syncthreads();
+  const int per_slot = (TM + fw::BK - 1) / fw::BK;
+  const int T = (t_hi - t_lo) * per_slot;
+
+  // the loads run STAGES - 1 stages ahead of the FMAs; every thread keeps
+  // the same cursor (slot, depth within TM)
+  int cur = t_lo;
+  int cur_q0 = 0;
+  auto load_stage = [&](int buf) {
+    float* As = smem + buf * STAGE_FLOATS;
+    const int s = slot_s[cur];
+    // 64-bit: S*TM*GW ~ 1.6e9 floats on the main path
+    fw::load_a_depthmajor(
+        As,
+        A + ((int64_t)s * TM + cur_q0) * GW + slot_g[cur] * W + row0, GW,
+        TM - cur_q0, W - row0, tid);
+    fw::load_rows<TN, VEC16>(As + A_FLOATS,
+                             g + (int64_t)out_panel[s] * TM * k, cur_q0, TM, k,
+                             col0, tid);
+    cur_q0 += fw::BK;
+    if (cur_q0 >= TM) {
+      cur_q0 = 0;
+      ++cur;
     }
+  };
+
+  for (int st = 0; st < fw::STAGES - 1; ++st) {
+    if (st < T) load_stage(st);
+    fw::cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    fw::cp_async_wait<fw::STAGES - 2>();  // stage t has landed (my part)
+    __syncthreads();                      // ... and everyone's; t - 1 is free
+    if (t + fw::STAGES - 1 < T) load_stage((t + fw::STAGES - 1) % fw::STAGES);
+    fw::cp_async_commit();
+    const float* As = smem + (t % fw::STAGES) * STAGE_FLOATS;
+    fw::fma_stage_depthmajor<CN>(As, As + A_FLOATS, tr, tc, acc);
   }
 
-  // epilogue: every output element of the tile is written exactly once
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int w = row0 + tr * RM + i;
-    if (w >= W) continue;
-    float* orow = out + ((int64_t)rank * W + w) * k;
-#pragma unroll
-    for (int c8 = 0; c8 < RN; ++c8) {
-      const int c = col0 + (c8 < 4 ? tc * 4 + c8 : BN / 2 + tc * 4 + (c8 - 4));
-      if (c < k) orow[c] = acc[i][c8];
-    }
-  }
+  // every element of the tile is written exactly once
+  const int rank = units[4 * blockIdx.x];
+  const int part = units[4 * blockIdx.x + 3];
+  float* tile = part < 0 ? out + ((int64_t)rank * W + row0) * k
+                         : scratch + ((int64_t)part * W + row0) * k;
+  fw::store_tile<fw::RM, CN, fw::TC, false, VEC16>(tile, W - row0, k, col0, tr,
+                                                   tc, acc);
+}
+
+template <int CN, bool VEC16>
+int launch_gB(const float* A, const float* g, const int32_t* slot_s,
+              const int32_t* slot_g, const int32_t* units,
+              const int32_t* out_panel, float* out, float* scratch,
+              int n_units, int TM, int G, int W, int k, cudaStream_t st) {
+  constexpr int TN = CN * fw::TC;
+  constexpr int SMEM = fw::STAGES * (fw::BK * fw::BM + fw::BK * TN) * 4;
+  const int err = fw::allow_smem(window_bwd_gB_kernel<CN, VEC16>, SMEM);
+  if (err) return err;
+  const dim3 grid(n_units, (W + fw::BM - 1) / fw::BM, (k + TN - 1) / TN);
+  window_bwd_gB_kernel<CN, VEC16><<<grid, fw::NT, SMEM, st>>>(
+      A, g, slot_s, slot_g, units, out_panel, out, scratch, TM, G, W, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -238,15 +265,34 @@ extern "C" int flex_window_bwd_gA(const float* g, const float* B,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A 16-byte aligned, W % 16 == 0 (the wrapper checks).  units is
+// int32[n_units][4]; scratch holds the partial tiles, (W, k) each.
 extern "C" int flex_window_bwd_gB(const float* A, const float* g,
                                   const int32_t* slot_s, const int32_t* slot_g,
-                                  const int32_t* slot_ptr,
+                                  const int32_t* units,
                                   const int32_t* out_panel, float* out,
-                                  int n_blk_used, int TM, int G, int W, int k,
-                                  void* stream) {
-  if (n_blk_used == 0 || k == 0) return 0;
-  const dim3 grid(n_blk_used, (W + BM - 1) / BM, (k + BN - 1) / BN);
-  window_bwd_gB_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, g, slot_s, slot_g, slot_ptr, out_panel, out, TM, G, W, k);
-  return static_cast<int>(cudaGetLastError());
+                                  float* scratch, int n_units, int TM, int G,
+                                  int W, int k, void* stream) {
+  if (n_units == 0 || k == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+#define FLEX_GB(RN)                                                          \
+  (vec ? launch_gB<RN, true>(A, g, slot_s, slot_g, units, out_panel, out,    \
+                             scratch, n_units, TM, G, W, k, st)              \
+       : launch_gB<RN, false>(A, g, slot_s, slot_g, units, out_panel, out,   \
+                              scratch, n_units, TM, G, W, k, st))
+  if (k <= 32) return FLEX_GB(2);
+  if (k <= 48) return FLEX_GB(3);
+  if (k <= 64) return FLEX_GB(4);
+  return FLEX_GB(8);
+#undef FLEX_GB
+}
+
+// out tile of rank splits[i][0] = scratch tiles splits[i][1] ..
+// splits[i][2] - 1 added in that order; a tile is W*k floats.
+extern "C" int flex_window_bwd_gB_reduce(const float* scratch, float* out,
+                                         const int32_t* splits, int n_splits,
+                                         int tile_elems, void* stream) {
+  return fw::launch_reduce_partials(scratch, out, splits, n_splits, tile_elems,
+                                    static_cast<cudaStream_t>(stream));
 }

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library in the
 package's build directory (listed in ``.gitignore``), named with a hash of
-the source so a stale build is never loaded, and opened with ``ctypes``.
+the source and of the headers beside it (``csrc/*.cuh``), so a stale build
+is never loaded, and opened with ``ctypes``.
 Nothing is built or imported when this module is imported.
 """
 from __future__ import annotations
@@ -38,10 +39,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                           ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{h}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=SOURCES) -> dict[str, str]:
@@ -101,21 +104,27 @@ def launch(name: str, symbol: str, device, *args) -> None:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "window_spmm":
-        # (A, B, win_step, panel_step_ptr, out,
-        #  n_panels, TM, G, W, n, k, nblk, stream)
-        lib.flex_window_spmm_fwd.argtypes = [p, p, p, p, p,
+        # (A, B, win_step, units, out, scratch,
+        #  n_units, TM, G, W, n, k, nblk, stream)
+        lib.flex_window_spmm_fwd.argtypes = [p, p, p, p, p, p,
                                              i, i, i, i, i, i, i, p]
         lib.flex_window_spmm_fwd.restype = i
+        # (scratch, out, splits, n_splits, tile_elems, stream)
+        lib.flex_window_spmm_reduce.argtypes = [p, p, p, i, i, p]
+        lib.flex_window_spmm_reduce.restype = i
     elif name == "window_spmm_bwd":
         # (g, B, win_step, out_panel, g_A, S, TM, G, W, n, k, nblk, stream)
         lib.flex_window_bwd_gA.argtypes = [p, p, p, p, p,
                                            i, i, i, i, i, i, i, p]
         lib.flex_window_bwd_gA.restype = i
-        # (A, g, slot_s, slot_g, slot_ptr, out_panel, out,
-        #  n_blk_used, TM, G, W, k, stream)
-        lib.flex_window_bwd_gB.argtypes = [p, p, p, p, p, p, p,
+        # (A, g, slot_s, slot_g, units, out_panel, out, scratch,
+        #  n_units, TM, G, W, k, stream)
+        lib.flex_window_bwd_gB.argtypes = [p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, p]
         lib.flex_window_bwd_gB.restype = i
+        # (scratch, out, splits, n_splits, tile_elems, stream)
+        lib.flex_window_bwd_gB_reduce.argtypes = [p, p, p, i, i, p]
+        lib.flex_window_bwd_gB_reduce.restype = i
     elif name == "window_spmm_t":
         # (AT, BT, win_step, panel_step_ptr, outT,
         #  n_panels, TM, G, W, n, k, nblk, stream)

@@ -17,6 +17,10 @@ add.
 - :func:`window_spmm_fwd` runs the dense half: the hand-written CUDA kernel
   ``csrc/window_spmm.cu`` for CUDA tensors, :func:`window_spmm_fwd_plain`
   for CPU tensors.
+- :func:`work_units` cuts every panel's steps (every block rank's slots)
+  into units of a few steps, one CUDA block each: long panels and slot
+  chains no longer hold the card behind one block.  The units of a split
+  panel write partial tiles, which a second kernel adds in unit order.
 - :func:`window_bwd_gA` and :func:`window_bwd_gB` are the dense half's two
   gradients (``csrc/window_spmm_bwd.cu``, plain versions beside them);
   :class:`_WindowSpmm` ties the three into one differentiable call, so a
@@ -265,23 +269,70 @@ def slot_ptr(bfirst: np.ndarray) -> np.ndarray:
     return np.append(np.flatnonzero(bfirst), len(bfirst)).astype(np.int32)
 
 
+FWD_CHUNK_STEPS = 8   # most steps in one unit of the forward kernel
+GB_CHUNK_SLOTS = 16   # most slots in one unit of the g_B kernel: equal work
+
+
+def work_units(ptr: np.ndarray, chunk: int) -> tuple[np.ndarray, np.ndarray]:
+    """Cut the ranges ``ptr[i] .. ptr[i+1]`` (a panel's steps, a block rank's
+    slots) into consecutive units of at most ``chunk``, as evenly as the
+    count allows.  Returns
+
+      units   int32[n_units, 4]  (owner i, lo, hi, part): a unit of an owner
+              with one unit has part -1 and writes the output tile; the
+              others write partial tile ``part``; an owner's parts are
+              consecutive and in range order.  An empty range keeps one
+              empty unit, so its output tile is written (as zeros).
+      splits  int32[n_split, 3]  (owner, part_lo, part_hi) for every owner
+              with several units: its output tile is the sum of those
+              partial tiles, taken in that order.
+    """
+    ptr = np.asarray(ptr, np.int64)
+    length = np.diff(ptr)
+    per = np.maximum(-(-length // chunk), 1)
+    owner = np.repeat(np.arange(len(per)), per)
+    start = np.cumsum(per) - per
+    j = np.arange(len(owner)) - start[owner]
+    L, c = length[owner], per[owner]
+    multi = c > 1
+    part = np.where(multi, np.cumsum(multi) - 1, -1)
+    units = np.stack([owner, ptr[owner] + j * L // c,
+                      ptr[owner] + (j + 1) * L // c, part], axis=1)
+    split = np.flatnonzero(per > 1)
+    part_lo = part[start[split]]
+    splits = np.stack([split, part_lo, part_lo + per[split]], axis=1)
+    return units.astype(np.int32), splits.astype(np.int32)
+
+
+def device_units(ptr: np.ndarray, chunk: int, device) -> tuple:
+    """:func:`work_units` as a kernel wrapper takes them: (units, splits) as
+    int32 tensors on ``device`` and the number of partial tiles."""
+    units, splits = work_units(ptr, chunk)
+    return (torch.from_numpy(units).to(device),
+            torch.from_numpy(splits).to(device), int((units[:, 3] >= 0).sum()))
+
+
 def bwd_device_tables(win_step_h, out_panel_h, nblk: int, g_step: int,
                       W: int, device) -> dict:
     """What the backward needs on ``device`` of :func:`_bwd_tables`, as a
-    plan's fields: ``bwd_tabs`` = (slot_s, slot_g, rows), ``slot_ptr`` and
-    ``n_blk_used`` (None, None and 0 when there is no real window).
-    ``panel_of`` is ``out_panel[slot_s]`` and ``rank``/``bfirst`` are
-    ``slot_ptr`` in another form, so they stay on the host."""
+    plan's fields: ``bwd_tabs`` = (slot_s, slot_g, rows), ``slot_ptr``,
+    ``slot_units`` (:func:`device_units` of ``slot_ptr``) and ``n_blk_used``
+    (None, None, None and 0 when there is no real window).  ``panel_of`` is
+    ``out_panel[slot_s]`` and ``rank``/``bfirst`` are ``slot_ptr`` in
+    another form, so they stay on the host."""
     tabs, n_blk = _bwd_tables(np.asarray(win_step_h), np.asarray(out_panel_h),
                               nblk, g_step, W)
     if tabs is None:
-        return {"bwd_tabs": None, "slot_ptr": None, "n_blk_used": 0}
+        return {"bwd_tabs": None, "slot_ptr": None, "slot_units": None,
+                "n_blk_used": 0}
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
+    ptr = slot_ptr(tabs[4])
     return {"bwd_tabs": (put(tabs[0]), put(tabs[1]), put(tabs[5])),
-            "slot_ptr": put(slot_ptr(tabs[4])), "n_blk_used": n_blk}
+            "slot_ptr": put(ptr), "n_blk_used": n_blk,
+            "slot_units": device_units(ptr, GB_CHUNK_SLOTS, device)}
 
 
 def _device_tables(sel: dict, device: torch.device) -> dict:
@@ -293,6 +344,7 @@ def _device_tables(sel: dict, device: torch.device) -> dict:
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
+        ptr = panel_step_ptr(sel["first"])
         cache[key] = {
             "slot": put(sel["slot"], np.int32),
             "pstep0": put(sel["pstep0"], np.int64),
@@ -300,7 +352,8 @@ def _device_tables(sel: dict, device: torch.device) -> dict:
             "out_panel": put(sel["out_panel"], np.int32),
             "win_step": put(sel["win_step"], np.int32),
             "row_gather": put(sel["row_gather"], np.int32),
-            "panel_step_ptr": put(panel_step_ptr(sel["first"]), np.int32),
+            "panel_step_ptr": put(ptr, np.int32),
+            "panel_units": device_units(ptr, FWD_CHUNK_STEPS, device),
         }
         # backward-slot tables ride with the forward ones, so a prepare
         # ships nothing new
@@ -382,6 +435,29 @@ def _padded(B, W):
     return B_pad
 
 
+def _check_units(units, device) -> None:
+    """A caller's unit tables are (int32 [U, 4], int32 [P, 3], int) on
+    ``device``."""
+    if units is None:
+        return
+    tab, splits, _ = units
+    check_operands({"units": (tab, (tab.shape[0], 4)),
+                    "splits": (splits, (splits.shape[0], 3))}, {})
+    if tab.device != device or splits.device != device:
+        raise ValueError(f"the unit tables lie on {tab.device}, not {device}")
+
+
+def reduce_partials(name, symbol, scratch, out, splits):
+    """Second pass of a unit kernel: every output tile of ``out`` named in
+    ``splits`` = its partial tiles of ``scratch`` ([n_parts, rows, k]) added
+    in unit order (``csrc/window_tile.cuh:reduce_partials_kernel``)."""
+    from flex_tpu_torch import kernels
+
+    kernels.launch(name, symbol, out.device, scratch.data_ptr(),
+                   out.data_ptr(), splits.data_ptr(), splits.shape[0],
+                   scratch.shape[1] * scratch.shape[2])
+
+
 def window_spmm_fwd_plain(first, out_panel, win_step, A, B, *, n_panels, W):
     """Plain PyTorch version of the dense half: gather the (S, G·W, k)
     window rows of B (sentinel block and rows ≥ n read as zero), one bmm,
@@ -396,14 +472,17 @@ def window_spmm_fwd_plain(first, out_panel, win_step, A, B, *, n_panels, W):
 
 
 def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
-                    panel_step_ptr):
+                    panel_step_ptr, units=None):
     """Dense half of the windowed hybrid: out[p] = Σ over used panel p's
     steps s and windows g of A[s][:, g·W:(g+1)·W] · B[win_step[s·G+g]·W : +W].
-    Returns f32 [n_panels·TM, k].
+    Returns f32 [n_panels·TM, k].  ``units`` are the panels' work units
+    (:func:`device_units` of ``panel_step_ptr`` and ``FWD_CHUNK_STEPS``);
+    without them the CUDA path derives them from ``panel_step_ptr``.
 
     CUDA tensors launch ``csrc/window_spmm.cu`` (and count the launch in
-    ``window_spmm_fwd.launches``); CPU tensors take
-    :func:`window_spmm_fwd_plain`.  Anything else raises."""
+    ``window_spmm_fwd.launches``): one kernel over the units and, where a
+    panel has several, the pass that adds its partial tiles.  CPU tensors
+    take :func:`window_spmm_fwd_plain`.  Anything else raises."""
     if A.dim() != 3 or B.dim() != 2:
         raise ValueError(f"A must be 3-D and B 2-D, got {A.dim()}, {B.dim()}")
     S, TM, GW = A.shape
@@ -413,6 +492,7 @@ def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
                      "win_step": (win_step, S * (GW // W)),
                      "panel_step_ptr": (panel_step_ptr, n_panels + 1)},
                     {"A": A, "B": B})
+    _check_units(units, A.device)
     if A.device.type == "cpu":
         return window_spmm_fwd_plain(first, out_panel, win_step, A, B,
                                      n_panels=n_panels, W=W)
@@ -420,14 +500,23 @@ def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
         raise ValueError(f"no window kernel for device {A.device}")
     n, k = B.shape
     _check_window_kernel_operands(W, ("A",), A=A, B=B)
+    if units is None:  # a trip to the host: a plan carries its own
+        units = device_units(panel_step_ptr.cpu().numpy(), FWD_CHUNK_STEPS,
+                             A.device)
+    unit_tab, splits, n_parts = units
     from flex_tpu_torch import kernels
 
     out = torch.empty((n_panels * TM, k), dtype=torch.float32,
                       device=A.device)
+    scratch = torch.empty((n_parts, TM, k), dtype=torch.float32,
+                          device=A.device)
     kernels.launch("window_spmm", "flex_window_spmm_fwd", A.device,
                    A.data_ptr(), B.data_ptr(), win_step.data_ptr(),
-                   panel_step_ptr.data_ptr(), out.data_ptr(), n_panels, TM,
-                   GW // W, W, n, k, max(-(-n // W), 1))
+                   unit_tab.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                   unit_tab.shape[0], TM, GW // W, W, n, k,
+                   max(-(-n // W), 1))
+    reduce_partials("window_spmm", "flex_window_spmm_reduce", scratch, out,
+                    splits)
     window_spmm_fwd.launches += 1
     return out
 
@@ -510,17 +599,21 @@ def window_bwd_gB_plain(slot_s, slot_g, slot_ptr, out_panel, A, g, *, W,
 
 
 def window_bwd_gB(slot_s, slot_g, slot_ptr, out_panel, A, g, *, W,
-                  n_blk_used):
+                  n_blk_used, units=None):
     """Gradient of the dense half wrt B, compact: for the r-th distinct
     window block, rows r·W .. r·W+W of the result hold
     Σ over its slots t of A[s][:, slot_g[t]·W : +W]ᵀ · g[out_panel[s]·TM : +TM],
     s = slot_s[t].  Slots are sorted by block id:
     ``slot_ptr[r] .. slot_ptr[r+1]`` are the slots of rank r.
     Returns f32 [n_blk_used·W, k]; the caller scatters it to B's rows.
+    ``units`` are the ranks' work units (:func:`device_units` of
+    ``slot_ptr`` and ``GB_CHUNK_SLOTS``); without them the CUDA path derives
+    them from ``slot_ptr``.
 
     CUDA tensors launch ``csrc/window_spmm_bwd.cu`` (and count the launch
-    in ``window_bwd_gB.launches``); CPU tensors take
-    :func:`window_bwd_gB_plain`.  Anything else raises."""
+    in ``window_bwd_gB.launches``): one kernel over the units and, where a
+    rank has several, the pass that adds its partial tiles.  CPU tensors
+    take :func:`window_bwd_gB_plain`.  Anything else raises."""
     if A.dim() != 3 or g.dim() != 2:
         raise ValueError(f"A must be 3-D and g 2-D, got {A.dim()}, {g.dim()}")
     S, TM, GW = A.shape
@@ -531,22 +624,30 @@ def window_bwd_gB(slot_s, slot_g, slot_ptr, out_panel, A, g, *, W,
     check_operands({"slot_s": (slot_s, n_win), "slot_g": (slot_g, n_win),
                      "slot_ptr": (slot_ptr, n_blk_used + 1),
                      "out_panel": (out_panel, S)}, {"A": A, "g": g})
+    _check_units(units, A.device)
     if A.device.type == "cpu":
         return window_bwd_gB_plain(slot_s, slot_g, slot_ptr, out_panel, A, g,
                                    W=W, n_blk_used=n_blk_used)
     if A.device.type != "cuda":
         raise ValueError(f"no window kernel for device {A.device}")
     _check_window_kernel_operands(W, ("A",), A=A, g=g)
+    if units is None:  # a trip to the host: a plan carries its own
+        units = device_units(slot_ptr.cpu().numpy(), GB_CHUNK_SLOTS, A.device)
+    unit_tab, splits, n_parts = units
     k = g.shape[1]
     from flex_tpu_torch import kernels
 
     out = torch.empty((n_blk_used * W, k), dtype=torch.float32,
                       device=A.device)
+    scratch = torch.empty((n_parts, W, k), dtype=torch.float32,
+                          device=A.device)
     kernels.launch("window_spmm_bwd", "flex_window_bwd_gB", A.device,
                    A.data_ptr(), g.data_ptr(), slot_s.data_ptr(),
-                   slot_g.data_ptr(), slot_ptr.data_ptr(),
-                   out_panel.data_ptr(), out.data_ptr(), n_blk_used, TM,
-                   GW // W, W, k)
+                   slot_g.data_ptr(), unit_tab.data_ptr(),
+                   out_panel.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                   unit_tab.shape[0], TM, GW // W, W, k)
+    reduce_partials("window_spmm_bwd", "flex_window_bwd_gB_reduce", scratch,
+                    out, splits)
     window_bwd_gB.launches += 1
     return out
 
@@ -568,7 +669,8 @@ class _WindowSpmm(torch.autograd.Function):
         ctx.save_for_backward(A, B)
         return window_spmm_fwd(plan.first, plan.out_panel, plan.win_step, A,
                                B, n_panels=plan.n_used_panels, W=plan.W,
-                               panel_step_ptr=plan.panel_step_ptr)
+                               panel_step_ptr=plan.panel_step_ptr,
+                               units=plan.panel_units)
 
     @staticmethod
     def backward(ctx, g):
@@ -583,6 +685,7 @@ class _WindowSpmm(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             nblk = max(-(-n // W), 1)
             tabs = {"bwd_tabs": plan.bwd_tabs, "slot_ptr": plan.slot_ptr,
+                    "slot_units": plan.slot_units,
                     "n_blk_used": plan.n_blk_used}
             if plan.bwd_tabs is None:
                 tabs = bwd_device_tables(
@@ -594,7 +697,8 @@ class _WindowSpmm(torch.autograd.Function):
                 slot_s, slot_g, rows = tabs["bwd_tabs"]
                 blk = window_bwd_gB(slot_s, slot_g, tabs["slot_ptr"],
                                     plan.out_panel, A, g, W=W,
-                                    n_blk_used=tabs["n_blk_used"])
+                                    n_blk_used=tabs["n_blk_used"],
+                                    units=tabs["slot_units"])
                 g_B_pad.index_copy_(0, rows.long(), blk)
             g_B = g_B_pad[:n]
         return None, g_A, g_B
@@ -741,6 +845,11 @@ class WindowedPlan:
     n_blk_used: int = 0                      # distinct window blocks
     slot_ptr: torch.Tensor | None = None     # i32 [n_blk_used+1]
     transposed: bool = False  # Aᵀ step layout + the narrow-k kernel
+    # work units of the unit kernels, (units i32 [U, 4], splits i32 [P, 3],
+    # number of partial tiles): of the panels' steps (forward) and of the
+    # ranks' slots (g_B); None = derive them at each call
+    panel_units: tuple | None = None
+    slot_units: tuple | None = None
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
         return _windowed_call(self, B)
@@ -848,6 +957,8 @@ def prepare_windowed(
         n_blk_used=0 if transposed else tabs["n_blk_used"],
         slot_ptr=None if transposed else tabs["slot_ptr"],
         transposed=bool(transposed),
+        panel_units=tabs["panel_units"],
+        slot_units=None if transposed else tabs["slot_units"],
     )
 
 

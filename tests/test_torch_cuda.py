@@ -21,6 +21,7 @@ from flex_tpu_torch.ops.pallas_band import (
 )
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.ops.window_spmm import (
+    FWD_CHUNK_STEPS, GB_CHUNK_SLOTS, bwd_device_tables, device_units,
     window_bwd_gA, window_bwd_gA_plain, window_bwd_gB, window_bwd_gB_plain,
     window_spmm_fwd, window_spmm_fwd_plain, window_spmm_t_fwd,
     window_spmm_t_fwd_plain, with_training_bwd,
@@ -230,6 +231,117 @@ def test_gcn_trains_on_card(cuda):
               for _ in range(5)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert window_bwd_gB.launches == n3 + 10
+
+
+# ---------------------------------------------------------------------------
+# the unit kernels (forward and g_B) on the edges of their work units
+# ---------------------------------------------------------------------------
+
+def _unit_edge_tables(cuda, TM, G, W, n, seed=3):
+    """Random step tables whose panels have 1, one unit, one unit plus one
+    and five units plus three steps (and trailing panels with none), whose
+    block ids 0..3 lie in chains of the same four kinds of slots, with one
+    all-sentinel step, sentinels elsewhere and the last, partial block."""
+    rng = np.random.default_rng(seed)
+    CS, CL = FWD_CHUNK_STEPS, GB_CHUNK_SLOTS
+    steps = np.array([1, CS, CS + 1, 5 * CS + 3, 2])
+    chains = (1, CL, CL + 1, 5 * CL + 3)
+    S, nblk = int(steps.sum()), -(-n // W)
+    win = rng.integers(len(chains), nblk, (S, G))
+    win[::5, -1] = nblk - 1
+    win[rng.random((S, G)) < 0.2] = nblk
+    win[CS + 3] = nblk                            # an all-sentinel step
+    free = np.setdiff1d(np.arange(S), [CS + 3])
+    pos = rng.permutation(len(free) * G)[:sum(chains)]
+    win[free[pos // G], pos % G] = np.repeat(np.arange(len(chains)), chains)
+    ptr = np.r_[0, np.cumsum(steps), S, S].astype(np.int32)
+    first = np.zeros(S, np.int32)
+    first[ptr[:len(steps)]] = 1
+    out_panel = np.repeat(np.arange(len(steps)), steps).astype(np.int32)
+    win = win.reshape(-1).astype(np.int32)
+    bwd = bwd_device_tables(win, out_panel, nblk, G, W, cuda)
+    assert tuple(np.diff(bwd["slot_ptr"].cpu().numpy())[:4]) == chains
+    t = {key: torch.from_numpy(a).to(cuda) for key, a in (
+        ("first", first), ("out_panel", out_panel), ("win_step", win),
+        ("ptr", ptr))}
+    t["A"] = torch.rand((S, TM, G * W), device=cuda) * 2 - 1
+    return t, len(ptr) - 1, bwd
+
+
+@pytest.mark.parametrize("k", [1, 32, 41, 128, 200])
+@pytest.mark.parametrize("TM,G,W,n", [(256, 4, 128, 9000 + 5),
+                                      (200, 2, 64, 3000 + 5)])
+def test_unit_kernels_on_chunk_edges(cuda, TM, G, W, n, k):
+    """Both unit kernels against plain (|diff| <= 2·L·eps32·(|a|·|b|), L the
+    contraction length) with TM a multiple of the 128-row tile or not,
+    n % W != 0, every column tile (k = 1, 32, 41, 128, 200) and both copy
+    widths (k % 4 == 0 or not); with the caller's unit tables and with
+    derived ones; a second launch gives the same bits."""
+    t, n_panels, bwd = _unit_edge_tables(cuda, TM, G, W, n)
+    args = (t["first"], t["out_panel"], t["win_step"], t["A"])
+    B = torch.rand((n, k), device=cuda) * 2 - 1
+    kw = dict(n_panels=n_panels, W=W)
+    units = device_units(t["ptr"].cpu().numpy(), FWD_CHUNK_STEPS, cuda)
+    assert units[2] == 2 + 6 and units[1].shape[0] == 2
+    out = window_spmm_fwd(*args, B, panel_step_ptr=t["ptr"], units=units, **kw)
+    for again in (units, None):
+        assert torch.equal(out, window_spmm_fwd(
+            *args, B, panel_step_ptr=t["ptr"], units=again, **kw))
+    ref = window_spmm_fwd_plain(*args, B, **kw)
+    absprod = window_spmm_fwd_plain(*args[:3], t["A"].abs(), B.abs(), **kw)
+    L = (t["ptr"][1:] - t["ptr"][:-1]).double() * G * W
+    tol = 2 * EPS32 * L.repeat_interleave(TM)[:, None] * absprod.double()
+    assert bool(((out.double() - ref.double()).abs() <= tol).all())
+    assert bool((out[5 * TM:] == 0).all())        # trailing empty panels
+
+    g = torch.rand((n_panels * TM, k), device=cuda) * 2 - 1
+    slot_s, slot_g, _ = bwd["bwd_tabs"]
+    gargs = (slot_s, slot_g, bwd["slot_ptr"], t["out_panel"], t["A"])
+    kw3 = dict(W=W, n_blk_used=bwd["n_blk_used"])
+    gB = window_bwd_gB(*gargs, g, units=bwd["slot_units"], **kw3)
+    for again in (bwd["slot_units"], None):
+        assert torch.equal(gB, window_bwd_gB(*gargs, g, units=again, **kw3))
+    ref = window_bwd_gB_plain(*gargs, g, **kw3)
+    absprod = window_bwd_gB_plain(*gargs[:4], t["A"].abs(), g.abs(), **kw3)
+    L = (bwd["slot_ptr"][1:] - bwd["slot_ptr"][:-1]).double() * TM
+    tol = 2 * EPS32 * L.repeat_interleave(W)[:, None] * absprod.double()
+    assert bool(((gB.double() - ref.double()).abs() <= tol).all())
+
+
+def test_unit_kernels_take_a_misaligned_B_and_refuse_the_rest(cuda):
+    """B and g move by 4-byte copies when they are not 16-byte aligned; A
+    must be aligned, and every operand contiguous."""
+    TM, G, W, n, k = 256, 4, 128, 2000, 64
+    t, n_panels, bwd = _unit_edge_tables(cuda, TM, G, W, n)
+    args = (t["first"], t["out_panel"], t["win_step"])
+    kw = dict(n_panels=n_panels, W=W, panel_step_ptr=t["ptr"])
+    B = torch.rand(n * k + 1, device=cuda)[1:].view(n, k)
+    assert B.data_ptr() % 16
+    torch.testing.assert_close(
+        window_spmm_fwd(*args, t["A"], B, **kw),
+        window_spmm_fwd(*args, t["A"], B.clone(), **kw), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        window_spmm_fwd(*args, t["A"],
+                        torch.rand((k, n), device=cuda).t(), **kw)
+    A_off = torch.zeros(t["A"].numel() + 1, device=cuda)[1:].view_as(t["A"])
+    with pytest.raises(ValueError, match="aligned"):
+        window_spmm_fwd(*args, A_off, B, **kw)
+    slot_s, slot_g, _ = bwd["bwd_tabs"]
+    gargs = (slot_s, slot_g, bwd["slot_ptr"], t["out_panel"])
+    kw3 = dict(W=W, n_blk_used=bwd["n_blk_used"])
+    g = torch.rand(n_panels * TM * k + 1, device=cuda)[1:].view(-1, k)
+    torch.testing.assert_close(
+        window_bwd_gB(*gargs, t["A"], g, **kw3),
+        window_bwd_gB(*gargs, t["A"], g.clone(), **kw3), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="aligned"):
+        window_bwd_gB(*gargs, A_off, g, **kw3)
+    with pytest.raises(ValueError, match="contiguous"):
+        window_bwd_gB(*gargs, t["A"],
+                      torch.rand((k, n_panels * TM), device=cuda).t(), **kw3)
+    with pytest.raises(ValueError, match="unit tables lie on"):
+        window_bwd_gB(*gargs, t["A"], g.clone(), units=tuple(
+            x.cpu() if torch.is_tensor(x) else x
+            for x in bwd["slot_units"]), **kw3)
 
 
 # ---------------------------------------------------------------------------
