@@ -14,7 +14,12 @@ Phases:
      there.  The forward and g_B run in work units: their tables hold
      panels and slot chains of a single step, exactly one unit, one unit
      plus one and many units, and an all-sentinel step; k = 128, 41, 32
-     and 200; each is launched twice and must give the same bits.
+     and 200; each is launched twice and must give the same bits.  The
+     transposed forward runs in units too: panels of 1, 8, 9 and 17 steps
+     with all-sentinel steps, TM 256 and 128, k = 16, 32, 41, 64, 100, a
+     misaligned Bᵀ.  Band v2 reads depth ranges: tiles with empty,
+     one-half, narrow and full ranges at k = 32, 41, 128, 200, bit-equal to
+     the same kernel on full-depth ranges.
   4. the forward path at full size: reddit_posts(seed=0) -> rbdeg ->
      window_select(tm=256, W=128, min_count=64, max_dense_bytes=6 GiB) ->
      prepare_windowed on cuda -> plan(B), B = make_features(g, 128),
@@ -42,12 +47,16 @@ Phases:
      and selection, ``prepare_windowed(transposed=True)`` through
      ``bench_spmm`` at k = 41 and k = 32 (err_frac <= 1e-4), the
      transposed kernel against plain on its tensors, its time beside the
-     row-major kernel's at the same k.
+     row-major kernel's at the same k; its work units, the strided reduce
+     pass alone, the longest panel alone and one unit per panel.
  10. GE-SpMM at full size on that graph (w = 32, k = 128 and 41).
  11. the baselines ``"xla"`` and ``"bcoo"`` at full size (k = 128).
  12. band at full size: banded_graph(262144, 256, 64.0, seed=2), tm = 256,
      k = 128, the three impls through ``bench_spmm``, both band kernels
-     against plain on the plans' tensors.
+     against plain on the plans' tensors; kernel 5's depth ranges (their
+     build time, the share of the split depth they read, the empty tiles),
+     kernel 5 on full-depth ranges beside the ranged run (bit-equal), the
+     bound of its ranges and of the split format.
 Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after.
@@ -296,15 +305,20 @@ def check_bwd_kernels(torch, t, n_panels, W, label, ks=KS):
 
 
 def check_window_t_kernel(torch, first, out_panel, win_step, A_T, B_T,
-                          n_panels, W, ptr, label):
-    """Kernel 4 against its plain version; L = the panel's steps·G·W."""
+                          n_panels, W, ptr, label, units=None):
+    """Kernel 4 against its plain version; L = the panel's steps·G·W.
+    Launched again, with derived unit tables: the outputs must be
+    bit-equal."""
     from flex_tpu_torch.ops.window_spmm import (
         window_spmm_t_fwd, window_spmm_t_fwd_plain,
     )
 
     args = (first, out_panel, win_step)
     kw = dict(n_panels=n_panels, W=W)
-    out = window_spmm_t_fwd(*args, A_T, B_T, panel_step_ptr=ptr, **kw)
+    out = window_spmm_t_fwd(*args, A_T, B_T, panel_step_ptr=ptr, units=units,
+                            **kw)
+    require_same_bits(torch, "window_spmm_t_fwd", label, out, window_spmm_t_fwd(
+        *args, A_T, B_T, panel_step_ptr=ptr, **kw))
     torch.cuda.synchronize()
     ref = window_spmm_t_fwd_plain(*args, A_T, B_T, **kw)
     absprod = window_spmm_t_fwd_plain(*args, A_T.abs(), B_T.abs(), **kw)
@@ -312,6 +326,30 @@ def check_window_t_kernel(torch, first, out_panel, win_step, A_T, B_T,
     L = ((ptr[1:] - ptr[:-1]).double() * GW).repeat_interleave(TM)[None, :]
     return hold_to_plain(torch, "window_spmm_t_fwd", label, out, ref,
                          absprod, L)
+
+
+def check_window_t_unit_edges(torch, rng, dev="cuda"):
+    """Kernel 4 on the edges of its work units, as the card tests run it:
+    panels of 1, 8, 9 and 17 steps (panel 0's only step and one step in
+    each longer panel all sentinels) and two trailing empty panels, both
+    panel-row tiles (TM 256 and 128), every tile over k (k = 16, 32, 41,
+    64, 100) and a Bᵀ that is not 16-byte aligned."""
+    from flex_tpu_torch.ops.window_spmm import FWD_CHUNK_STEPS as CS
+
+    steps = np.array([1, CS, CS + 1, 2 * CS + 1])
+    n = 9_000 + 5
+    for TM in (256, 128):
+        t, n_panels, W, ptr = random_window_case(
+            torch, rng, steps, n, dev, TM=TM, sentinel_steps=(0, 3, 12, 30))
+        A_T = t["A"].transpose(1, 2).contiguous()
+        del t["A"], t["B"]
+        for k in (16, 32, 41, 64, 100):
+            buf = torch.rand(k * n + 1, device=dev) * 2 - 1
+            B_T = buf[1:].view(k, n)                # not 16-byte aligned
+            check_window_t_kernel(
+                torch, t["first"], t["out_panel"], t["win_step"], A_T, B_T,
+                n_panels, W, ptr,
+                f"unit edges 1/8/9/17 steps TM={TM} k={k} misaligned B_T")
 
 
 def check_band_kernels(torch, rng, P, TM, W, n, k, label, dev="cuda"):
@@ -335,11 +373,57 @@ def check_band_kernels(torch, rng, P, TM, W, n, k, label, dev="cuda"):
     ws[::3] = -(-n // 128) - 1          # the window runs past n
     ws = torch.from_numpy(ws.astype(np.int32)).to(dev)
     out = band_spmm_v1(a[0], ws, B)
+    require_same_bits(torch, "band_spmm_v1", label, out,
+                      band_spmm_v1(a[0], ws, B))
     torch.cuda.synchronize()
     e1 = hold_to_plain(
         torch, "band_spmm_v1", label, out, band_spmm_v1_plain(a[0], ws, B),
         band_spmm_v1_plain(a[0].abs(), ws, B.abs()), W)
     return e2, e1
+
+
+def full_depth(ranges, W):
+    """A range table that reads every tile's whole depth [0, 2W)."""
+    full = ranges.clone()
+    full[..., 0], full[..., 1] = 0, 2 * W
+    return full
+
+
+def check_band_v2_ranges(torch, rng, P, TM, W, n, k, label, dev="cuda"):
+    """Kernel 5 on depth ranges, as the card tests run it: tiles with an
+    empty range, the left half only, the right half only, a narrow range
+    inside the right half and the full depth; launched again, with the
+    table derived and on a table of full-depth ranges, the same bits (a
+    skipped column is a zero of A, whose FMAs add exact zeros)."""
+    from flex_tpu_torch.ops.pallas_band import (
+        band_depth_ranges, band_spmm_v2, band_spmm_v2_plain,
+    )
+
+    a = [torch.rand((P, TM, W), device=dev) * 2 - 1 for _ in range(2)]
+    a[0][0, :128] = 0
+    a[1][0, :128] = 0
+    a[1][1, :128] = 0
+    a[0][1, 128:] = 0
+    a[0][2] = 0
+    a[1][2, :, 40:] = 0
+    a[1][2, :, :8] = 0
+    iW = rng.integers(0, -(-n // W), P)
+    iW[::3] = -(-n // W) - 1
+    iW = torch.from_numpy(iW.astype(np.int32)).to(dev)
+    B = torch.rand((n, k), device=dev) * 2 - 1
+    ranges = band_depth_ranges(*a)
+    r = ranges.cpu().numpy()
+    if not (tuple(r[0, 0]) == (0, 0) and r[1, 0, 1] <= W
+            and r[1, 1, 0] >= W and tuple(r[2, 0]) == (W, W + 48)):
+        raise AssertionError(f"band range case {label}: ranges {r[:3]}")
+    out = band_spmm_v2(*a, iW, B, ranges=ranges)
+    for again in (None, full_depth(ranges, W)):
+        require_same_bits(torch, "band_spmm_v2", label, out,
+                          band_spmm_v2(*a, iW, B, ranges=again))
+    torch.cuda.synchronize()
+    return hold_to_plain(
+        torch, "band_spmm_v2", label, out, band_spmm_v2_plain(*a, iW, B),
+        band_spmm_v2_plain(a[0].abs(), a[1].abs(), iW, B.abs()), 2 * W)
 
 
 def hub_and_empty_graph(rng, m=5000, w=32):
@@ -414,12 +498,18 @@ def phase_new_kernels_vs_plain(torch, dev="cuda"):
                 n_panels, W, ptr,
                 f"S={int(steps.sum())} panels={n_panels} TM={TM} k={k}")
         del t, A_T
+    check_window_t_unit_edges(torch, rng, dev=dev)
     # kernels 5 and 6: TM a multiple of the 128-row tile or not, W = 768
     # (the full-size band's) and 128, n % W != 0
     for P, TM, W in ((40, 256, 768), (9, 200, 128), (5, 8, 256)):
         for k in (K, 41):
             check_band_kernels(torch, rng, P, TM, W, 20_000 + 77, k,
                                f"P={P} TM={TM} W={W} k={k}", dev=dev)
+    # kernel 5 on empty, one-half, narrow and full-depth ranges
+    for TM, W in ((256, 768), (200, 256)):
+        for k in (32, 41, K, 200):
+            check_band_v2_ranges(torch, rng, 5, TM, W, 9_000 + 5, k,
+                                 f"ranges TM={TM} W={W} k={k}", dev=dev)
     # m % tm != 0 through the plans, against SciPy
     gb = banded_graph(5000, 300, 40.0, seed=3)
     for k in (K, 41):
@@ -566,9 +656,10 @@ def steps_percentiles(plan) -> list[int]:
     return [int(np.percentile(steps, q)) for q in (50, 99, 100)]
 
 
-def longest_panel_ms(torch, plan, B, time_cuda_ms) -> float:
-    """The window kernel on the longest panel's steps alone, cut into units
-    as in the whole launch: what the card takes for that panel when nothing
+def longest_panel_ms(torch, plan, B, time_cuda_ms, fwd=None) -> float:
+    """The window kernel (``fwd``: the forward, or the transposed forward
+    with Bᵀ as ``B``) on the longest panel's steps alone, cut into units as
+    in the whole launch: what the card takes for that panel when nothing
     else runs."""
     from flex_tpu_torch.ops.window_spmm import (
         FWD_CHUNK_STEPS, device_units, window_spmm_fwd,
@@ -577,12 +668,12 @@ def longest_panel_ms(torch, plan, B, time_cuda_ms) -> float:
     ptr = plan.panel_step_ptr.long()
     p = int(torch.argmax(ptr[1:] - ptr[:-1]))
     lo, hi = int(ptr[p]), int(ptr[p + 1])
-    G = plan.A.shape[2] // plan.W
+    G = plan.win_step.numel() // plan.A.shape[0]
     one = dict(first=plan.first[lo:hi], out_panel=plan.out_panel[lo:hi] - p,
                win_step=plan.win_step[lo * G:hi * G], A=plan.A[lo:hi], B=B)
     ptr1 = torch.tensor([0, hi - lo], dtype=torch.int32, device=B.device)
     units1 = device_units(np.array([0, hi - lo]), FWD_CHUNK_STEPS, B.device)
-    return time_cuda_ms(lambda: window_spmm_fwd(
+    return time_cuda_ms(lambda: (fwd or window_spmm_fwd)(
         *one.values(), n_panels=1, W=plan.W, panel_step_ptr=ptr1,
         units=units1), iters=10)
 
@@ -620,6 +711,17 @@ WHOLE_OWNER_RECORD_MS = {
     "window_spmm_fwd": {"k128": 20.60, "k41": 20.40, "longest_alone": 15.24},
     "window_bwd_gB": {"k128": 22.79, "k41": 22.02, "longest_alone": 17.35},
     "windowed_t_elap": 27.89, "train_ms_per_step": 108.48,
+}
+
+
+# What kernels 4 and 5 took before they were redesigned (one block per
+# panel or per tile, loads and FMAs in turn; kernel 5 over the whole split
+# depth), on an NVIDIA H100 80GB HBM3 at 700 W: printed beside this run's
+# times, not part of the kernels line.
+REDESIGN_RECORD_MS = {
+    "window_spmm_t_fwd": {"k41": 11.67, "k32": 8.68},
+    "transposed_t_elap": {"k41": 14.15, "k32": 13.18},
+    "band_spmm_v2": 2.909, "pallas2_t_elap": 2.909,
 }
 
 
@@ -1089,7 +1191,8 @@ def phase_transposed(torch, g, dev, sel, plan, B, gold, peaks, bench_spmm,
     count and the narrow width of the JAX package's sweeps); kernel 4
     beside kernel 1 at the same k.  Returns kernel 4's row."""
     from flex_tpu_torch.ops.window_spmm import (
-        window_spmm_t_fwd, window_spmm_t_fwd_plain,
+        FWD_CHUNK_STEPS, device_units, reduce_partials_t, window_spmm_t_fwd,
+        window_spmm_t_fwd_plain,
     )
 
     torch.cuda.reset_peak_memory_stats()
@@ -1112,19 +1215,22 @@ def phase_transposed(torch, g, dev, sel, plan, B, gold, peaks, bench_spmm,
         raise AssertionError("the transposed plan is not one")
 
     out = {}
-    kw = dict(n_panels=plan_t.n_used_panels, W=plan_t.W)
+    kw = dict(n_panels=plan_t.n_used_panels, W=plan_t.W,
+              panel_step_ptr=plan_t.panel_step_ptr)
+    plain_kw = dict(n_panels=plan_t.n_used_panels, W=plan_t.W)
     tabs = (plan_t.first, plan_t.out_panel, plan_t.win_step)
     for k in (41, 32):
         B_dev = torch.from_numpy(np.ascontiguousarray(B[:, :k])).cuda()
         B_T = B_dev.t().contiguous()
         err = check_window_t_kernel(
             torch, *tabs, plan_t.A, B_T, plan_t.n_used_panels, plan_t.W,
-            plan_t.panel_step_ptr, f"main path k={k}")
-        ms = time_cuda_ms(lambda: window_spmm_t_fwd(
-            *tabs, plan_t.A, B_T, panel_step_ptr=plan_t.panel_step_ptr, **kw),
-            iters=10)
+            plan_t.panel_step_ptr, f"main path k={k}",
+            units=plan_t.panel_units)
+        t_call = lambda B_T=B_T, units=plan_t.panel_units: window_spmm_t_fwd(  # noqa: E731
+            *tabs, plan_t.A, B_T, units=units, **kw)
+        ms = time_cuda_ms(t_call, iters=10)
         plain_ms = time_cuda_ms(lambda: window_spmm_t_fwd_plain(
-            *tabs, plan_t.A, B_T, **kw), iters=5)
+            *tabs, plan_t.A, B_T, **plain_kw), iters=5)
         n_win, n_bytes, n_flops = window_bytes_flops(plan_t, k)
         bound_ms, bound_by = bound(n_bytes, n_flops, peaks)
         out[k] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1134,20 +1240,48 @@ def phase_transposed(torch, g, dev, sel, plan, B, gold, peaks, bench_spmm,
                       kernel1_ms=time_cuda_ms(plan.dense_half, B_dev,
                                               iters=10),
                       row_major_t_elap_ms=time_cuda_ms(plan, B_dev, iters=10))
+        # one unit per panel: the same kernel with a block behind every
+        # whole panel; the longest panel alone; the reduce pass alone on a
+        # scratch of the launch's size
+        whole = device_units(plan_t.panel_step_ptr.cpu().numpy(), 1 << 30,
+                             "cuda")
+        out[k]["ms_one_unit_per_panel"] = time_cuda_ms(t_call, B_T, whole,
+                                                       iters=5)
+        out[k]["longest_panel_ms"] = longest_panel_ms(
+            torch, plan_t, B_T, time_cuda_ms, fwd=window_spmm_t_fwd)
+        _, splits, n_parts = plan_t.panel_units
+        scratch = torch.rand((n_parts, k, plan_t.tm), device="cuda")
+        C_T = torch.empty((k, plan_t.n_used_panels * plan_t.tm),
+                          device="cuda")
+        out[k]["reduce_ms"] = time_cuda_ms(
+            reduce_partials_t, scratch, C_T, splits, plan_t.n_used_panels,
+            iters=10)
+        out[k]["scratch_bytes"] = scratch.numel() * 4
+        del scratch, C_T
+        rep = units_report(plan_t.panel_units)
+        rec = REDESIGN_RECORD_MS
         log(f"[kernels] window_spmm_t_fwd k={k}: {ms:.3f} ms "
             f"({n_flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
             f"{n_bytes / (ms * 1e-3) / 1e9:.0f} GB/s), with the two "
             f"transposes {out[k]['dense_half_ms']:.3f} ms; kernel 1 at the "
             f"same k {out[k]['kernel1_ms']:.3f} ms; plan {res[k].t_elap_ms:.3f}"
             f" ms against the row-major plan's "
-            f"{out[k]['row_major_t_elap_ms']:.3f} ms")
+            f"{out[k]['row_major_t_elap_ms']:.3f} ms; {rep['units']} units "
+            f"of at most {FWD_CHUNK_STEPS} steps, steps per unit p50/p99/max "
+            f"{rep['per_unit_p50_p99_max']}, {rep['split_owners']} panels "
+            f"split, {rep['partial_tiles']} partial tiles = "
+            f"{out[k]['scratch_bytes']} scratch bytes, reduce pass alone "
+            f"{out[k]['reduce_ms']:.3f} ms; longest panel alone "
+            f"{out[k]['longest_panel_ms']:.3f} ms; one unit per panel "
+            f"{out[k]['ms_one_unit_per_panel']:.3f} ms; the whole-panel "
+            f"kernel's record {rec['window_spmm_t_fwd'][f'k{k}']} ms, its "
+            f"plan's {rec['transposed_t_elap'][f'k{k}']} ms")
         if k == 41:
             # the library yardstick kernel 1 has: the same tiles as BSR
             A_bsr = window_as_bsr(torch, plan)
             B_pad = B_dev.new_zeros((A_bsr.shape[1], k))
             B_pad[:g.n] = B_dev
-            C_T = window_spmm_t_fwd(*tabs, plan_t.A, B_T,
-                                    panel_step_ptr=plan_t.panel_step_ptr, **kw)
+            C_T = t_call()
             lib_err = float((torch.sparse.mm(A_bsr, B_pad) - C_T.t()
                              ).abs().max())
             library_ms = time_cuda_ms(torch.sparse.mm, A_bsr, B_pad, iters=3,
@@ -1159,7 +1293,8 @@ def phase_transposed(torch, g, dev, sel, plan, B, gold, peaks, bench_spmm,
     log("[transposed] " + json.dumps({
         "launches": launches["window_spmm_t_fwd"], "peak_memory_allocated":
         peak, "steps_per_panel_p50_p99_max": steps_percentiles(plan_t),
-        "k41": out[41], "k32": out[32]}))
+        "units": units_report(plan_t.panel_units), "k41": out[41],
+        "k32": out[32], "t_elap_ms": {k: res[k].t_elap_ms for k in res}}))
     o = out[41]
     return {
         "name": "window_spmm_t_fwd", "route": "cuda",
@@ -1173,6 +1308,10 @@ def phase_transposed(torch, g, dev, sel, plan, B, gold, peaks, bench_spmm,
         "plain_ms_k32": out[32]["plain_ms"],
         "bound_ms_k32": out[32]["bound_ms"],
         "max_abs_err_k32": out[32]["err"],
+        "longest_panel_ms": o["longest_panel_ms"], "reduce_ms": o["reduce_ms"],
+        "ms_one_unit_per_panel": o["ms_one_unit_per_panel"],
+        "scratch_bytes": o["scratch_bytes"],
+        "units": units_report(plan_t.panel_units)["units"],
     }
 
 
@@ -1262,7 +1401,8 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
     from flex_tpu_torch.io.csv_loader import make_features
     from flex_tpu_torch.io.synth import banded_graph
     from flex_tpu_torch.ops.pallas_band import (
-        band_spmm_v1, band_spmm_v1_plain, band_spmm_v2, band_spmm_v2_plain,
+        band_depth_ranges, band_spmm_v1, band_spmm_v1_plain, band_spmm_v2,
+        band_spmm_v2_plain,
     )
     from flex_tpu_torch.ops.ref import spmm_scipy
     from flex_tpu_torch.sparse.device import DeviceCSR
@@ -1290,12 +1430,32 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
     log(f"[band] plan: {st}; m={g.m} nnz={g.nnz}; "
         f"{2.0 * P * TM * 2 * W * K / 1e12:.4f} TFLOP (split band), "
         f"{2.0 * P * TM * W * K / 1e12:.4f} TFLOP (unsplit)")
+
+    # the depth ranges of kernel 5: their build (part of tPre), the share of
+    # the split depth they read, the empty tiles
+    ranges_ms = time_cuda_ms(band_depth_ranges, *p2.band, iters=5)
+    r = p2.ranges.long().cpu().numpy()
+    width = r[..., 1] - r[..., 0]
+    rows = np.minimum(128, TM - 128 * np.arange(r.shape[1]))[None, :]
+    ranged_elems = float((width * rows).sum())
+    range_stats = {
+        "tiles": int(width.size), "empty_tiles": int((width == 0).sum()),
+        "depth_share_read": ranged_elems / (P * TM * 2 * W),
+        "range_p50_max": [int(np.percentile(width, 50)), int(width.max())],
+        "split_depth": 2 * W, "table_build_ms": ranges_ms}
+    log(f"[band] depth ranges: {json.dumps(range_stats)}")
+
     B_dev = torch.from_numpy(B).cuda()
     A_csr = csr_tensor(torch, g)
     library_ms = time_cuda_ms(torch.sparse.mm, A_csr, B_dev, iters=20)
     del A_csr
 
-    out2 = band_spmm_v2(*p2.band, p2.ws, B_dev)
+    v2 = lambda ranges=p2.ranges: band_spmm_v2(  # noqa: E731
+        *p2.band, p2.ws, B_dev, ranges=ranges)
+    full = full_depth(p2.ranges, W)
+    out2 = v2()
+    require_same_bits(torch, "band_spmm_v2", "full-size band, full-depth "
+                      "ranges", out2, v2(full))
     torch.cuda.synchronize()
     e2 = hold_to_plain(
         torch, "band_spmm_v2", "full-size band k=128", out2,
@@ -1309,21 +1469,33 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
         band_spmm_v1_plain(p1.band, p1.ws, B_dev),
         band_spmm_v1_plain(p1.band.abs(), p1.ws, B_dev.abs()), W)
     del out1, out2
-    ms2 = time_cuda_ms(band_spmm_v2, *p2.band, p2.ws, B_dev, iters=10)
+    ms2 = time_cuda_ms(v2, iters=10)
+    ms2_full = time_cuda_ms(v2, full, iters=10)
     ms1 = time_cuda_ms(band_spmm_v1, p1.band, p1.ws, B_dev, iters=10)
     plain2 = time_cuda_ms(band_spmm_v2_plain, *p2.band, p2.ws, B_dev, iters=5)
     plain1 = time_cuda_ms(band_spmm_v1_plain, p1.band, p1.ws, B_dev, iters=5)
     io_bytes = (B_dev.numel() + P * TM * K) * 4 + P * 4
-    b2, by2 = bound(2 * P * TM * W * 4 + io_bytes,
-                    2.0 * P * TM * 2 * W * K, peaks)
+    # kernel 5 is bounded by what its ranges need; the split format's bound
+    # (every tile's whole depth) is printed beside it
+    flops2 = 2.0 * ranged_elems * K
+    b2, by2 = bound(ranged_elems * 4 + io_bytes + r.size * 4, flops2, peaks)
+    b2_format, by2_format = bound(2 * P * TM * W * 4 + io_bytes,
+                                  2.0 * P * TM * 2 * W * K, peaks)
     b1, by1 = bound(P * TM * W * 4 + io_bytes, 2.0 * P * TM * W * K, peaks)
+    rec = REDESIGN_RECORD_MS
     log(f"[kernels] band_spmm_v2: {ms2:.3f} ms "
-        f"({2.0 * P * TM * 2 * W * K / (ms2 * 1e-3) / 1e12:.2f} TFLOP/s dense,"
-        f" {2.0 * g.nnz * K / (ms2 * 1e-3) / 1e9:.0f} GF/s of the SpMM); "
-        f"band_spmm_v1: {ms1:.3f} ms "
-        f"({2.0 * P * TM * W * K / (ms1 * 1e-3) / 1e12:.2f} TFLOP/s dense); "
-        f"impl=xla plan {res['xla'].t_elap_ms:.3f} ms; library CSR "
-        f"{library_ms:.3f} ms")
+        f"({flops2 / (ms2 * 1e-3) / 1e12:.2f} TFLOP/s of its ranges, "
+        f"{2.0 * g.nnz * K / (ms2 * 1e-3) / 1e9:.0f} GF/s of the SpMM); on "
+        f"full-depth ranges {ms2_full:.3f} ms "
+        f"({2.0 * P * TM * 2 * W * K / (ms2_full * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"dense); bound of its ranges {b2:.3f} ms ({by2}), of the split "
+        f"format {b2_format:.3f} ms ({by2_format}); the whole-depth "
+        f"kernel's record {rec['band_spmm_v2']} ms; pallas2 plan "
+        f"{res['pallas2'].t_elap_ms:.3f} ms (record {rec['pallas2_t_elap']}"
+        f" ms); band_spmm_v1: "
+        f"{ms1:.3f} ms ({2.0 * P * TM * W * K / (ms1 * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s dense); impl=xla plan {res['xla'].t_elap_ms:.3f} ms; "
+        f"library CSR {library_ms:.3f} ms")
     src = "flex_tpu_torch/csrc/band_spmm.cu"
     return [{
         "name": "band_spmm_v2", "route": "cuda", "source": src,
@@ -1331,7 +1503,12 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
         "launches": launches["band_spmm_v2"], "max_abs_err": e2, "ms": ms2,
         "plain_ms": plain2, "bound_ms": b2, "bound_by": by2,
         "library_ms": library_ms, "plan_ms": res["pallas2"].t_elap_ms,
-        "t_pre_s": res["pallas2"].t_pre_s,
+        "t_pre_s": res["pallas2"].t_pre_s, "ms_full_depth": ms2_full,
+        "bound_ms_split_format": b2_format,
+        "bound_by_split_format": by2_format,
+        "depth_share_read": range_stats["depth_share_read"],
+        "empty_tiles": range_stats["empty_tiles"],
+        "ranges_build_ms": ranges_ms,
     }, {
         "name": "band_spmm_v1", "route": "cuda", "source": src,
         "replaces": "flex_tpu/ops/pallas_band.py:191",

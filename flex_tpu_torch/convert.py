@@ -21,7 +21,8 @@ plan carries no backward tables.
 
 ``band_plan_from_numpy`` keys: ``m``, ``n``, ``tm``, ``w_pad``, ``impl``,
 ``band`` (one array [P, TM, W], or the (left, right) pair of
-``impl="pallas2"``) and ``ws``.
+``impl="pallas2"``) and ``ws``; a split band's depth ranges are
+recomputed from its halves.
 
 ``gespmm_plan_from_numpy`` keys: ``m``, ``w``, ``cols``, ``vals``,
 ``chunk_row``, ``nnz``, ``padded_nnz``.
@@ -36,7 +37,7 @@ import torch
 
 from flex_tpu_torch.ops.ell_spmm import EllPlan
 from flex_tpu_torch.ops.gespmm import GeSpmmPlan
-from flex_tpu_torch.ops.pallas_band import BandPlan
+from flex_tpu_torch.ops.pallas_band import BandPlan, band_depth_ranges
 from flex_tpu_torch.ops.window_spmm import (
     FWD_CHUNK_STEPS, WindowedPlan, bwd_device_tables, device_units,
     panel_step_ptr,
@@ -96,11 +97,13 @@ def windowed_plan_from_numpy(d: dict, device) -> WindowedPlan:
 
 def band_plan_from_numpy(d: dict, device) -> BandPlan:
     band = d["band"]
-    band = tuple(_t(b, np.float32, device) for b in band) \
-        if isinstance(band, (tuple, list)) else _t(band, np.float32, device)
+    split = isinstance(band, (tuple, list))
+    band = tuple(_t(b, np.float32, device) for b in band) if split \
+        else _t(band, np.float32, device)
     return BandPlan(m=int(d["m"]), n=int(d["n"]), tm=int(d["tm"]),
                     w_pad=int(d["w_pad"]), band=band,
-                    ws=_t(d["ws"], np.int32, device), impl=str(d["impl"]))
+                    ws=_t(d["ws"], np.int32, device), impl=str(d["impl"]),
+                    ranges=band_depth_ranges(*band) if split else None)
 
 
 def gespmm_plan_from_numpy(d: dict, device) -> GeSpmmPlan:

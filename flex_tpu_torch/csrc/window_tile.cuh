@@ -1,7 +1,9 @@
-// Shared pieces of the two window kernels that are cut into work units
-// (csrc/window_spmm.cu: the forward; csrc/window_spmm_bwd.cu: g_B): the
-// cp.async ring, the tile loaders, the register-tile products, the tile
-// store and the pass that adds partial tiles in unit order.
+// Shared pieces of the window kernels that are cut into work units
+// (csrc/window_spmm.cu: the forward; csrc/window_spmm_bwd.cu: g_B;
+// csrc/window_spmm_t.cu: the transposed forward) and of the ranged split
+// band kernel (csrc/band_spmm.cu): the cp.async ring, the tile loaders, the
+// register-tile products, the tile store and the passes that add partial
+// tiles in unit order (into contiguous or strided output tiles).
 //
 // Tile: BM = 128 output rows x BN output columns per block of 256 threads,
 // BN = 16 * RN with RN = 2, 3, 4 or 8 picked from k, so a narrow k does less
@@ -167,19 +169,43 @@ __device__ __forceinline__ void load_a_rowmajor(float* dst,
   }
 }
 
-// Depth-major A stage: dst[q][w] (BK x BM) <- a[q * lda + w], zero for
-// q >= depth_valid or w >= cols_valid (cols_valid % 4 == 0).
+// Depth-major A stage: dst[q][w] (BK x COLS) <- a[q * lda + w], zero for
+// q >= depth_valid or w >= cols_valid (cols_valid % 4 == 0); THREADS
+// threads share the copies.
+template <int COLS = BM, int THREADS = NT>
 __device__ __forceinline__ void load_a_depthmajor(float* dst,
                                                   const float* __restrict__ a,
                                                   int lda, int depth_valid,
                                                   int cols_valid, int tid) {
 #pragma unroll
-  for (int t = 0; t < (BK * BM) / (4 * NT); ++t) {
-    const int i = tid + t * NT;
-    const int q = i / (BM / 4);
-    const int w = (i % (BM / 4)) * 4;
+  for (int t = 0; t < (BK * COLS) / (4 * THREADS); ++t) {
+    const int i = tid + t * THREADS;
+    const int q = i / (COLS / 4);
+    const int w = (i % (COLS / 4)) * 4;
     const bool ok = q < depth_valid && w < cols_valid;
-    cp_async16(dst + q * BM + w, ok ? a + (int64_t)q * lda + w : a, ok);
+    cp_async16(dst + q * COLS + w, ok ? a + (int64_t)q * lda + w : a, ok);
+  }
+}
+
+// dst[r * LDD + c] (ROWS x COLS) <- src[r * ld + c] by 4-byte copies (any
+// alignment), zero where r >= rows_valid or c >= cols_valid.  A thread
+// keeps one column and walks down the rows: one mask and one base address.
+template <int ROWS, int COLS, int LDD, int THREADS>
+__device__ __forceinline__ void load_rows4(float* dst,
+                                           const float* __restrict__ src,
+                                           int64_t ld, int rows_valid,
+                                           int64_t cols_valid, int tid) {
+  static_assert(THREADS % COLS == 0 && (ROWS * COLS) % THREADS == 0,
+                "copies must divide evenly");
+  constexpr int STEP = THREADS / COLS;
+  const int c = tid % COLS;
+  const bool col_ok = c < cols_valid;
+  const float* p = src + (tid / COLS) * ld + c;
+#pragma unroll
+  for (int t = 0; t < ROWS / STEP; ++t) {
+    const int r = tid / COLS + t * STEP;
+    const bool ok = col_ok && r < rows_valid;
+    cp_async4(dst + r * LDD + c, ok ? p + t * STEP * ld : src, ok);
   }
 }
 
@@ -322,6 +348,47 @@ inline int launch_reduce_partials(const float* scratch, float* out,
     reduce_partials_kernel<float><<<grid, NT, 0, st>>>(scratch, out, splits,
                                                        tile_elems);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same for output tiles that are strided: the tile of `owner` is `rows`
+// rows of `row_len` T's at out + owner * row_len, `ldc` apart (a panel's
+// columns of C^T); a partial tile is rows * row_len contiguous T's.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+reduce_partials_strided_kernel(const T* __restrict__ scratch,
+                               T* __restrict__ out,
+                               const int32_t* __restrict__ splits,
+                               int row_len, int rows, int64_t ldc) {
+  const int owner = splits[3 * blockIdx.x];
+  const int p_lo = splits[3 * blockIdx.x + 1];
+  const int p_hi = splits[3 * blockIdx.x + 2];
+  const int tile_elems = rows * row_len;
+  for (int e = blockIdx.y * NT + threadIdx.x; e < tile_elems;
+       e += gridDim.y * NT) {
+    T s = scratch[(int64_t)p_lo * tile_elems + e];
+    for (int p = p_lo + 1; p < p_hi; ++p)
+      s = add_elems(s, scratch[(int64_t)p * tile_elems + e]);
+    out[(int64_t)owner * row_len + (e / row_len) * ldc + e % row_len] = s;
+  }
+}
+
+// both arrays 16-byte aligned
+inline int launch_reduce_partials_strided(const float* scratch, float* out,
+                                          const int32_t* splits, int n_splits,
+                                          int row_len, int rows, int64_t ldc,
+                                          cudaStream_t st) {
+  if (n_splits == 0 || row_len == 0 || rows == 0) return 0;
+  const int vec = row_len % 4 == 0 && ldc % 4 == 0 ? 4 : 1;
+  const int blocks = (rows * row_len / vec + NT - 1) / NT;
+  const dim3 grid(n_splits, blocks < 64 ? blocks : 64);
+  if (vec == 4)
+    reduce_partials_strided_kernel<float4><<<grid, NT, 0, st>>>(
+        reinterpret_cast<const float4*>(scratch),
+        reinterpret_cast<float4*>(out), splits, row_len / 4, rows, ldc / 4);
+  else
+    reduce_partials_strided_kernel<float><<<grid, NT, 0, st>>>(
+        scratch, out, splits, row_len, rows, ldc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -126,14 +126,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flex_window_bwd_gB_reduce.argtypes = [p, p, p, i, i, p]
         lib.flex_window_bwd_gB_reduce.restype = i
     elif name == "window_spmm_t":
-        # (AT, BT, win_step, panel_step_ptr, outT,
-        #  n_panels, TM, G, W, n, k, nblk, stream)
-        lib.flex_window_spmm_t_fwd.argtypes = [p, p, p, p, p,
-                                               i, i, i, i, i, i, i, p]
+        # (AT, BT, win_step, units, outT, scratch,
+        #  n_units, n_panels, TM, G, W, n, k, nblk, stream)
+        lib.flex_window_spmm_t_fwd.argtypes = [p, p, p, p, p, p,
+                                               i, i, i, i, i, i, i, i, p]
         lib.flex_window_spmm_t_fwd.restype = i
+        # (scratch, outT, splits, n_splits, n_panels, TM, k, stream)
+        lib.flex_window_spmm_t_reduce.argtypes = [p, p, p, i, i, i, i, p]
+        lib.flex_window_spmm_t_reduce.restype = i
     elif name == "band_spmm":
-        # (a_left, a_right, iW, B, out, P, TM, W, n, k, stream)
-        lib.flex_band_spmm_v2.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        # (a_left, a_right, iW, ranges, B, out, P, TM, W, n, k, stream)
+        lib.flex_band_spmm_v2.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.flex_band_spmm_v2.restype = i
         # (band, ws, B, out, P, TM, W, n, k, stream)
         lib.flex_band_spmm_v1.argtypes = [p, p, p, p, i, i, i, i, i, p]

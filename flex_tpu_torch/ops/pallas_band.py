@@ -12,7 +12,9 @@ Three implementations, under the JAX package's names:
   lies inside [W·i, W·i + 2W) for i = s // W, so the band is split at
   format time into a left half (columns in [W·i, W·(i+1))) and a right
   half, and a panel is two dense products against two W-aligned row ranges
-  of B.  :func:`band_spmm_v2`, hand-written kernel ``csrc/band_spmm.cu``.
+  of B.  :func:`band_spmm_v2`, hand-written kernel ``csrc/band_spmm.cu``;
+  the plan also keeps each 128-row tile's depth range of the two halves
+  (:func:`band_depth_ranges`), and the kernel reads that range alone.
 - ``impl="xla"``: contiguous-window gather + one batched product, plain
   torch ops (:func:`_band_spmm_xla`).
 - ``impl="pallas"``: the unsplit band, one product per 128-column chunk of
@@ -118,6 +120,36 @@ def band_spmm_v2_plain(a_left, a_right, iW, B):
         + _window_product(a_right, start + W, Bp)
 
 
+BAND_TILE_ROWS = 128  # output rows of one block of the band kernels
+RANGE_STEP = 16       # depth of one stage of the ranged split-band kernel
+
+
+def band_depth_ranges(a_left, a_right, bm: int = BAND_TILE_ROWS):
+    """int32 [P, ⌈TM/bm⌉, 2]: for each (panel, bm-row tile) the first and
+    one-past-last column of the concatenated depth [A_left | A_right]
+    (length 2W) that holds a nonzero, rounded out to multiples of
+    ``RANGE_STEP`` and clipped to [0, 2W]; an all-zero tile gets
+    lo == hi == 0.  The ranged kernel reads only these columns, and B only
+    at the rows they meet.  Built on the halves' device from the dense
+    halves alone, so a plan converted from the JAX plan's arrays gets the
+    same table as the port's own build."""
+    P, TM, W = a_left.shape
+    n_tiles = max(-(-TM // bm), 1)
+    nz = torch.zeros((P, n_tiles, 2 * W), dtype=torch.bool,
+                     device=a_left.device)
+    for t in range(n_tiles):
+        rows = slice(t * bm, (t + 1) * bm)
+        nz[:, t, :W] = a_left[:, rows].ne(0).any(dim=1)
+        nz[:, t, W:] = a_right[:, rows].ne(0).any(dim=1)
+    col = torch.arange(2 * W, device=a_left.device)
+    lo = torch.where(nz, col, 2 * W).amin(dim=2, keepdim=True)
+    hi = torch.where(nz, col + 1, 0).amax(dim=2, keepdim=True)
+    lo = lo // RANGE_STEP * RANGE_STEP
+    hi = torch.clamp(-(-hi // RANGE_STEP) * RANGE_STEP, max=2 * W)
+    empty = hi == 0
+    return torch.cat([lo.masked_fill(empty, 0), hi], dim=2).to(torch.int32)
+
+
 def _check_band_operands(tiles: dict, ws, B):
     """Shapes, dtypes and devices for both wrappers; returns (P, TM, W)."""
     shapes = {tuple(t.shape) for t in tiles.values()}
@@ -139,29 +171,39 @@ def _check_band_kernel_operands(W: int, B, **tiles):
     check_kernel_operands(tuple(tiles), B=B, **tiles)
 
 
-def band_spmm_v2(a_left, a_right, iW, B):
+def band_spmm_v2(a_left, a_right, iW, B, ranges=None):
     """Split-band product: out[p·TM : +TM] = A_left[p] · B[iW[p]·W : +W] +
     A_right[p] · B[(iW[p]+1)·W : +W], rows of B ≥ n read as zero.
     ``a_left``, ``a_right`` f32 [P, TM, W], ``iW`` i32 [P], ``B`` f32
-    [n, k].  Returns f32 [P·TM, k].
+    [n, k].  Returns f32 [P·TM, k].  ``ranges`` is the halves'
+    :func:`band_depth_ranges`; without it the CUDA path derives it.
 
     CUDA tensors launch ``csrc/band_spmm.cu`` (and count the launch in
-    ``band_spmm_v2.launches``); CPU tensors take
-    :func:`band_spmm_v2_plain`.  Anything else raises."""
+    ``band_spmm_v2.launches``): a block reads its 128-row tile's depth
+    range alone, so B's values outside it never reach the output (a
+    non-finite one there would through the dense product).  CPU tensors
+    take :func:`band_spmm_v2_plain`.  Anything else raises."""
     P, TM, W = _check_band_operands({"a_left": a_left, "a_right": a_right},
                                     iW, B)
+    if ranges is not None:
+        check_operands({"ranges": (ranges, (
+            P, max(-(-TM // BAND_TILE_ROWS), 1), 2))}, {"B": B})
     if B.device.type == "cpu":
         return band_spmm_v2_plain(a_left, a_right, iW, B)
     if B.device.type != "cuda":
         raise ValueError(f"no band kernel for device {B.device}")
     _check_band_kernel_operands(W, B, a_left=a_left, a_right=a_right)
+    if ranges is None:
+        ranges = band_depth_ranges(a_left, a_right)
+    check_kernel_operands((), ranges=ranges)
     from flex_tpu_torch import kernels
 
     n, k = B.shape
     out = torch.empty((P * TM, k), dtype=torch.float32, device=B.device)
     kernels.launch("band_spmm", "flex_band_spmm_v2", B.device,
                    a_left.data_ptr(), a_right.data_ptr(), iW.data_ptr(),
-                   B.data_ptr(), out.data_ptr(), P, TM, W, n, k)
+                   ranges.data_ptr(), B.data_ptr(), out.data_ptr(), P, TM, W,
+                   n, k)
     band_spmm_v2.launches += 1
     return out
 
@@ -211,6 +253,8 @@ class BandPlan:
     band: object         # impl xla/pallas: f32 [P, TM, W]; pallas2: (L, R)
     ws: torch.Tensor     # impl xla/pallas: ws128 i32 [P]; pallas2: iW i32 [P]
     impl: str = "pallas2"
+    # impl pallas2: band_depth_ranges of (L, R), i32 [P, ⌈TM/128⌉, 2]
+    ranges: torch.Tensor | None = None
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
         if B.dim() != 2 or B.shape[0] != self.n:
@@ -218,7 +262,8 @@ class BandPlan:
         if self.impl == "xla":
             return _band_spmm_xla(self.band, self.ws, B, m=self.m)
         if self.impl == "pallas2":
-            return band_spmm_v2(*self.band, self.ws, B)[:self.m]
+            return band_spmm_v2(*self.band, self.ws, B,
+                                ranges=self.ranges)[:self.m]
         return band_spmm_v1(self.band, self.ws, B)[:self.m]
 
     @property
@@ -298,18 +343,21 @@ def prepare_band(
         )
 
     layout = (g.nnz, g.m, P, tm, w_pad)
+    ranges = None
     if impl == "pallas2":
         table = ws // w_pad
         band = _build_split_band(dev.row_ptr, dev.col, dev.vals,
                                  torch.from_numpy(table).to(device),
                                  layout=layout)
+        ranges = band_depth_ranges(*band)
     else:
         table = ws // 128
         band = _build_band(dev.row_ptr, dev.col, dev.vals,
                            torch.from_numpy(ws).to(device), layout=layout)
     return BandPlan(
         m=g.m, n=g.n, tm=tm, w_pad=w_pad, band=band,
-        ws=torch.from_numpy(table.astype(np.int32)).to(device), impl=impl)
+        ws=torch.from_numpy(table.astype(np.int32)).to(device), impl=impl,
+        ranges=ranges)
 
 
 def spmm_band(g: CSRGraph, B: torch.Tensor, **kwargs) -> torch.Tensor:

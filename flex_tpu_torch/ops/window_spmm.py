@@ -21,6 +21,7 @@ add.
   into units of a few steps, one CUDA block each: long panels and slot
   chains no longer hold the card behind one block.  The units of a split
   panel write partial tiles, which a second kernel adds in unit order.
+  The forward, g_B and the transposed forward run in units.
 - :func:`window_bwd_gA` and :func:`window_bwd_gB` are the dense half's two
   gradients (``csrc/window_spmm_bwd.cu``, plain versions beside them);
   :class:`_WindowSpmm` ties the three into one differentiable call, so a
@@ -734,17 +735,35 @@ def window_spmm_t_fwd_plain(first, out_panel, win_step, A_T, B_T, *,
     return C.permute(1, 0, 2).reshape(k, n_panels * TM)
 
 
+def reduce_partials_t(scratch, out_T, splits, n_panels):
+    """Second pass of the transposed unit kernel: the tile of Cᵀ of every
+    panel named in ``splits`` (k rows of TM floats, n_panels·TM apart) =
+    its partial tiles of ``scratch`` ([n_parts, k, TM]) added in unit
+    order (``csrc/window_tile.cuh:reduce_partials_strided_kernel``)."""
+    from flex_tpu_torch import kernels
+
+    _, k, TM = scratch.shape
+    kernels.launch("window_spmm_t", "flex_window_spmm_t_reduce",
+                   out_T.device, scratch.data_ptr(), out_T.data_ptr(),
+                   splits.data_ptr(), splits.shape[0], n_panels, TM, k)
+
+
 def window_spmm_t_fwd(first, out_panel, win_step, A_T, B_T, *, n_panels, W,
-                      panel_step_ptr):
+                      panel_step_ptr, units=None):
     """Transposed dense half of the windowed hybrid:
     outᵀ[:, p·TM : +TM] = Σ over used panel p's steps s and windows g of
     Bᵀ[:, win_step[s·G+g]·W : +W] · Aᵀ[s][g·W : (g+1)·W, :].
     ``A_T`` f32 [S, G·W, TM], ``B_T`` f32 [k, n] (the caller's transpose of
-    B, not padded).  Returns Cᵀ, f32 [k, n_panels·TM].
+    B, not padded).  Returns Cᵀ, f32 [k, n_panels·TM].  ``units`` are the
+    panels' work units (:func:`device_units` of ``panel_step_ptr`` and
+    ``FWD_CHUNK_STEPS``); without them the CUDA path derives them from
+    ``panel_step_ptr``.
 
     CUDA tensors launch ``csrc/window_spmm_t.cu`` (and count the launch in
-    ``window_spmm_t_fwd.launches``); CPU tensors take
-    :func:`window_spmm_t_fwd_plain`.  Anything else raises."""
+    ``window_spmm_t_fwd.launches``): one kernel over the units and, where a
+    panel has several, the pass that adds its partial tiles into its
+    strided tile of Cᵀ.  CPU tensors take :func:`window_spmm_t_fwd_plain`.
+    Anything else raises."""
     if A_T.dim() != 3 or B_T.dim() != 2:
         raise ValueError(f"A_T must be 3-D and B_T 2-D, got {A_T.dim()}, "
                          f"{B_T.dim()}")
@@ -755,26 +774,34 @@ def window_spmm_t_fwd(first, out_panel, win_step, A_T, B_T, *, n_panels, W,
                      "win_step": (win_step, S * (GW // W)),
                      "panel_step_ptr": (panel_step_ptr, n_panels + 1)},
                     {"A_T": A_T, "B_T": B_T})
+    _check_units(units, A_T.device)
     if A_T.device.type == "cpu":
         return window_spmm_t_fwd_plain(first, out_panel, win_step, A_T, B_T,
                                        n_panels=n_panels, W=W)
     if A_T.device.type != "cuda":
         raise ValueError(f"no window kernel for device {A_T.device}")
     k, n = B_T.shape
-    # the kernel's stages are 32 deep, and it moves A_T and the result by
-    # float4 along TM
-    if W % 32 or TM % 4:
-        raise ValueError(f"the transposed window kernel needs W % 32 == 0 "
-                         f"and TM % 4 == 0, got W={W}, TM={TM}")
+    # the kernel moves A_T and the result by float4 along TM
+    if TM % 4:
+        raise ValueError(f"the transposed window kernel needs TM % 4 == 0, "
+                         f"got TM={TM}")
     _check_window_kernel_operands(W, ("A_T",), A_T=A_T, B_T=B_T)
+    if units is None:  # a trip to the host: a plan carries its own
+        units = device_units(panel_step_ptr.cpu().numpy(), FWD_CHUNK_STEPS,
+                             A_T.device)
+    unit_tab, splits, n_parts = units
     from flex_tpu_torch import kernels
 
     out = torch.empty((k, n_panels * TM), dtype=torch.float32,
                       device=A_T.device)
+    scratch = torch.empty((n_parts, k, TM), dtype=torch.float32,
+                          device=A_T.device)
     kernels.launch("window_spmm_t", "flex_window_spmm_t_fwd", A_T.device,
                    A_T.data_ptr(), B_T.data_ptr(), win_step.data_ptr(),
-                   panel_step_ptr.data_ptr(), out.data_ptr(), n_panels, TM,
-                   GW // W, W, n, k, max(-(-n // W), 1))
+                   unit_tab.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                   unit_tab.shape[0], n_panels, TM, GW // W, W, n, k,
+                   max(-(-n // W), 1))
+    reduce_partials_t(scratch, out, splits, n_panels)
     window_spmm_t_fwd.launches += 1
     return out
 
@@ -795,7 +822,8 @@ class _WindowSpmmT(torch.autograd.Function):
         ctx.save_for_backward(A_T, B_T)
         return window_spmm_t_fwd(plan.first, plan.out_panel, plan.win_step,
                                  A_T, B_T, n_panels=plan.n_used_panels,
-                                 W=plan.W, panel_step_ptr=plan.panel_step_ptr)
+                                 W=plan.W, panel_step_ptr=plan.panel_step_ptr,
+                                 units=plan.panel_units)
 
     @staticmethod
     def backward(ctx, g):

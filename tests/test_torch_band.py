@@ -2,21 +2,27 @@
 model, band arrays equal to the JAX plan's, the two kernels' plain
 versions and whole plans against the JAX plan with its Pallas kernels in
 interpret mode (rtol=atol=1e-5: f32 sums in another order), the port's own
-plans against SciPy under res_check, and the refusals.  The CUDA kernels
-themselves run only on a card: tests/test_torch_cuda.py."""
+plans against SciPy under res_check, and the refusals.  The split band's
+depth ranges (one per 128-row tile) hold every nonzero, are the same on a
+plan converted from the JAX plan's arrays, and a NumPy emulation of the
+kernel's range-restricted loop equals the plain version and the Pallas
+kernel.  The CUDA kernels themselves run only on a card:
+tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
+from flex_tpu.ops.pallas_band import _band_spmm_pallas2
 from flex_tpu.ops.pallas_band import panel_window_stats as j_window_stats
 from flex_tpu.ops.pallas_band import prepare_band as j_prepare_band
 
 from flex_tpu_torch.convert import band_plan_from_numpy
 from flex_tpu_torch.io import banded_graph, make_features, uniform_graph
 from flex_tpu_torch.ops.pallas_band import (
-    IMPLS, band_spmm_v1, band_spmm_v1_plain, band_spmm_v2, band_spmm_v2_plain,
-    panel_window_stats, prepare_band,
+    IMPLS, RANGE_STEP, band_depth_ranges, band_spmm_v1, band_spmm_v1_plain,
+    band_spmm_v2, band_spmm_v2_plain, panel_window_stats, prepare_band,
 )
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.sparse.csr import CSRGraph
@@ -174,3 +180,137 @@ def test_band_wrappers_reject_bad_arguments():
             band_spmm_v1(*args)
     with pytest.raises(ValueError, match="no band kernel"):
         band_spmm_v1(left.to("meta"), p2.ws.to("meta"), B.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# depth ranges of the split band (what the ranged kernel reads)
+# ---------------------------------------------------------------------------
+
+def _halves_and_empty():
+    """tm = 256, W = 768.  Panel 0 spans the window; in panel 1 the first
+    128-row tile lies in the left half only and the second in the right
+    half only; panel 2's first tile is empty; panel 3's tiles cross from
+    one half into the other; panel 4 is empty."""
+    rng = np.random.default_rng(3)
+    spans = ((0, 256, 0, 700), (256, 384, 512, 600), (384, 512, 800, 1000),
+             (640, 768, 520, 700), (768, 1024, 700, 900))
+    rows, cols = [], []
+    for r0, r1, c0, c1 in spans:
+        rows.append(np.repeat(np.arange(r0, r1), 6))
+        cols.append(rng.integers(c0, c1, rows[-1].shape))
+    key = np.unique(np.concatenate(rows) * 1280 + np.concatenate(cols))
+    vals = (2 * rng.random(len(key)) - 1).astype(np.float32)
+    return CSRGraph.from_coo(key // 1280, key % 1280, vals, 1280,
+                             name="halves_and_empty")
+
+
+RANGE_CASES = dict(CASES, halves_and_empty=(
+    _halves_and_empty, dict(tm=256, min_density=0.0)))
+
+
+def _tiles(plan, bm=128):
+    """(panel, tile, the tile's rows of [A_left | A_right]) of a split plan."""
+    cat = np.concatenate([b.numpy() for b in plan.band], axis=2)
+    for p in range(cat.shape[0]):
+        for t in range(-(-cat.shape[1] // bm)):
+            yield p, t, cat[p, t * bm:(t + 1) * bm]
+
+
+@pytest.mark.parametrize("name", sorted(RANGE_CASES))
+def test_band_depth_ranges_hold_every_nonzero(name):
+    make, kw = RANGE_CASES[name]
+    plan = prepare_band(make(), device="cpu", **kw)
+    W = plan.w_pad
+    r = plan.ranges.numpy()
+    assert plan.ranges.dtype == torch.int32
+    assert r.shape == (plan.band[0].shape[0],
+                       -(-plan.band[0].shape[1] // 128), 2)
+    kinds = set()
+    for p, t, rows in _tiles(plan):
+        lo, hi = r[p, t]
+        assert lo % RANGE_STEP == 0 and hi % RANGE_STEP == 0
+        assert 0 <= lo <= hi <= 2 * W
+        nz = np.flatnonzero(rows.any(axis=0))
+        if not len(nz):
+            assert lo == hi
+            kinds.add("empty")
+            continue
+        # every nonzero inside, and the range no wider than the rounding
+        assert lo <= nz[0] and nz[-1] < hi
+        assert lo > nz[0] - RANGE_STEP and hi < nz[-1] + 1 + RANGE_STEP
+        kinds.add("left" if hi <= W else "right" if lo >= W else "both")
+    if name == "halves_and_empty":
+        assert kinds == {"empty", "left", "right", "both"}
+    for impl in ("xla", "pallas"):
+        assert prepare_band(make(), device="cpu", impl=impl,
+                            **kw).ranges is None
+    torch.testing.assert_close(band_depth_ranges(*plan.band), plan.ranges,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(RANGE_CASES))
+def test_band_convert_carries_the_same_depth_ranges(name):
+    make, kw = RANGE_CASES[name]
+    g = make()
+    mine = prepare_band(g, device="cpu", **kw)
+    conv = band_plan_from_numpy(
+        jax_band_dict(j_prepare_band(jax_graph(g), **kw)), "cpu")
+    assert conv.ranges.dtype == torch.int32
+    np.testing.assert_array_equal(conv.ranges.numpy(), mine.ranges.numpy())
+    conv1 = band_plan_from_numpy(
+        jax_band_dict(j_prepare_band(jax_graph(g), impl="pallas", **kw)),
+        "cpu")
+    assert conv1.ranges is None
+
+
+def _emulate_ranged_v2(plan, B, bm=128):
+    """What csrc/band_spmm.cu's v2 kernel computes, in NumPy: each 128-row
+    tile the product of its depth range of [A_left | A_right] alone with
+    the B rows that range meets (rows >= n as zero)."""
+    W, k = plan.w_pad, B.shape[1]
+    iW = plan.ws.numpy().astype(np.int64)
+    B_pad = np.zeros(((-(-plan.n // W) + 2) * W, k), np.float32)
+    B_pad[:plan.n] = B
+    P, TM, _ = plan.band[0].shape
+    out = np.full((P, TM, k), np.nan, np.float32)
+    for p, t, rows in _tiles(plan, bm):
+        lo, hi = plan.ranges[p, t].tolist()
+        b0 = iW[p] * W
+        out[p, t * bm:t * bm + len(rows)] = \
+            rows[:, lo:hi] @ B_pad[b0 + lo:b0 + hi]
+    return out.reshape(P * TM, k)
+
+
+@pytest.mark.parametrize("k", [16, 41, 128])
+@pytest.mark.parametrize("name", sorted(RANGE_CASES))
+def test_ranged_loop_matches_plain_and_pallas(name, k):
+    make, kw = RANGE_CASES[name]
+    g = make()
+    jplan = j_prepare_band(jax_graph(g), **kw)
+    plan = band_plan_from_numpy(jax_band_dict(jplan), "cpu")
+    B = make_features(g, k)
+    emu = _emulate_ranged_v2(plan, B)
+    assert not np.isnan(emu).any()              # every tile was written
+    B_t = torch.from_numpy(B)
+    np.testing.assert_allclose(
+        emu, band_spmm_v2_plain(*plan.band, plan.ws, B_t).numpy(),
+        rtol=1e-5, atol=1e-5)
+    # the wrapper takes the table and, on the CPU, the plain version
+    via = band_spmm_v2(*plan.band, plan.ws, B_t, ranges=plan.ranges)
+    np.testing.assert_allclose(emu, via.numpy(), rtol=1e-5, atol=1e-5)
+    kt = -(-k // 128) * 128                     # the JAX plan's lane padding
+    B_lanes = jnp.zeros((g.n, kt), jnp.float32).at[:, :k].set(B)
+    ref = np.asarray(_band_spmm_pallas2(
+        *jplan.band, jplan.ws, B_lanes, m=g.m, n=g.n,
+        precision=jax.lax.Precision.HIGHEST, interpret=True))[:, :k]
+    np.testing.assert_allclose(emu[:g.m], ref, rtol=1e-5, atol=1e-5)
+
+
+def test_band_v2_wrapper_rejects_a_bad_range_table():
+    make, kw = CASES["band1024"]
+    p2 = prepare_band(make(), device="cpu", **kw)
+    B = torch.ones((p2.n, 4))
+    for bad in (p2.ranges.long(), p2.ranges[:-1], p2.ranges[..., :1],
+                p2.ranges.to("meta")):
+        with pytest.raises(ValueError):
+            band_spmm_v2(*p2.band, p2.ws, B, ranges=bad)

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
 forward, g_A, g_B, transposed forward, the two band kernels, GE-SpMM)
-against their plain twins, whole plans on the card against SciPy,
+against their plain twins, the unit kernels on the edges of their work
+units and the ranged band kernel on empty, one-half and full ranges, whole plans on the card against SciPy,
 gradients against SciPy's Aᵀ·co, and a few GCN train steps.  Every test is
 marked ``cuda`` and skips without a card.  The file imports no JAX, so on
 a machine with PyTorch alone it runs as
@@ -17,7 +18,8 @@ from flex_tpu_torch.io import (
 )
 from flex_tpu_torch.ops.gespmm import gespmm_partials, gespmm_partials_plain
 from flex_tpu_torch.ops.pallas_band import (
-    band_spmm_v1, band_spmm_v1_plain, band_spmm_v2, band_spmm_v2_plain,
+    band_depth_ranges, band_spmm_v1, band_spmm_v1_plain, band_spmm_v2,
+    band_spmm_v2_plain,
 )
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.ops.window_spmm import (
@@ -374,6 +376,85 @@ def test_window_t_kernel_matches_plain(cuda, name, k):
     assert res_check(spmm_scipy(g, B), C.cpu().numpy(), g.degrees).err_frac == 0
 
 
+def _t_unit_tables(cuda, TM, G=4, W=128, n=9000 + 5, seed=7):
+    """Panels of 1, 8, 9 and 17 steps and two trailing panels with none;
+    panel 0's only step and one step inside each longer panel all
+    sentinels, sentinels elsewhere, the last, partial block of B."""
+    rng = np.random.default_rng(seed)
+    CS = FWD_CHUNK_STEPS
+    steps = np.array([1, CS, CS + 1, 2 * CS + 1])
+    S, nblk = int(steps.sum()), -(-n // W)
+    win = np.sort(rng.integers(0, nblk, (S, G)), axis=1)
+    win[::5, -1] = nblk - 1
+    win[rng.random((S, G)) < 0.2] = nblk
+    win[[0, 3, 12, 30]] = nblk
+    ptr = np.r_[0, np.cumsum(steps), S, S].astype(np.int32)
+    first = np.zeros(S, np.int32)
+    first[ptr[:len(steps)]] = 1
+    t = {key: torch.from_numpy(a).to(cuda) for key, a in (
+        ("first", first),
+        ("out_panel", np.repeat(np.arange(len(steps)), steps).astype(
+            np.int32)),
+        ("win_step", win.reshape(-1).astype(np.int32)), ("ptr", ptr))}
+    t["A_T"] = torch.rand((S, G * W, TM), device=cuda) * 2 - 1
+    return t, len(ptr) - 1, W
+
+
+@pytest.mark.parametrize("k", [16, 32, 41, 64, 100])
+@pytest.mark.parametrize("TM", [256, 128])
+def test_window_t_kernel_on_unit_edges(cuda, TM, k):
+    """The transposed unit kernel against plain (|diff| <= 2·L·eps32·
+    (|b|·|a|), L the panel's contraction length) with both panel-row tiles
+    (TM 256 and 128), every tile over k, a Bᵀ that is not 16-byte
+    aligned, split panels whose partial tiles go through the strided
+    reduce pass; with the caller's unit tables and with derived ones, a
+    second launch gives the same bits."""
+    t, n_panels, W = _t_unit_tables(cuda, TM)
+    n = 9000 + 5
+    buf = torch.rand(k * n + 1, device=cuda) * 2 - 1
+    B_T = buf[1:].view(k, n)
+    assert B_T.data_ptr() % 16
+    args = (t["first"], t["out_panel"], t["win_step"], t["A_T"])
+    kw = dict(n_panels=n_panels, W=W)
+    units = device_units(t["ptr"].cpu().numpy(), FWD_CHUNK_STEPS, cuda)
+    assert units[2] == 2 + 3 and units[1].shape[0] == 2
+    before = window_spmm_t_fwd.launches
+    out = window_spmm_t_fwd(*args, B_T, panel_step_ptr=t["ptr"], units=units,
+                            **kw)
+    assert window_spmm_t_fwd.launches == before + 1
+    for again in (units, None):
+        assert torch.equal(out, window_spmm_t_fwd(
+            *args, B_T, panel_step_ptr=t["ptr"], units=again, **kw))
+    assert torch.equal(out, window_spmm_t_fwd(
+        *args, B_T.clone(), panel_step_ptr=t["ptr"], units=units, **kw))
+    ref = window_spmm_t_fwd_plain(*args, B_T, **kw)
+    absprod = window_spmm_t_fwd_plain(*args[:3], t["A_T"].abs(), B_T.abs(),
+                                      **kw)
+    L = (t["ptr"][1:] - t["ptr"][:-1]).double() * t["A_T"].shape[1]
+    tol = 2 * EPS32 * L.repeat_interleave(TM)[None, :] * absprod.double()
+    assert bool(((out.double() - ref.double()).abs() <= tol).all())
+    assert bool((out[:, 4 * TM:] == 0).all())      # trailing empty panels
+    assert bool((out[:, :TM] == 0).all())          # an all-sentinel panel
+
+
+def test_transposed_plan_without_units_still_launches_its_kernel(cuda):
+    """A transposed plan stripped of its unit tables derives them at each
+    call: on the card its forward still comes from the kernel, with the
+    same bits."""
+    import dataclasses
+
+    g = CASES["community"][0]()
+    plan = prepare_windowed(g, device=cuda, transposed=True,
+                            **CASES["community"][1])
+    B = torch.from_numpy(make_features(g, 41)).to(cuda)
+    outs = []
+    for p in (plan, dataclasses.replace(plan, panel_units=None)):
+        before = window_spmm_t_fwd.launches
+        outs.append(p.dense_half(B))
+        assert window_spmm_t_fwd.launches == before + 1
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_transposed_grad_matches_scipy_on_card(cuda):
     g = CASES["community"][0]()
     plan = prepare_windowed(g, device=cuda, transposed=True,
@@ -439,6 +520,73 @@ def test_band_kernels_match_plain_and_scipy(cuda, name, k):
     for plan in (p2, p1, prepare_band(g, device=cuda, impl="xla", **kw)):
         C = plan(B_dev).cpu().numpy()
         assert res_check(gold, C, g.degrees).err_frac == 0, plan.impl
+
+
+def _band_range_case(cuda, P, TM, W, n, k, seed=6):
+    """Random split halves whose 128-row tiles have an empty range (tile 0
+    of panel 0), the left half only (panel 1, tile 0), the right half
+    only (panel 1, tile 1), a narrow range inside the right half (panel 2)
+    and the full depth (the rest); windows anywhere in B, every third past
+    n."""
+    rng = np.random.default_rng(seed)
+    a = [torch.rand((P, TM, W), device=cuda) * 2 - 1 for _ in range(2)]
+    a[0][0, :128] = 0
+    a[1][0, :128] = 0
+    a[1][1, :128] = 0
+    a[0][1, 128:] = 0
+    a[0][2] = 0
+    a[1][2, :, 40:] = 0
+    a[1][2, :, :8] = 0
+    iW = rng.integers(0, -(-n // W), P)
+    iW[::3] = -(-n // W) - 1
+    B = torch.rand((n, k), device=cuda) * 2 - 1
+    return a, torch.from_numpy(iW.astype(np.int32)).to(cuda), B
+
+
+@pytest.mark.parametrize("k", [32, 41, 128, 200])
+@pytest.mark.parametrize("TM,W", [(256, 768), (200, 256)])
+def test_band_v2_kernel_on_depth_ranges(cuda, TM, W, k):
+    """The ranged kernel against plain (|diff| <= 2·2W·eps32·(|a|·|b|)) on
+    empty, one-half, narrow and full-depth ranges, every column tile and
+    both copy widths; launched again, with the table derived, and on a
+    table of full-depth ranges: the same bits (a skipped column is a zero
+    of A, whose FMAs add exact zeros)."""
+    a, iW, B = _band_range_case(cuda, 5, TM, W, 9000 + 5, k)
+    ranges = band_depth_ranges(*a)
+    r = ranges.cpu().numpy()
+    assert tuple(r[0, 0]) == (0, 0) and r[1, 0, 1] <= W and r[1, 1, 0] >= W
+    assert tuple(r[2, 0]) == (W + 0, W + 48) and tuple(r[3, 0]) == (0, 2 * W)
+    before = band_spmm_v2.launches
+    out = band_spmm_v2(*a, iW, B, ranges=ranges)
+    assert band_spmm_v2.launches == before + 1
+    full = ranges.clone()
+    full[..., 0], full[..., 1] = 0, 2 * W
+    for again in (ranges, None, full):
+        assert torch.equal(out, band_spmm_v2(*a, iW, B, ranges=again))
+    assert bool((out[:128] == 0).all())             # the empty tile
+    ref = band_spmm_v2_plain(*a, iW, B)
+    tol = 2 * 2 * W * EPS32 * band_spmm_v2_plain(
+        a[0].abs(), a[1].abs(), iW, B.abs()).double()
+    assert bool(((out.double() - ref.double()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("k", [32, 41, 128, 200])
+def test_band_v1_kernel_is_unchanged(cuda, k):
+    """Kernel 6 keeps its synchronous tile product: against plain on
+    windows anywhere in B, every third past n, TM not a multiple of 128;
+    two launches give the same bits."""
+    rng = np.random.default_rng(k)
+    P, TM, W, n = 6, 200, 256, 5000 + 3
+    band = torch.rand((P, TM, W), device=cuda) * 2 - 1
+    ws = rng.integers(0, -(-n // 128), P)
+    ws[::3] = -(-n // 128) - 1
+    ws = torch.from_numpy(ws.astype(np.int32)).to(cuda)
+    B = torch.rand((n, k), device=cuda) * 2 - 1
+    out = band_spmm_v1(band, ws, B)
+    assert torch.equal(out, band_spmm_v1(band, ws, B))
+    ref = band_spmm_v1_plain(band, ws, B)
+    tol = 2 * W * EPS32 * band_spmm_v1_plain(band.abs(), ws, B.abs()).double()
+    assert bool(((out.double() - ref.double()).abs() <= tol).all())
 
 
 def test_band_kernels_refuse_what_they_cannot_take(cuda):

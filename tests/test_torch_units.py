@@ -1,11 +1,12 @@
-"""Work units of the two window kernels that are cut across CUDA blocks
-(the forward and g_B), on the CPU: the unit tables partition every panel's
-steps and every block rank's slots; a NumPy two-pass emulation over the
-unit table (one partial tile per unit, a split owner's partials added in
-unit order) equals the plain versions and the JAX package's Pallas kernels
-in interpret mode (rtol = atol = 1e-5: f32 sums in another order); a plan
-converted from the JAX plan's arrays carries the same unit tables as the
-port's own build.  The CUDA kernels themselves run only on a card:
+"""Work units of the window kernels that are cut across CUDA blocks (the
+forward, g_B and the transposed forward), on the CPU: the unit tables
+partition every panel's steps and every block rank's slots; a NumPy
+two-pass emulation over the unit table (one partial tile per unit, a split
+owner's partials added in unit order, into a strided tile of Cᵀ for the
+transposed kernel) equals the plain versions and the JAX package's Pallas
+kernels in interpret mode (rtol = atol = 1e-5: f32 sums in another order);
+a plan converted from the JAX plan's arrays carries the same unit tables as
+the port's own build.  The CUDA kernels themselves run only on a card:
 tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
@@ -13,15 +14,19 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from flex_tpu.ops.window_spmm import _window_bwd_gB_raw, _window_pallas_raw
+from flex_tpu.ops.window_spmm import (
+    _window_bwd_gB_raw, _window_pallas_raw, _window_pallas_t_raw,
+)
 from flex_tpu.ops.window_spmm import prepare_windowed as j_prepare_windowed
 
 from flex_tpu_torch.convert import windowed_plan_from_numpy
 from flex_tpu_torch.io import make_features
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.ops.window_spmm import (
-    FWD_CHUNK_STEPS, GB_CHUNK_SLOTS, prepare_windowed, window_bwd_gB,
-    window_bwd_gB_plain, window_spmm_fwd, window_spmm_fwd_plain, work_units,
+    FWD_CHUNK_STEPS, GB_CHUNK_SLOTS, device_units, panel_step_ptr,
+    prepare_windowed, window_bwd_gB, window_bwd_gB_plain, window_spmm_fwd,
+    window_spmm_fwd_plain, window_spmm_t_fwd, window_spmm_t_fwd_plain,
+    work_units,
 )
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.utils.check import res_check
@@ -268,3 +273,114 @@ def test_wrappers_reject_bad_unit_tables():
         window_bwd_gB(ts, tg, plan.slot_ptr, plan.out_panel, plan.A, g,
                       W=plan.W, n_blk_used=plan.n_blk_used,
                       units=(units.long(), splits, n_parts))
+
+
+# ---------------------------------------------------------------------------
+# the transposed forward in units: partial (k, TM) tiles, strided Cᵀ tiles
+# ---------------------------------------------------------------------------
+
+def _emulate_t_fwd(t, B_T, units, n_panels, W):
+    """What csrc/window_spmm_t.cu computes, in NumPy: one (k, TM) tile per
+    unit, written into the panel's strided tile of Cᵀ (k rows, n_panels·TM
+    apart) or into a partial tile; then a split panel's partial tiles added
+    in unit order and stored into its tile of Cᵀ."""
+    A_T, win = t["A_T"], t["win_step"].reshape(t["A_T"].shape[0], -1)
+    k, n = B_T.shape
+    TM = A_T.shape[2]
+    nblk = -(-n // W)
+    B_pad = np.zeros((k, (nblk + 1) * W), np.float32)
+    B_pad[:, :n] = B_T
+    tab, splits, n_parts = (np.asarray(x) for x in units)
+    out = np.full((k, n_panels * TM), np.nan, np.float32)
+    scratch = np.full((int(n_parts), k, TM), np.nan, np.float32)
+    for panel, lo, hi, part in tab:
+        acc = np.zeros((k, TM), np.float32)
+        for s in range(lo, hi):
+            for j, blk in enumerate(win[s]):
+                if blk < nblk:
+                    acc += B_pad[:, blk * W:(blk + 1) * W] @ \
+                        A_T[s][j * W:(j + 1) * W]
+        if part < 0:
+            out[:, panel * TM:(panel + 1) * TM] = acc
+        else:
+            scratch[part] = acc
+    for panel, p_lo, p_hi in splits:
+        acc = scratch[p_lo].copy()
+        for p in range(p_lo + 1, p_hi):
+            acc += scratch[p]
+        out[:, panel * TM:(panel + 1) * TM] = acc
+    return out
+
+
+def _hand_t_tables(TM=128, G=4, W=128, n=3000 + 5, seed=5):
+    """Panels of 1, 8, 9 and 17 steps (one unit, exactly one unit, one
+    unit plus one, two units plus one); panel 0's only step and one step
+    inside each longer panel all sentinels; sentinels elsewhere, the last,
+    partial block of B; sparse Aᵀ tiles in (-1, 1)."""
+    rng = np.random.default_rng(seed)
+    CS = FWD_CHUNK_STEPS
+    steps = np.array([1, CS, CS + 1, 2 * CS + 1])
+    S, nblk = int(steps.sum()), -(-n // W)
+    win = np.sort(rng.integers(0, nblk, (S, G)), axis=1)
+    win[::5, -1] = nblk - 1
+    win[rng.random((S, G)) < 0.2] = nblk
+    win[[0, 3, 12, 30]] = nblk
+    first = np.zeros(S, np.int32)
+    first[np.r_[0, np.cumsum(steps)[:-1]]] = 1
+    A_T = ((2 * rng.random((S, G * W, TM)) - 1)
+           * (rng.random((S, G * W, TM)) < 0.05)).astype(np.float32)
+    return {"first": first,
+            "out_panel": np.repeat(np.arange(len(steps)), steps).astype(
+                np.int32),
+            "win_step": win.reshape(-1).astype(np.int32), "A_T": A_T,
+            "n": n, "W": W, "n_panels": len(steps)}
+
+
+def _t_case(name):
+    """Format tables of a transposed case: a JAX plan's arrays, or the
+    hand tables."""
+    if name == "hand":
+        return _hand_t_tables()
+    make, kw = UNIT_CASES[name]
+    g = make()
+    d = jax_windowed_dict(j_prepare_windowed(jax_graph(g), transposed=True,
+                                             **kw))
+    return {"first": d["first"], "out_panel": d["out_panel"],
+            "win_step": d["win_step"], "A_T": d["A"], "n": g.n, "W": d["W"],
+            "n_panels": d["n_used_panels"]}
+
+
+@pytest.mark.parametrize("k", [16, 41])
+@pytest.mark.parametrize("name", ["hand", "hub_panel", "variable_steps"])
+def test_two_pass_transposed_matches_plain_and_pallas(name, k):
+    t = _t_case(name)
+    W, n_panels = t["W"], t["n_panels"]
+    ptr = panel_step_ptr(t["first"])
+    units = work_units(ptr, FWD_CHUNK_STEPS)
+    units = (*units, int((units[0][:, 3] >= 0).sum()))
+    if name in ("hand", "hub_panel"):
+        assert units[2] > 0 and len(units[1]) >= 1     # a split panel
+    rng = np.random.default_rng(k)
+    B_T = (rng.random((k, t["n"]), np.float32) - 0.5)
+    emu = _emulate_t_fwd(t, B_T, units, n_panels, W)
+    assert not np.isnan(emu).any()              # every tile was written
+    args = [torch.from_numpy(np.array(t[key])) for key in (
+        "first", "out_panel", "win_step", "A_T")] + [torch.from_numpy(B_T)]
+    kw = dict(n_panels=n_panels, W=W)
+    np.testing.assert_allclose(
+        emu, window_spmm_t_fwd_plain(*args, **kw).numpy(), **TOL)
+    # the wrapper takes the unit tables and, on the CPU, the plain version
+    via = window_spmm_t_fwd(*args, panel_step_ptr=torch.from_numpy(ptr),
+                            units=device_units(ptr, FWD_CHUNK_STEPS, "cpu"),
+                            **kw)
+    np.testing.assert_allclose(emu, via.numpy(), **TOL)
+    nblk = -(-t["n"] // W)
+    kt = -(-k // 8) * 8                          # the Pallas kernel's k
+    B_Tp = jnp.zeros((kt, (nblk + 1) * W), jnp.float32).at[:k, :t["n"]].set(
+        B_T)
+    ref = np.asarray(_window_pallas_t_raw(
+        *(jnp.asarray(t[key]) for key in ("first", "out_panel", "win_step",
+                                          "A_T")), B_Tp,
+        n_panels=n_panels, W=W, k=kt, precision=jax.lax.Precision.HIGHEST,
+        interpret=True))[:k]
+    np.testing.assert_allclose(emu, ref, **TOL)
