@@ -9,7 +9,8 @@ Phases:
   1. environment: card name and power limit, torch/CUDA versions; TF32 off.
   2. build every CUDA kernel of the package from ``flex_tpu_torch/csrc``.
   3. each kernel (forward, g_A, g_B; transposed forward, band v2 and v1,
-     GE-SpMM partials) against its plain PyTorch version on random tables
+     the row-unit kernel of GE-SpMM and the residue) against its plain
+     PyTorch version on random tables
      at its path's shapes (k = 128 and k = 41), with the tolerance stated
      there.  The forward and g_B run in work units: their tables hold
      panels and slot chains of a single step, exactly one unit, one unit
@@ -17,13 +18,17 @@ Phases:
      and 200; each is launched twice and must give the same bits.  The
      transposed forward runs in units too: panels of 1, 8, 9 and 17 steps
      with all-sentinel steps, TM 256 and 128, k = 16, 32, 41, 64, 100, a
-     misaligned Bᵀ.  Band v2 reads depth ranges: tiles with empty,
+     misaligned Bᵀ.  Band v2 and v1 read depth ranges: tiles with empty,
      one-half, narrow and full ranges at k = 32, 41, 128, 200, bit-equal to
-     the same kernel on full-depth ranges.
+     the same kernel on full-depth ranges.  The row-unit kernel on GE-SpMM
+     plans (pad chunks, empty and split rows; k = 128, 41, 200) and on ELL
+     plans and their transposed plans added into an accumulator, each
+     launched twice for equal bits.
   4. the forward path at full size: reddit_posts(seed=0) -> rbdeg ->
      window_select(tm=256, W=128, min_count=64, max_dense_bytes=6 GiB) ->
      prepare_windowed on cuda -> plan(B), B = make_features(g, 128),
-     checked with res_check against SciPy (err_frac <= 1e-4).
+     checked with res_check against SciPy (err_frac <= 1e-4); a second
+     call must give the same bits.
   5. the forward kernel on that path's own tensors, at k = 128 and at the
      train step's k = 41 (there also res_check against SciPy): max error
      against the plain version, kernel / plain / bound / library times, the
@@ -33,8 +38,8 @@ Phases:
   6. the gradient path at full size: loss = (plan(B) * co).sum() with B and
      plan.A requiring grad; the backward launches the g_A and g_B kernels;
      g_B against SciPy's A^T.co (res_check err_frac <= 1e-4), g_A against
-     its plain version; once more with ``with_training_bwd``, and g_B
-     at k = 41.
+     its plain version; once more with ``with_training_bwd`` (twice, for
+     equal bits), and g_B at k = 41.
   7. the training path at full size: GCN(128 -> 128 -> 41) through
      ``make_train_step`` with Adam(1e-2), 2 warm-up and 5 timed steps; the
      parameter gradients of the first step against the same loss taken
@@ -42,21 +47,26 @@ Phases:
      finite and falling loss, ms/step, peak memory and the step's split.
   8. the two backward kernels on the main path's own tensors, as in 5
      (g_B at k = 128 and k = 41, with its units, reduce pass, longest
-     chain alone and one unit per chain).
+     chain alone and one unit per chain); then the residue alone: the
+     row-unit kernel added into an accumulator at k = 128, 41 and 32
+     against its plain version and cuSPARSE on the residue's CSR, and the
+     transposed residue without its pad entries (``with_training_bwd``'s)
+     and with them (the JAX package's tables).
   9. the transposed windowed plan at full size: the same graph, ordering
      and selection, ``prepare_windowed(transposed=True)`` through
      ``bench_spmm`` at k = 41 and k = 32 (err_frac <= 1e-4), the
      transposed kernel against plain on its tensors, its time beside the
      row-major kernel's at the same k; its work units, the strided reduce
      pass alone, the longest panel alone and one unit per panel.
- 10. GE-SpMM at full size on that graph (w = 32, k = 128 and 41).
+ 10. GE-SpMM at full size on that graph (w = 32, k = 128 and 41): the
+     plan is the row-unit kernel alone; its unit report, equal bits.
  11. the baselines ``"xla"`` and ``"bcoo"`` at full size (k = 128).
  12. band at full size: banded_graph(262144, 256, 64.0, seed=2), tm = 256,
      k = 128, the three impls through ``bench_spmm``, both band kernels
-     against plain on the plans' tensors; kernel 5's depth ranges (their
-     build time, the share of the split depth they read, the empty tiles),
-     kernel 5 on full-depth ranges beside the ranged run (bit-equal), the
-     bound of its ranges and of the split format.
+     against plain on the plans' tensors; both kernels' depth ranges (their
+     build time, the share of the depth they read, the empty tiles), each
+     kernel on full-depth ranges beside the ranged run (bit-equal), the
+     bound of its ranges and of its format.
 Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after.
@@ -389,6 +399,38 @@ def full_depth(ranges, W):
     return full
 
 
+def check_band_v1_ranges(torch, rng, TM, W, n, k, label, dev="cuda"):
+    """Kernel 6 on depth ranges of the unsplit band: an empty tile, a
+    narrow range and full ones; launched again, with the table derived
+    and on full-depth ranges, the same bits."""
+    from flex_tpu_torch.ops.pallas_band import (
+        band_depth_ranges, band_spmm_v1, band_spmm_v1_plain,
+    )
+
+    band = torch.rand((4, TM, W), device=dev) * 2 - 1
+    band[0, :128] = 0
+    band[1, :, 40:] = 0
+    band[1, :, :8] = 0
+    ws = rng.integers(0, -(-n // 128), 4)
+    ws[::3] = -(-n // 128) - 1
+    ws = torch.from_numpy(ws.astype(np.int32)).to(dev)
+    B = torch.rand((n, k), device=dev) * 2 - 1
+    ranges = band_depth_ranges(band)
+    r = ranges.cpu().numpy()
+    if not (tuple(r[0, 0]) == (0, 0) and tuple(r[1, 0]) == (0, 48)):
+        raise AssertionError(f"band v1 range case {label}: ranges {r[:2]}")
+    out = band_spmm_v1(band, ws, B, ranges=ranges)
+    full = ranges.clone()
+    full[..., 0], full[..., 1] = 0, W
+    for again in (None, full):
+        require_same_bits(torch, "band_spmm_v1", label, out,
+                          band_spmm_v1(band, ws, B, ranges=again))
+    torch.cuda.synchronize()
+    return hold_to_plain(
+        torch, "band_spmm_v1", label, out, band_spmm_v1_plain(band, ws, B),
+        band_spmm_v1_plain(band.abs(), ws, B.abs()), W)
+
+
 def check_band_v2_ranges(torch, rng, P, TM, W, n, k, label, dev="cuda"):
     """Kernel 5 on depth ranges, as the card tests run it: tiles with an
     empty range, the left half only, the right half only, a narrow range
@@ -443,18 +485,39 @@ def hub_and_empty_graph(rng, m=5000, w=32):
     return CSRGraph.from_coo(rows, cols, vals, m, name="hub_and_empty")
 
 
-def check_gespmm_kernel(torch, cols, vals, B, label):
-    """Kernel 7 against its plain version; L = the chunk width."""
-    from flex_tpu_torch.ops.gespmm import (
-        gespmm_partials, gespmm_partials_plain,
-    )
+def rows_absprod_and_len(torch, t, B):
+    """|A|·|B| row by row (the plain version on |vals|, |B|) and each row's
+    length L: the rounding bound of two f32 sums of a row in different
+    orders is 2·L·eps32·(|A|·|B|)."""
+    import dataclasses
 
-    out = gespmm_partials(cols, vals, B)
+    from flex_tpu_torch.ops.gespmm import gespmm_rows_plain
+
+    absprod = gespmm_rows_plain(dataclasses.replace(t, vals=t.vals.abs()),
+                                B.abs())
+    u = t.units.long()
+    L = torch.zeros(t.m, dtype=torch.float64, device=B.device).index_add_(
+        0, u[:, 0], (u[:, 2] - u[:, 1]).double())
+    return absprod, L[:, None].clamp_min(1)
+
+
+def check_gespmm_kernel(torch, t, B, label, into=None):
+    """Kernel 7 (the row-unit kernel) against its plain version, with
+    ``into`` added to when given; launched twice, the same bits.  Returns
+    max_abs_err."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_plain
+
+    def call(fn):
+        return fn(t, B, into=None if into is None else into.clone())
+
+    out = call(gespmm_rows)
+    require_same_bits(torch, "gespmm_rows", label, out, call(gespmm_rows))
     torch.cuda.synchronize()
-    return hold_to_plain(
-        torch, "gespmm_partials", label, out,
-        gespmm_partials_plain(cols, vals, B),
-        gespmm_partials_plain(cols, vals.abs(), B.abs()), cols.shape[1])
+    absprod, L = rows_absprod_and_len(torch, t, B)
+    if into is not None:   # the add into the accumulator rounds once more
+        absprod = absprod + into.abs() / L
+    return hold_to_plain(torch, "gespmm_rows", label, out,
+                         call(gespmm_rows_plain), absprod, L)
 
 
 def check_plan_against_scipy(g, plan, B, gold, label, limit=1e-4):
@@ -477,9 +540,11 @@ def check_plan_against_scipy(g, plan, B, gold, label, limit=1e-4):
 
 def phase_new_kernels_vs_plain(torch, dev="cuda"):
     """Kernels 4-7 against their plain versions on random tables, at
-    k = 128 and k = 41 (and the transposed kernel's own k = 32)."""
+    k = 128 and k = 41 (and the transposed kernel's own k = 32; kernel 7
+    also at k = 200 and on ELL residues with an accumulator)."""
     from flex_tpu_torch.io.csv_loader import make_features
     from flex_tpu_torch.io.synth import banded_graph
+    from flex_tpu_torch.ops.ell_spmm import prepare_ell, with_bwd_plan
     from flex_tpu_torch.ops.gespmm import prepare_gespmm
     from flex_tpu_torch.ops.pallas_band import prepare_band
     from flex_tpu_torch.ops.ref import spmm_scipy
@@ -505,11 +570,13 @@ def phase_new_kernels_vs_plain(torch, dev="cuda"):
         for k in (K, 41):
             check_band_kernels(torch, rng, P, TM, W, 20_000 + 77, k,
                                f"P={P} TM={TM} W={W} k={k}", dev=dev)
-    # kernel 5 on empty, one-half, narrow and full-depth ranges
+    # kernels 5 and 6 on empty, one-half, narrow and full-depth ranges
     for TM, W in ((256, 768), (200, 256)):
         for k in (32, 41, K, 200):
             check_band_v2_ranges(torch, rng, 5, TM, W, 9_000 + 5, k,
                                  f"ranges TM={TM} W={W} k={k}", dev=dev)
+            check_band_v1_ranges(torch, rng, TM, W, 9_000 + 5, k,
+                                 f"v1 ranges TM={TM} W={W} k={k}", dev=dev)
     # m % tm != 0 through the plans, against SciPy
     gb = banded_graph(5000, 300, 40.0, seed=3)
     for k in (K, 41):
@@ -519,19 +586,33 @@ def phase_new_kernels_vs_plain(torch, dev="cuda"):
             check_plan_against_scipy(
                 gb, prepare_band(gb, device=dev, tm=256, impl=impl), Bb, gold,
                 f"band impl={impl} m=5000 tm=256 k={k}")
-    # kernel 7: pad chunks, a zero-degree row, rows longer than w
+    # kernel 7: pad chunks, a zero-degree row, rows longer than a unit
+    # (several units and the reduce pass), k within one slice or beyond
     gh = hub_and_empty_graph(rng)
     for w in (32, 7):
         plan = prepare_gespmm(gh, w=w, device=dev)
-        if int((plan.chunk_row == gh.m).sum()) == 0:
-            raise AssertionError("the gespmm case has no pad chunk")
-        for k in (K, 41):
+        if int((plan.chunk_row == gh.m).sum()) == 0 or \
+                plan.rows.splits.shape[0] == 0:
+            raise AssertionError("the gespmm case has no pad chunk or no "
+                                 "split row")
+        for k in (K, 41, 200):
             Bh = make_features(gh, k)
-            check_gespmm_kernel(torch, plan.cols, plan.vals,
-                                torch.from_numpy(Bh).to(dev),
+            check_gespmm_kernel(torch, plan.rows, torch.from_numpy(Bh).to(dev),
                                 f"hub+empty N={plan.cols.shape[0]} w={w} k={k}")
             check_plan_against_scipy(gh, plan, Bh, spmm_scipy(gh, Bh),
                                      f"gespmm w={w} k={k}")
+    # kernel 7 on ELL residues, added into an accumulator: all width
+    # buckets and split rows, and the transposed plan whose row 0 holds
+    # every pad entry
+    ell = with_bwd_plan(prepare_ell(gh, device=dev), gh.n)
+    for e, what in ((ell, "ell"), (ell.bwd_plan, "transposed ell")):
+        for k in (K, 41, 32):
+            B = torch.rand((gh.n, k), device=dev) * 2 - 1
+            into = torch.rand((e.m, k), device=dev) * 2 - 1
+            check_gespmm_kernel(torch, e.rows, B,
+                                f"{what} into= k={k} units="
+                                f"{e.rows.units.shape[0]} split rows="
+                                f"{e.rows.splits.shape[0]}", into=into)
 
 
 def phase_kernels_vs_plain(torch, dev="cuda"):
@@ -714,14 +795,24 @@ WHOLE_OWNER_RECORD_MS = {
 }
 
 
-# What kernels 4 and 5 took before they were redesigned (one block per
-# panel or per tile, loads and FMAs in turn; kernel 5 over the whole split
-# depth), on an NVIDIA H100 80GB HBM3 at 700 W: printed beside this run's
-# times, not part of the kernels line.
+# What kernels 4 to 7 and the residue took before they were redesigned
+# (one block per panel or per tile, loads and FMAs in turn; kernels 5 and
+# 6 over the whole depth; kernel 7 as chunk partials with the scatter-add
+# outside; the residue in plain torch), on an NVIDIA H100 80GB HBM3 at
+# 700 W: printed beside this run's times, not part of the kernels line.
 REDESIGN_RECORD_MS = {
     "window_spmm_t_fwd": {"k41": 11.67, "k32": 8.68},
     "transposed_t_elap": {"k41": 14.15, "k32": 13.18},
     "band_spmm_v2": 2.909, "pallas2_t_elap": 2.909,
+    # kernel 6 loading, waiting and multiplying in turn over the whole
+    # depth; kernel 7 as chunk partials with index_add_ outside; the
+    # residue in plain torch
+    "band_spmm_v1": 1.614,
+    "gespmm": {"partials_k128": 1.310, "partials_k41": 0.837,
+               "plan_k128": 2.168, "plan_k41": 1.118},
+    "residue": {"fwd_k128": 6.59, "fwd_k41": 2.78, "bwd_k128": 7.04,
+                "bwd_k41": 3.22},
+    "windowed_t_elap": 18.30, "train_ms_per_step": 51.22,
 }
 
 
@@ -780,14 +871,14 @@ def check_gB_against_scipy(g, gB, gold, col_deg, label):
 
 def kernel_wrappers() -> list:
     """The seven kernel wrappers, in the order of the kernels line."""
-    from flex_tpu_torch.ops.gespmm import gespmm_partials
+    from flex_tpu_torch.ops.gespmm import gespmm_rows
     from flex_tpu_torch.ops.pallas_band import band_spmm_v1, band_spmm_v2
     from flex_tpu_torch.ops.window_spmm import (
         window_bwd_gA, window_bwd_gB, window_spmm_fwd, window_spmm_t_fwd,
     )
 
     return [window_spmm_fwd, window_bwd_gA, window_bwd_gB, window_spmm_t_fwd,
-            band_spmm_v2, band_spmm_v1, gespmm_partials]
+            band_spmm_v2, band_spmm_v1, gespmm_rows]
 
 
 def reset_launches():
@@ -832,8 +923,10 @@ def phase_gradient(torch, g, plan, B_dev):
     launches = read_launches()
     log(f"[grad] loss={float(loss.detach()):.6e} launches={launches} peak_mem="
         f"{torch.cuda.max_memory_allocated()}")
+    # the residue's forward is kernel 7; its g_B without a bwd_plan is the
+    # plain transposed scatter
     expect_launches(launches, "the gradient path", window_spmm_fwd=1,
-                    window_bwd_gA=1, window_bwd_gB=1)
+                    window_bwd_gA=1, window_bwd_gB=1, gespmm_rows=1)
     check_gB_against_scipy(g, Bg.grad, gold, col_deg, "plan")
     # g_A of the backward against the plain version, on the same cotangent
     g_dense = dense_cotangent(torch, plan, co)
@@ -856,10 +949,17 @@ def phase_gradient(torch, g, plan, B_dev):
     (tplan(Bg2) * co).sum().backward()
     torch.cuda.synchronize()
     l2 = read_launches()
-    # A is a constant there, so no g_A
+    # A is a constant there, so no g_A; kernel 7 runs the residue forward
+    # and, on the transposed plan, its g_B
     expect_launches(l2, "the training-backward path", window_spmm_fwd=1,
-                    window_bwd_gB=1)
+                    window_bwd_gB=1, gespmm_rows=2)
     check_gB_against_scipy(g, Bg2.grad, gold, col_deg, "with_training_bwd")
+    # no unordered sum on this path: a second backward gives the same bits
+    Bg3 = B_dev.clone().requires_grad_()
+    (tplan(Bg3) * co).sum().backward()
+    require_same_bits(torch, "g_B with_training_bwd", "full size", Bg2.grad,
+                      Bg3.grad)
+    del Bg3
     diff = float((Bg2.grad - Bg.grad).abs().max())
     log(f"[grad] g_B with vs without the transposed residue backward: "
         f"max |diff| {diff:.3e}")
@@ -870,7 +970,7 @@ def phase_gradient(torch, g, plan, B_dev):
     check_gB_against_scipy(g, B41.grad, np.ascontiguousarray(gold[:, :41]),
                            col_deg, "with_training_bwd k=41")
     del B41
-    return launches, gA_err, co, g_dense, tplan
+    return launches, gA_err, co, g_dense, tplan, l2
 
 
 def profile_steps(torch, step, args, n=2):
@@ -908,9 +1008,10 @@ def profile_steps(torch, step, args, n=2):
 
 def plain_plan(torch, plan):
     """B -> A·B as the plan computes it, with the dense half by the forward
-    kernel's plain version and the residue without its transposed backward:
-    all tensor ops, so autograd differentiates it with no kernel of the
-    package."""
+    kernel's plain version and the residue by its plain version, without
+    its transposed backward: all tensor ops, so autograd differentiates it
+    with no kernel of the package."""
+    from flex_tpu_torch.ops.ell_spmm import ell_spmm_plain
     from flex_tpu_torch.ops.window_spmm import window_spmm_fwd_plain
 
     def call(B):
@@ -919,7 +1020,7 @@ def plain_plan(torch, plan):
             n_panels=plan.n_used_panels, W=plan.W)
         cat = torch.cat([out, out.new_zeros((1, B.shape[1]))])
         dense = cat.index_select(0, plan.row_gather[:plan.m])
-        return plan.ell(B, into=dense)
+        return ell_spmm_plain(plan.ell, B, into=dense)
 
     if plan.ell.bwd_plan is not None or plan.ell.nnz == 0:
         raise AssertionError("plain_plan wants a residue without bwd_plan")
@@ -996,9 +1097,10 @@ def phase_training(torch, g, plan, tplan, X, time_cuda_ms, smi,
     with torch.no_grad():
         after = float(gcn_loss(model, plan, X, y, mask))
     log(f"[train] losses {[round(x, 6) for x in losses]} then {after:.6f}")
-    # 2 forward and 2 g_B per step, and no g_A
+    # 2 forward and 2 g_B per step, and no g_A; kernel 7 runs the residue
+    # of each forward and of each g_B
     expect_launches(launches, "7 train steps", window_spmm_fwd=14,
-                    window_bwd_gB=14)
+                    window_bwd_gB=14, gespmm_rows=28)
     if not np.isfinite(losses + [after]).all() or not after < losses[0]:
         raise AssertionError(f"loss {losses[0]} -> {after}: not finite and "
                              f"falling")
@@ -1209,7 +1311,8 @@ def phase_transposed(torch, g, dev, sel, plan, B, gold, peaks, bench_spmm,
         res[k] = r
         del p
     launches = read_launches()
-    expect_launches(launches, "the transposed path", window_spmm_t_fwd=28)
+    expect_launches(launches, "the transposed path", window_spmm_t_fwd=28,
+                    gespmm_rows=28)
     peak = torch.cuda.max_memory_allocated()
     if not plan_t.transposed or plan_t.bwd_tabs is not None:
         raise AssertionError("the transposed plan is not one")
@@ -1315,13 +1418,79 @@ def phase_transposed(torch, g, dev, sel, plan, B, gold, peaks, bench_spmm,
     }
 
 
+def rows_report(t) -> dict:
+    """Counts of a row-unit table: units, nonzeros per unit at p50 / p99 /
+    max, split rows, partial rows, the longest row."""
+    u = t.units.cpu().numpy().astype(np.int64)
+    per = u[:, 2] - u[:, 1]
+    row_len = np.bincount(u[:, 0], weights=per, minlength=t.m)
+    return {"units": len(u), "nnz_per_unit_p50_p99_max":
+            [int(np.percentile(per, q)) for q in (50, 99, 100)],
+            "split_rows": int(t.splits.shape[0]), "partial_rows": t.n_parts,
+            "longest_row": int(row_len.max(initial=0))}
+
+
+def retile_rows(torch, t, chunk):
+    """The same row-unit table cut into units of at most ``chunk``
+    nonzeros (a huge ``chunk``: one unit per row), for timing the choice
+    of ROW_UNIT_ENTRIES."""
+    import dataclasses
+
+    from flex_tpu_torch.ops.units import row_units
+
+    u = t.units.cpu().numpy().astype(np.int64)
+    row_len = np.bincount(u[:, 0], weights=u[:, 2] - u[:, 1],
+                          minlength=t.m).astype(np.int64)
+    units, splits = row_units(row_len, chunk)
+    dev = t.units.device
+    return dataclasses.replace(
+        t, units=torch.from_numpy(units).to(dev),
+        splits=torch.from_numpy(splits).to(dev),
+        n_parts=int((units[:, 3] >= 0).sum()))
+
+
+def pass_ms(torch, t, B, time_cuda_ms, into=None) -> dict:
+    """Kernel 7's two passes apart: the units alone (no split row summed)
+    and the pass over split rows alone (on a scratch left as it is; only
+    its time is read)."""
+    import dataclasses
+
+    from flex_tpu_torch.ops.gespmm import gespmm_rows
+
+    units_only = dataclasses.replace(t, splits=t.splits[:0])
+    reduce_only = dataclasses.replace(t, units=t.units[:0])
+    return {p: time_cuda_ms(lambda: gespmm_rows(tab, B, into=into), iters=10)
+            for p, tab in (("units_ms", units_only),
+                           ("reduce_ms", reduce_only))}
+
+
+def unit_size_ms(torch, t, B, time_cuda_ms, into=None) -> dict:
+    """Kernel 7 on the same rows with units of 64, 128, 512 and 1024
+    nonzeros and with one unit per row, beside ROW_UNIT_ENTRIES."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows
+
+    out = {}
+    for chunk in (64, 128, 512, 1024, 1 << 30):
+        tc = retile_rows(torch, t, chunk)
+        out["one_per_row" if chunk == 1 << 30 else str(chunk)] = \
+            time_cuda_ms(lambda: gespmm_rows(tc, B, into=into), iters=10)
+        del tc
+    return out
+
+
+def rows_bytes(t, nnz, n_in, n_out):
+    """Bytes a row-unit product must move: the nonzeros' cols and vals
+    once, the row and unit tables, ``n_in`` floats of input (B, and an
+    accumulator that is read) and ``n_out`` floats of output."""
+    return (nnz * 8 + 4 * (t.row_start.numel() + t.units.numel()
+                           + t.splits.numel()) + 4 * (n_in + n_out))
+
+
 def phase_gespmm(torch, g, dev, B, gold, A_csr, peaks, bench_spmm,
                  time_cuda_ms):
     """GE-SpMM at full size on the main path's graph, w = 32, k = 128 and
-    41.  Returns kernel 7's row."""
-    from flex_tpu_torch.ops.gespmm import (
-        gespmm_partials, gespmm_partials_plain,
-    )
+    41: the plan is kernel 7 alone.  Returns kernel 7's row."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_plain
 
     reset_launches()
     res, plan = {}, None
@@ -1334,47 +1503,172 @@ def phase_gespmm(torch, g, dev, B, gold, A_csr, peaks, bench_spmm,
         res[k] = r
         del p
     launches = read_launches()
-    expect_launches(launches, "the GE-SpMM path", gespmm_partials=28)
+    expect_launches(launches, "the GE-SpMM path", gespmm_rows=28)
     st = plan.stats
-    N = st["n_chunks"]
+    t = plan.rows
+    rep = rows_report(t)
     out = {}
     for k in (K, 41):
         B_dev = torch.from_numpy(np.ascontiguousarray(B[:, :k])).cuda()
-        err = check_gespmm_kernel(torch, plan.cols, plan.vals, B_dev,
-                                  f"main path k={k}")
-        ms = time_cuda_ms(gespmm_partials, plan.cols, plan.vals, B_dev,
-                          iters=10)
-        plain_ms = time_cuda_ms(gespmm_partials_plain, plan.cols, plan.vals,
-                                B_dev, iters=3, warmup=1)
-        # each input once (cols, vals, B), the partials once; the
-        # operations this graph needs, pads not counted
-        n_bytes = plan.cols.numel() * 8 + B_dev.numel() * 4 + N * k * 4
+        err = check_gespmm_kernel(torch, t, B_dev, f"GE-SpMM main path k={k}")
+        require_same_bits(torch, "the GE-SpMM plan", f"k={k}", plan(B_dev),
+                          plan(B_dev))
+        ms = time_cuda_ms(gespmm_rows, t, B_dev, iters=10)
+        plain_ms = time_cuda_ms(gespmm_rows_plain, t, B_dev, iters=3,
+                                warmup=1)
+        # each input once (the nonzeros' cols and vals, the tables, B), C
+        # written once; the operations this graph needs, pads not counted
+        n_bytes = rows_bytes(t, g.nnz, B_dev.numel(), g.m * k)
         bound_ms, bound_by = bound(n_bytes, 2.0 * g.nnz * k, peaks)
         library_ms = time_cuda_ms(torch.sparse.mm, A_csr, B_dev, iters=20)
         out[k] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                       bound_by=bound_by, library_ms=library_ms,
-                      t_elap_ms=res[k].t_elap_ms)
-        log(f"[kernels] gespmm_partials k={k}: {ms:.3f} ms "
-            f"({2.0 * g.nnz * k / (ms * 1e-3) / 1e9:.0f} GF/s; gathered rows "
-            f"{plan.padded_nnz * k * 4 / (ms * 1e-3) / 1e9:.0f} GB/s), plan "
-            f"{res[k].t_elap_ms:.3f} ms (scatter-add of {N} partials "
-            f"included), library CSR {library_ms:.3f} ms")
-    log("[gespmm] " + json.dumps({"stats": st, "k128": out[K],
+                      t_elap_ms=res[k].t_elap_ms,
+                      scratch_bytes=t.n_parts * k * 4,
+                      ms_by_unit_size=unit_size_ms(torch, t, B_dev,
+                                                   time_cuda_ms),
+                      **pass_ms(torch, t, B_dev, time_cuda_ms))
+        rec = REDESIGN_RECORD_MS["gespmm"]
+        log(f"[kernels] gespmm_rows k={k}: {ms:.3f} ms "
+            f"({2.0 * g.nnz * k / (ms * 1e-3) / 1e9:.0f} GF/s; B rows read "
+            f"{g.nnz * k * 4 / (ms * 1e-3) / 1e9:.0f} GB/s), plan "
+            f"{res[k].t_elap_ms:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}), library CSR {library_ms:.3f} ms; {rep}; the "
+            f"chunk kernel's record {rec[f'partials_k{k}']} ms, its plan "
+            f"with the scatter-add {rec[f'plan_k{k}']} ms")
+    log("[gespmm] " + json.dumps({"stats": st, "rows": rep, "k128": out[K],
                                   "k41": out[41],
-                                  "launches": launches["gespmm_partials"]}))
+                                  "launches": launches["gespmm_rows"]}))
     o = out[K]
     return {
-        "name": "gespmm_partials", "route": "cuda",
+        "name": "gespmm_rows", "route": "cuda",
         "source": "flex_tpu_torch/csrc/gespmm.cu",
         "replaces": "flex_tpu/ops/gespmm.py:78",
-        "launches": launches["gespmm_partials"], "max_abs_err": o["err"],
+        "launches": launches["gespmm_rows"], "max_abs_err": o["err"],
         "ms": o["ms"], "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
         "bound_by": o["bound_by"], "library_ms": o["library_ms"],
         "plan_ms": o["t_elap_ms"], "ms_k41": out[41]["ms"],
         "plan_ms_k41": out[41]["t_elap_ms"],
+        "plain_ms_k41": out[41]["plain_ms"],
+        "bound_ms_k41": out[41]["bound_ms"],
         "library_ms_k41": out[41]["library_ms"],
-        "max_abs_err_k41": out[41]["err"],
+        "max_abs_err_k41": out[41]["err"], "units": rep["units"],
+        "split_rows": rep["split_rows"], "scratch_bytes": o["scratch_bytes"],
     }
+
+
+def residue_csr(torch, t, n):
+    """The real entries of a row-unit table as a CSR tensor on the card:
+    the operand of the yardstick ``torch.sparse.mm``, used nowhere in the
+    package."""
+    from flex_tpu_torch.ops.gespmm import unit_entries
+
+    rows, idx = unit_entries(t)
+    crow = torch.zeros(t.m + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=t.m), 0)
+    return torch.sparse_csr_tensor(crow, t.cols[idx].long(), t.vals[idx],
+                                   size=(t.m, n))
+
+
+def phase_residue(torch, plan, tplan, peaks, time_cuda_ms):
+    """The residue alone at full size (the main path's ELL part, 4.4 M
+    nonzeros of reddit_posts rbdeg) at k = 128, 41 and 32: kernel 7 added
+    into an accumulator as the windowed call does, against its plain
+    version, twice for the same bits, timed beside its plain version and
+    cuSPARSE on the residue's CSR; the transposed residue (g_B under
+    ``with_training_bwd``) with its pad entries, as the JAX package builds
+    it, and without them, beside cuSPARSE on the transposed CSR.  Returns
+    the numbers for kernel 7's row.  ``with_training_bwd`` builds the
+    transposed residue without its pad entries (the measured faster one);
+    the one with them is built here."""
+    import scipy.sparse as sp
+
+    from flex_tpu_torch.ops.ell_spmm import (
+        ell_spmm_plain, prepare_ell_transpose,
+    )
+
+    ell, nopad = plan.ell, tplan.ell.bwd_plan
+    m, n, nnz = plan.m, plan.n, ell.nnz
+    t0 = time.perf_counter()
+    bwd = prepare_ell_transpose(ell, n)
+    torch.cuda.synchronize()
+    pads_s = time.perf_counter() - t0
+    if nopad.nnz != nnz or bwd.nnz != ell.padded_nnz:
+        raise AssertionError(f"transposed residues of {nopad.nnz} and "
+                             f"{bwd.nnz} entries, expected {nnz} and "
+                             f"{ell.padded_nnz}")
+    A_res = residue_csr(torch, ell.rows, n)
+    At = sp.csr_matrix((A_res.values().cpu().numpy(),
+                        A_res.col_indices().cpu().numpy(),
+                        A_res.crow_indices().cpu().numpy()),
+                       shape=(m, n)).T.tocsr()
+    A_res_T = torch.sparse_csr_tensor(
+        torch.from_numpy(At.indptr.astype(np.int64)).cuda(),
+        torch.from_numpy(At.indices.astype(np.int64)).cuda(),
+        torch.from_numpy(At.data.astype(np.float32)).cuda(), size=At.shape)
+    del At
+    reps = {"forward": rows_report(ell.rows), "transposed": rows_report(
+        nopad.rows), "transposed_with_pads": rows_report(bwd.rows)}
+    out = {}
+    for k in (K, 41, 32):
+        B = torch.rand((n, k), device="cuda") * 2 - 1
+        acc = torch.rand((m, k), device="cuda") * 2 - 1
+        err = check_gespmm_kernel(torch, ell.rows, B,
+                                  f"residue into= k={k}", into=acc)
+        fwd_ms = time_cuda_ms(lambda: ell(B, into=acc), iters=20)
+        plain_ms = time_cuda_ms(lambda: ell_spmm_plain(ell, B, into=acc),
+                                iters=3, warmup=1)
+        lib_ms = time_cuda_ms(torch.sparse.mm, A_res, B, iters=20)
+        b_ms, b_by = bound(rows_bytes(ell.rows, nnz, n * k + m * k, m * k),
+                           2.0 * nnz * k, peaks)
+        gk = torch.rand((m, k), device="cuda") * 2 - 1
+        bwd_err = check_gespmm_kernel(torch, nopad.rows, gk,
+                                      f"transposed residue k={k}")
+        check_gespmm_kernel(torch, bwd.rows, gk,
+                            f"transposed residue with its pads k={k}")
+        g1, g2 = bwd(gk), nopad(gk)
+        pads_diff = float((g1 - g2).abs().max())
+        del g1, g2
+        bwd_ms = time_cuda_ms(bwd, gk, iters=20)
+        nopad_ms = time_cuda_ms(nopad, gk, iters=20)
+        by_unit = {} if k != K else {
+            "forward": unit_size_ms(torch, ell.rows, B, time_cuda_ms,
+                                    into=acc),
+            "transposed_with_pads": unit_size_ms(torch, bwd.rows, gk,
+                                                 time_cuda_ms),
+            "forward_passes": pass_ms(torch, ell.rows, B, time_cuda_ms,
+                                      into=acc)}
+        bwd_plain_ms = time_cuda_ms(ell_spmm_plain, nopad, gk, iters=3,
+                                    warmup=1)
+        bwd_lib_ms = time_cuda_ms(torch.sparse.mm, A_res_T, gk, iters=20)
+        # the function needs the real nonzeros only: the pads add zeros
+        bb_ms, bb_by = bound(rows_bytes(nopad.rows, nnz, m * k, n * k),
+                             2.0 * nnz * k, peaks)
+        out[k] = {"err": err, "ms": fwd_ms, "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                  "bwd_err": bwd_err, "bwd_ms": nopad_ms,
+                  "bwd_with_pads_ms": bwd_ms,
+                  "bwd_plain_ms": bwd_plain_ms, "bwd_library_ms": bwd_lib_ms,
+                  "bwd_bound_ms": bb_ms, "bwd_bound_by": bb_by,
+                  "bwd_with_vs_without_pads_max_diff": pads_diff,
+                  "ms_by_unit_size": by_unit}
+        rec = REDESIGN_RECORD_MS["residue"]
+        log(f"[kernels] residue k={k}: forward {fwd_ms:.3f} ms (plain "
+            f"{plain_ms:.3f}, cuSPARSE {lib_ms:.3f}, bound {b_ms:.3f} "
+            f"{b_by}); transposed {nopad_ms:.3f} ms, with the pad entries "
+            f"{bwd_ms:.3f} ms (plain {bwd_plain_ms:.3f}, cuSPARSE "
+            f"{bwd_lib_ms:.3f}, bound {bb_ms:.3f} {bb_by}); the plain "
+            f"residue's record: forward {rec.get(f'fwd_k{k}')} ms, transposed "
+            f"{rec.get(f'bwd_k{k}')} ms")
+        del B, acc, gk
+    log("[residue] " + json.dumps({
+        "nnz": nnz, "padded_nnz": ell.padded_nnz,
+        "transposed_nnz_with_pads": bwd.nnz, "transposed_with_pads_row0_len":
+        reps["transposed_with_pads"]["longest_row"],
+        "build_with_pads_s": pads_s,
+        "rows": reps, "k128": out[K], "k41": out[41], "k32": out[32]}))
+    del bwd, A_res, A_res_T
+    return out
 
 
 def phase_baselines(torch, g, dev, B, gold, bench_spmm):
@@ -1431,19 +1725,27 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
         f"{2.0 * P * TM * 2 * W * K / 1e12:.4f} TFLOP (split band), "
         f"{2.0 * P * TM * W * K / 1e12:.4f} TFLOP (unsplit)")
 
-    # the depth ranges of kernel 5: their build (part of tPre), the share of
-    # the split depth they read, the empty tiles
-    ranges_ms = time_cuda_ms(band_depth_ranges, *p2.band, iters=5)
-    r = p2.ranges.long().cpu().numpy()
-    width = r[..., 1] - r[..., 0]
-    rows = np.minimum(128, TM - 128 * np.arange(r.shape[1]))[None, :]
-    ranged_elems = float((width * rows).sum())
-    range_stats = {
-        "tiles": int(width.size), "empty_tiles": int((width == 0).sum()),
-        "depth_share_read": ranged_elems / (P * TM * 2 * W),
-        "range_p50_max": [int(np.percentile(width, 50)), int(width.max())],
-        "split_depth": 2 * W, "table_build_ms": ranges_ms}
-    log(f"[band] depth ranges: {json.dumps(range_stats)}")
+    # the depth ranges of kernels 5 and 6: their build (part of tPre), the
+    # share of the depth they read, the empty tiles
+    def range_stats(ranges, depth):
+        r = ranges.long().cpu().numpy()
+        width = r[..., 1] - r[..., 0]
+        rows = np.minimum(128, TM - 128 * np.arange(r.shape[1]))[None, :]
+        elems = float((width * rows).sum())
+        return elems, r.size, {
+            "tiles": int(width.size), "empty_tiles": int((width == 0).sum()),
+            "depth_share_read": elems / (P * TM * depth),
+            "range_p50_max": [int(np.percentile(width, 50)),
+                              int(width.max())], "depth": depth}
+
+    ranged_elems, r_size, range_stats2 = range_stats(p2.ranges, 2 * W)
+    range_stats2["table_build_ms"] = time_cuda_ms(band_depth_ranges, *p2.band,
+                                                  iters=5)
+    ranged1, r1_size, range_stats1 = range_stats(p1.ranges, W)
+    range_stats1["table_build_ms"] = time_cuda_ms(band_depth_ranges, p1.band,
+                                                  iters=5)
+    log(f"[band] depth ranges: split {json.dumps(range_stats2)}; unsplit "
+        f"{json.dumps(range_stats1)}")
 
     B_dev = torch.from_numpy(B).cuda()
     A_csr = csr_tensor(torch, g)
@@ -1452,17 +1754,22 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
 
     v2 = lambda ranges=p2.ranges: band_spmm_v2(  # noqa: E731
         *p2.band, p2.ws, B_dev, ranges=ranges)
-    full = full_depth(p2.ranges, W)
+    v1 = lambda ranges=p1.ranges: band_spmm_v1(  # noqa: E731
+        p1.band, p1.ws, B_dev, ranges=ranges)
+    full2, full1 = full_depth(p2.ranges, W), p1.ranges.clone()
+    full1[..., 0], full1[..., 1] = 0, W
     out2 = v2()
     require_same_bits(torch, "band_spmm_v2", "full-size band, full-depth "
-                      "ranges", out2, v2(full))
+                      "ranges", out2, v2(full2))
     torch.cuda.synchronize()
     e2 = hold_to_plain(
         torch, "band_spmm_v2", "full-size band k=128", out2,
         band_spmm_v2_plain(*p2.band, p2.ws, B_dev),
         band_spmm_v2_plain(p2.band[0].abs(), p2.band[1].abs(), p2.ws,
                            B_dev.abs()), 2 * W)
-    out1 = band_spmm_v1(p1.band, p1.ws, B_dev)
+    out1 = v1()
+    require_same_bits(torch, "band_spmm_v1", "full-size band, full-depth "
+                      "ranges", out1, v1(full1))
     torch.cuda.synchronize()
     e1 = hold_to_plain(
         torch, "band_spmm_v1", "full-size band k=128", out1,
@@ -1470,32 +1777,40 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
         band_spmm_v1_plain(p1.band.abs(), p1.ws, B_dev.abs()), W)
     del out1, out2
     ms2 = time_cuda_ms(v2, iters=10)
-    ms2_full = time_cuda_ms(v2, full, iters=10)
-    ms1 = time_cuda_ms(band_spmm_v1, p1.band, p1.ws, B_dev, iters=10)
+    ms2_full = time_cuda_ms(v2, full2, iters=10)
+    ms1 = time_cuda_ms(v1, iters=10)
+    ms1_full = time_cuda_ms(v1, full1, iters=10)
     plain2 = time_cuda_ms(band_spmm_v2_plain, *p2.band, p2.ws, B_dev, iters=5)
     plain1 = time_cuda_ms(band_spmm_v1_plain, p1.band, p1.ws, B_dev, iters=5)
     io_bytes = (B_dev.numel() + P * TM * K) * 4 + P * 4
-    # kernel 5 is bounded by what its ranges need; the split format's bound
+    # each kernel is bounded by what its ranges need; the format's bound
     # (every tile's whole depth) is printed beside it
-    flops2 = 2.0 * ranged_elems * K
-    b2, by2 = bound(ranged_elems * 4 + io_bytes + r.size * 4, flops2, peaks)
+    flops2, flops1 = 2.0 * ranged_elems * K, 2.0 * ranged1 * K
+    b2, by2 = bound(ranged_elems * 4 + io_bytes + r_size * 4, flops2, peaks)
     b2_format, by2_format = bound(2 * P * TM * W * 4 + io_bytes,
                                   2.0 * P * TM * 2 * W * K, peaks)
-    b1, by1 = bound(P * TM * W * 4 + io_bytes, 2.0 * P * TM * W * K, peaks)
+    b1, by1 = bound(ranged1 * 4 + io_bytes + r1_size * 4, flops1, peaks)
+    b1_format, by1_format = bound(P * TM * W * 4 + io_bytes,
+                                  2.0 * P * TM * W * K, peaks)
     rec = REDESIGN_RECORD_MS
     log(f"[kernels] band_spmm_v2: {ms2:.3f} ms "
         f"({flops2 / (ms2 * 1e-3) / 1e12:.2f} TFLOP/s of its ranges, "
         f"{2.0 * g.nnz * K / (ms2 * 1e-3) / 1e9:.0f} GF/s of the SpMM); on "
-        f"full-depth ranges {ms2_full:.3f} ms "
-        f"({2.0 * P * TM * 2 * W * K / (ms2_full * 1e-3) / 1e12:.2f} TFLOP/s "
-        f"dense); bound of its ranges {b2:.3f} ms ({by2}), of the split "
-        f"format {b2_format:.3f} ms ({by2_format}); the whole-depth "
-        f"kernel's record {rec['band_spmm_v2']} ms; pallas2 plan "
-        f"{res['pallas2'].t_elap_ms:.3f} ms (record {rec['pallas2_t_elap']}"
-        f" ms); band_spmm_v1: "
-        f"{ms1:.3f} ms ({2.0 * P * TM * W * K / (ms1 * 1e-3) / 1e12:.2f} "
-        f"TFLOP/s dense); impl=xla plan {res['xla'].t_elap_ms:.3f} ms; "
-        f"library CSR {library_ms:.3f} ms")
+        f"full-depth ranges {ms2_full:.3f} ms; bound of its ranges "
+        f"{b2:.3f} ms ({by2}), of the split format {b2_format:.3f} ms "
+        f"({by2_format}); the whole-depth kernel's record "
+        f"{rec['band_spmm_v2']} ms; pallas2 plan "
+        f"{res['pallas2'].t_elap_ms:.3f} ms; impl=xla plan "
+        f"{res['xla'].t_elap_ms:.3f} ms; library CSR {library_ms:.3f} ms")
+    log(f"[kernels] band_spmm_v1: {ms1:.3f} ms "
+        f"({flops1 / (ms1 * 1e-3) / 1e12:.2f} TFLOP/s of its ranges, "
+        f"{2.0 * g.nnz * K / (ms1 * 1e-3) / 1e9:.0f} GF/s of the SpMM); on "
+        f"full-depth ranges {ms1_full:.3f} ms "
+        f"({2.0 * P * TM * W * K / (ms1_full * 1e-3) / 1e12:.2f} TFLOP/s "
+        f"dense); bound of its ranges {b1:.3f} ms ({by1}), of the unsplit "
+        f"format {b1_format:.3f} ms ({by1_format}); the synchronous "
+        f"kernel's record {rec['band_spmm_v1']} ms; pallas plan "
+        f"{res['pallas'].t_elap_ms:.3f} ms")
     src = "flex_tpu_torch/csrc/band_spmm.cu"
     return [{
         "name": "band_spmm_v2", "route": "cuda", "source": src,
@@ -1506,16 +1821,21 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
         "t_pre_s": res["pallas2"].t_pre_s, "ms_full_depth": ms2_full,
         "bound_ms_split_format": b2_format,
         "bound_by_split_format": by2_format,
-        "depth_share_read": range_stats["depth_share_read"],
-        "empty_tiles": range_stats["empty_tiles"],
-        "ranges_build_ms": ranges_ms,
+        "depth_share_read": range_stats2["depth_share_read"],
+        "empty_tiles": range_stats2["empty_tiles"],
+        "ranges_build_ms": range_stats2["table_build_ms"],
     }, {
         "name": "band_spmm_v1", "route": "cuda", "source": src,
         "replaces": "flex_tpu/ops/pallas_band.py:191",
         "launches": launches["band_spmm_v1"], "max_abs_err": e1, "ms": ms1,
         "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
         "library_ms": library_ms, "plan_ms": res["pallas"].t_elap_ms,
-        "t_pre_s": res["pallas"].t_pre_s,
+        "t_pre_s": res["pallas"].t_pre_s, "ms_full_depth": ms1_full,
+        "bound_ms_unsplit_format": b1_format,
+        "bound_by_unsplit_format": by1_format,
+        "depth_share_read": range_stats1["depth_share_read"],
+        "empty_tiles": range_stats1["empty_tiles"],
+        "ranges_build_ms": range_stats1["table_build_ms"],
         "impl_xla_plan_ms": res["xla"].t_elap_ms,
     }]
 
@@ -1597,8 +1917,10 @@ def main() -> int:
     r, plan = bench_spmm(g, K, "windowed", dev=dev, B=B, gold=gold, iters=10,
                          tm=256, W=128, min_count=64, sel=sel)
     launches = read_launches()
-    # 3 warm-up + 10 timed + 1 checked call, and no other kernel
-    expect_launches(launches, "the forward path", window_spmm_fwd=14)
+    # 3 warm-up + 10 timed + 1 checked call: the dense half and the
+    # residue, and no other kernel
+    expect_launches(launches, "the forward path", window_spmm_fwd=14,
+                    gespmm_rows=14)
     peak_mem = torch.cuda.max_memory_allocated()
     if r.err_frac is None or r.err_frac > 1e-4:
         raise AssertionError(f"main path err_frac={r.err_frac} > 1e-4")
@@ -1609,7 +1931,10 @@ def main() -> int:
         raise AssertionError(f"main path output {tuple(C.shape)} is not a "
                              f"finite ({g.m}, {K}) tensor")
     del C
-    dense_ms =time_cuda_ms(plan.dense_half, B_dev, iters=20)
+    # a second call gives the same bits: no unordered sum on the path
+    require_same_bits(torch, "the windowed plan", "main path k=128",
+                      plan(B_dev), plan(B_dev))
+    dense_ms = time_cuda_ms(plan.dense_half, B_dev, iters=20)
     res_ms = time_cuda_ms(plan.ell, B_dev, iters=20)
     A_csr = csr_tensor(torch, g)
     library_ms = time_cuda_ms(torch.sparse.mm, A_csr, B_dev, iters=20)
@@ -1696,19 +2021,23 @@ def main() -> int:
         f"{n_flops / (dense_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
 
     # 6. gradient path, 7. training path, 8. the backward kernels
-    launches_grad, gA_err, co, g_dense, tplan = phase_gradient(
-        torch, g, plan, B_dev)
+    launches_grad, gA_err, co, g_dense, tplan, launches_tgrad = \
+        phase_gradient(torch, g, plan, B_dev)
     launches_train = phase_training(torch, g, plan, tplan, B_dev,
                                     time_cuda_ms, smi,
                                     profile="--profile" in sys.argv[1:])
     rows += phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
                               launches_grad, launches_train, peaks,
                               time_cuda_ms)
+    residue = phase_residue(torch, plan, tplan, peaks, time_cuda_ms)
     log(f"[kernels] launches: forward path {launches}, gradient path "
-        f"{launches_grad}, 7 train steps {launches_train}; before the unit "
-        f"kernels the windowed tElap was "
-        f"{WHOLE_OWNER_RECORD_MS['windowed_t_elap']} ms and a train step "
-        f"{WHOLE_OWNER_RECORD_MS['train_ms_per_step']} ms on this card model")
+        f"{launches_grad}, with the training backward {launches_tgrad}, 7 "
+        f"train steps {launches_train}; before the unit kernels the windowed "
+        f"tElap was {WHOLE_OWNER_RECORD_MS['windowed_t_elap']} ms and a "
+        f"train step {WHOLE_OWNER_RECORD_MS['train_ms_per_step']} ms on this "
+        f"card model, before the residue ran on kernel 7 "
+        f"{REDESIGN_RECORD_MS['windowed_t_elap']} and "
+        f"{REDESIGN_RECORD_MS['train_ms_per_step']} ms")
     del co, g_dense, tplan
 
     # 9. the transposed plan beside the row-major one (both A arrays live)
@@ -1727,6 +2056,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 12. band, on its own graph
     rows += phase_band(torch, peaks, bench_spmm, time_cuda_ms)
+    # kernel 7 also runs the main path's residue: its launches there, and
+    # the residue's own numbers
+    gespmm_row.update({
+        "launches_forward_path": launches["gespmm_rows"],
+        "launches_gradient_path": launches_grad["gespmm_rows"],
+        "launches_training_bwd_gradient": launches_tgrad["gespmm_rows"],
+        "launches_train_7_steps": launches_train["gespmm_rows"]})
+    for k, r in residue.items():
+        gespmm_row.update({f"residue_{key}_k{k}": r[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "err", "bwd_ms",
+            "bwd_with_pads_ms", "bwd_plain_ms", "bwd_library_ms",
+            "bwd_bound_ms", "bwd_err")})
     rows.append(gespmm_row)
     if len(rows) != 7 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "

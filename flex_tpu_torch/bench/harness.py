@@ -55,7 +55,7 @@ def time_cuda_ms(fn: Callable, *args, iters: int = 10, warmup: int = 3
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
-def bench_spmm(g: CSRGraph, k: int, method: str = "windowed",
+def bench_spmm(g: CSRGraph, k: int, method: str = "xla",
                dev: DeviceCSR | None = None, B: np.ndarray | None = None,
                gold: np.ndarray | None = None, iters: int = 10,
                check: bool = True, **prep_kwargs):

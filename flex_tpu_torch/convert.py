@@ -9,20 +9,23 @@ packages compute on identical formats.
 ``ell_plan_from_numpy`` keys: ``m``, ``nnz``, ``padded_nnz``,
 ``buckets`` (sequence of (cols [N,w], vals [N,w])), ``chunk_row``, and
 optionally ``chunk1``, ``extras`` ((extra_idx, extra_first) or None) and
-``bwd_plan`` (a dict of the same keys: the transposed-pattern plan).
+``bwd_plan`` (a dict of the same keys: the transposed-pattern plan).  The
+row-unit kernel's tables are derived from the buckets
+(:func:`.ops.gespmm.tables_from_buckets`: a row's last chunk ends at its
+last entry that is not a pad), as for GE-SpMM's plan.
 
 ``windowed_plan_from_numpy`` keys: ``m``, ``n``, ``tm``, ``W``,
 ``n_used_panels``, ``A``, ``first``, ``out_panel``, ``win_step``,
 ``row_gather``, ``coverage``, ``ell`` (a dict as above), and optionally
-``min_count_eff`` and ``transposed`` (then ``A`` is the Aᵀ step array
-[S, G·W, TM]).  The backward tables and the kernels' work units are
-recomputed from ``first``, ``win_step`` and ``out_panel``; a transposed
-plan carries no backward tables.
+``min_count_eff``, ``n_windows``, ``covered_nnz`` and ``transposed`` (then
+``A`` is the Aᵀ step array [S, G·W, TM]).  The backward tables and the
+kernels' work units are recomputed from ``first``, ``win_step`` and
+``out_panel``; a transposed plan carries no backward tables.
 
 ``band_plan_from_numpy`` keys: ``m``, ``n``, ``tm``, ``w_pad``, ``impl``,
 ``band`` (one array [P, TM, W], or the (left, right) pair of
-``impl="pallas2"``) and ``ws``; a split band's depth ranges are
-recomputed from its halves.
+``impl="pallas2"``) and ``ws``; the depth ranges of the two kernels'
+impls (``"pallas2"``, ``"pallas"``) are recomputed from the band.
 
 ``gespmm_plan_from_numpy`` keys: ``m``, ``w``, ``cols``, ``vals``,
 ``chunk_row``, ``nnz``, ``padded_nnz``.
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.ell_spmm import EllPlan
-from flex_tpu_torch.ops.gespmm import GeSpmmPlan
+from flex_tpu_torch.ops.gespmm import GeSpmmPlan, tables_from_buckets
 from flex_tpu_torch.ops.pallas_band import BandPlan, band_depth_ranges
 from flex_tpu_torch.ops.window_spmm import (
     FWD_CHUNK_STEPS, WindowedPlan, bwd_device_tables, device_units,
@@ -52,11 +55,14 @@ def ell_plan_from_numpy(d: dict, device) -> EllPlan:
     extras = d.get("extras")
     chunk1 = d.get("chunk1")
     bwd_plan = d.get("bwd_plan")
+    buckets = tuple((_t(c, np.int32, device), _t(v, np.float32, device))
+                    for c, v in d["buckets"])
+    chunk_row = _t(d["chunk_row"], np.int32, device)
     return EllPlan(
         m=int(d["m"]), nnz=int(d["nnz"]), padded_nnz=int(d["padded_nnz"]),
-        buckets=tuple((_t(c, np.int32, device), _t(v, np.float32, device))
-                      for c, v in d["buckets"]),
-        chunk_row=_t(d["chunk_row"], np.int32, device),
+        buckets=buckets, chunk_row=chunk_row,
+        rows=tables_from_buckets(buckets, chunk_row, int(d["m"]))
+        if buckets else None,
         chunk1=None if chunk1 is None else _t(chunk1, np.int32, device),
         extras=None if extras is None else tuple(
             _t(e, np.int32, device) for e in extras),
@@ -90,6 +96,8 @@ def windowed_plan_from_numpy(d: dict, device) -> WindowedPlan:
         ell=ell_plan_from_numpy(d["ell"], device),
         coverage=float(d["coverage"]),
         min_count_eff=int(d.get("min_count_eff", 0)),
+        n_windows=int(d.get("n_windows", 0)),
+        covered_nnz=int(d.get("covered_nnz", 0)),
         transposed=transposed,
         **bwd,
     )
@@ -100,18 +108,23 @@ def band_plan_from_numpy(d: dict, device) -> BandPlan:
     split = isinstance(band, (tuple, list))
     band = tuple(_t(b, np.float32, device) for b in band) if split \
         else _t(band, np.float32, device)
+    impl = str(d["impl"])
     return BandPlan(m=int(d["m"]), n=int(d["n"]), tm=int(d["tm"]),
                     w_pad=int(d["w_pad"]), band=band,
-                    ws=_t(d["ws"], np.int32, device), impl=str(d["impl"]),
-                    ranges=band_depth_ranges(*band) if split else None)
+                    ws=_t(d["ws"], np.int32, device), impl=impl,
+                    ranges=None if impl == "xla" else band_depth_ranges(
+                        *(band if split else (band,))))
 
 
 def gespmm_plan_from_numpy(d: dict, device) -> GeSpmmPlan:
+    cols = _t(d["cols"], np.int32, device)
+    vals = _t(d["vals"], np.float32, device)
+    chunk_row = _t(d["chunk_row"], np.int32, device)
     return GeSpmmPlan(
-        m=int(d["m"]), w=int(d["w"]), cols=_t(d["cols"], np.int32, device),
-        vals=_t(d["vals"], np.float32, device),
-        chunk_row=_t(d["chunk_row"], np.int32, device), nnz=int(d["nnz"]),
-        padded_nnz=int(d["padded_nnz"]))
+        m=int(d["m"]), w=int(d["w"]), cols=cols, vals=vals,
+        chunk_row=chunk_row, nnz=int(d["nnz"]),
+        padded_nnz=int(d["padded_nnz"]),
+        rows=tables_from_buckets(((cols, vals),), chunk_row, int(d["m"])))
 
 
 def gcn_params_from_numpy(params: dict, model) -> None:

@@ -138,12 +138,14 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # (a_left, a_right, iW, ranges, B, out, P, TM, W, n, k, stream)
         lib.flex_band_spmm_v2.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
         lib.flex_band_spmm_v2.restype = i
-        # (band, ws, B, out, P, TM, W, n, k, stream)
-        lib.flex_band_spmm_v1.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        # (band, ws, ranges, B, out, P, TM, W, n, k, stream)
+        lib.flex_band_spmm_v1.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.flex_band_spmm_v1.restype = i
     elif name == "gespmm":
-        # (cols, vals, B, partial, N, w, k, stream)
-        lib.flex_gespmm_partials.argtypes = [p, p, p, p, i, i, i, p]
-        lib.flex_gespmm_partials.restype = i
+        # (cols, vals, row_start, units, splits, B, out, scratch,
+        #  n_units, n_splits, k, accumulate, stream)
+        lib.flex_gespmm_rows.argtypes = [p, p, p, p, p, p, p, p,
+                                         i, i, i, i, p]
+        lib.flex_gespmm_rows.restype = i
     else:
         raise ValueError(f"no CUDA source named {name!r}")

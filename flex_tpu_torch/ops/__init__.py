@@ -13,7 +13,8 @@
                    (``impl="pallas2"``, ``"xla"`` or ``"pallas"``).
 - ``"gespmm"``   — GE-SpMM row-parallel chunks (second-opinion baseline).
 
-The names are the JAX package's.  Its ``"panel"`` is not ported yet.
+The names, and the default ``"xla"``, are the JAX package's.  Its
+``"panel"`` is not ported yet.
 
 Also here: :func:`gcn_layer` and :func:`pick_association`
 (:mod:`.gcn`), the GCN layer on any prepared plan.
@@ -50,7 +51,7 @@ def prepare_fn(method: str):
     return getattr(importlib.import_module(f"flex_tpu_torch.ops.{module}"), fn)
 
 
-def spmm(g, B, method: str = "windowed", device=None, **kwargs):
+def spmm(g, B, method: str = "xla", device=None, **kwargs):
     """``C = A @ B`` for CSRGraph ``g`` and dense ``B`` (NumPy or tensor).
     Device methods run on ``device`` (CUDA unless the caller names
     another) and return a tensor there."""

@@ -9,12 +9,21 @@ rows through a per-row gather (``chunk1``) plus a small fold of split
 rows' extra chunks (``extras``).
 
 The layout is built on the device from a resident CSR; the host supplies
-only the static bucket sizes.  Plain PyTorch throughout: in the JAX
-package this path is XLA, not a Pallas kernel.
+only the static bucket sizes.  The buckets are views of one flat store,
+in which a row's chunks are consecutive and full but for the last, so the
+plan also carries the row-unit kernel's tables (:class:`.gespmm.RowTables`).
+In the JAX package this path is XLA, not a Pallas kernel.  Here CPU
+tensors take the plain PyTorch version (:func:`_ell_spmm`, bucket by
+bucket as the JAX package does); CUDA tensors run the row-unit kernel of
+``csrc/gespmm.cu`` (:func:`.gespmm.gespmm_rows`), all buckets and split
+rows in one call, added into ``into`` in place, in a fixed order.
 
-Training: autograd differentiates the plain ops as they stand.  A plan
-that carries a ``bwd_plan`` (:func:`with_bwd_plan`) instead computes
-g_B = Aᵀ·g with the transposed pattern's own ELL forward.
+Training: on the CPU autograd differentiates the plain ops as they
+stand.  A plan that carries a ``bwd_plan`` (:func:`with_bwd_plan`, the
+transposed pattern without the forward's pad entries) computes g_B = Aᵀ·g
+with that pattern's own forward, on the card through the same kernel.  On the card without a ``bwd_plan``, g_B is
+the plain transposed scatter of vals·g (``index_add_``, so it is the one
+residue path whose sums run in no fixed order).
 """
 from __future__ import annotations
 
@@ -23,6 +32,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from flex_tpu_torch.ops.gespmm import (
+    RowTables, gespmm_rows, row_tables, tables_from_buckets, unit_entries,
+)
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import DeviceCSR, resident_csr
 
@@ -115,25 +127,42 @@ def gather_chunks(col_pad, val_pad, starts, lengths, w: int):
 
 def ell_buckets_core(row_ptr, col, vals, *, meta):
     """Bucket arrays from a device CSR: returns (((cols i32 [N,w],
-    vals f32 [N,w]), ...), chunk_row i32).  A bucket's chunk is a w-wide
-    gather from ``starts[:, None] + arange(w)`` (each chunk's nnz are
-    contiguous in CSR order), masked past its length."""
+    vals f32 [N,w]), ...), chunk_row i32, rows), ``rows`` the
+    :class:`.gespmm.RowTables` of the flat store the buckets are views of
+    (None for an empty residue).  A bucket's chunk is a w-wide gather from
+    ``starts[:, None] + arange(w)`` (each chunk's nnz are contiguous in CSR
+    order), masked past its length."""
     wmax, widths, bucket_meta, _ = meta
     dev = col.device
     if not bucket_meta:  # empty residue
-        return (), torch.zeros(0, dtype=torch.int32, device=dev)
+        return (), torch.zeros(0, dtype=torch.int32, device=dev), None
     row_ptr = row_ptr.long()
     deg = row_ptr[1:] - row_ptr[:-1]
     order = _chunk_order(deg, widths)
     col_pad = torch.cat([col, col.new_zeros(wmax)])
     val_pad = torch.cat([vals, vals.new_zeros(wmax)])
 
-    buckets, rows_parts = [], []
+    total = sum(w * N for w, N in bucket_meta)
+    flat_c = torch.empty(total, dtype=torch.int32, device=dev)
+    flat_v = torch.empty(total, dtype=torch.float32, device=dev)
+    buckets, rows_parts, offs, lens, base = [], [], [], [], 0
     for w, rows_b, starts, lengths in _bucket_layouts(row_ptr, deg, order,
                                                       meta):
-        buckets.append(gather_chunks(col_pad, val_pad, starts, lengths, w))
+        N = rows_b.shape[0]
+        c, v = flat_c[base:base + N * w].view(N, w), \
+            flat_v[base:base + N * w].view(N, w)
+        gc, gv = gather_chunks(col_pad, val_pad, starts, lengths, w)
+        c.copy_(gc)
+        v.copy_(gv)
+        buckets.append((c, v))
         rows_parts.append(rows_b)
-    return tuple(buckets), torch.cat(rows_parts).to(torch.int32)
+        offs.append(base + torch.arange(N, device=dev) * w)
+        lens.append(lengths)
+        base += N * w
+    chunk_row = torch.cat(rows_parts).to(torch.int32)
+    return tuple(buckets), chunk_row, row_tables(
+        flat_c, flat_v, chunk_row, torch.cat(offs), torch.cat(lens),
+        deg.shape[0])
 
 
 def _gather_assembly_tables(chunk_row: torch.Tensor, *, m: int,
@@ -205,31 +234,96 @@ class EllPlan:
     chunk1: torch.Tensor | None = None  # i32[m] row -> first chunk
     extras: tuple | None = None         # (extra_idx, extra_first) split rows
     bwd_plan: "EllPlan | None" = None   # transposed pattern (training)
+    # the row-unit kernel's tables over the buckets' flat store; None =
+    # derive them at each call on the card
+    rows: RowTables | None = None
 
     def __call__(self, B: torch.Tensor, into: torch.Tensor | None = None
                  ) -> torch.Tensor:
-        if self.bwd_plan is not None:
-            return _EllApply.apply(self, B, into)
-        return _ell_raw_call(self, B, into)
+        if self.bwd_plan is None and B.device.type == "cpu":
+            return _ell_raw_call(self, B, into)
+        return _EllApply.apply(self, B, into)
+
+    def row_tables(self) -> RowTables:
+        """The kernel's tables: the plan's own, or derived from the
+        buckets (:func:`.gespmm.tables_from_buckets`)."""
+        if self.rows is not None:
+            return self.rows
+        return tables_from_buckets(self.buckets, self.chunk_row, self.m)
+
+    def traffic_model(self, k: int) -> dict:
+        """Predicted bytes per call of the JAX package's byte model (the
+        reference's dataVolume/NPerf model, ``flex.cu:5505-5540``): the
+        take→materialise→reduce chain reads B rows, writes the gather
+        output, re-reads it for the multiply-reduce, writes chunk partials,
+        and scatter-adds them into C.  The row-unit kernel moves none of
+        the gather output or partials (PERF.md has its own bound)."""
+        n_chunks = int(self.chunk_row.shape[0])
+        by = (3 * self.padded_nnz * k * 4
+              + 2 * n_chunks * k * 4
+              + self.m * k * 4)
+        return {"bytes": int(by), "gathered_rows": self.padded_nnz}
+
+    @property
+    def views(self) -> tuple:
+        return tuple((0, c.shape[0], c.shape[1]) for c, _ in self.buckets)
+
+    @property
+    def stats(self) -> dict:
+        return {
+            "padded_nnz": self.padded_nnz,
+            "pad_ratio": self.padded_nnz / max(self.nnz, 1),
+            "n_chunks": int(self.chunk_row.shape[0]),
+            "views": self.views,
+        }
 
 
-def _ell_raw_call(plan: EllPlan, B, into):
+def ell_spmm_plain(plan: EllPlan, B, into=None):
+    """The plain PyTorch version of the plan's product (what CPU tensors
+    take): :func:`_ell_spmm` on the plan's buckets, on any device."""
     return _ell_spmm(plan.buckets, plan.chunk_row, B, m=plan.m,
                      max_gather_rows=plan.max_gather_rows, into=into,
                      chunk1=plan.chunk1, extras=plan.extras)
 
 
+def _ell_raw_call(plan: EllPlan, B, into):
+    if B.device.type == "cpu" or not plan.buckets:
+        return ell_spmm_plain(plan, B, into)
+    return gespmm_rows(plan.row_tables(), B, into=into)
+
+
+def _ell_transpose_scatter(plan: EllPlan, g, n: int):
+    """Plain g_B = A_resᵀ·g over the padded buckets: vals·g[row] scatter-
+    added into the columns' rows (``index_add_``: on the card in no fixed
+    order), in sub-batches of about ``max_gather_rows`` entries."""
+    k = g.shape[1]
+    out = g.new_zeros((n, k))
+    o = 0
+    for cols, vals in plan.buckets:
+        N, w = cols.shape
+        step = max(1, plan.max_gather_rows // w)
+        for s in range(0, N, step):
+            c, v = cols[s:s + step], vals[s:s + step]
+            gr = g.index_select(0, plan.chunk_row[o + s:o + s + c.shape[0]])
+            out.index_add_(0, c.reshape(-1),
+                           (v[:, :, None] * gr[:, None, :]).reshape(-1, k))
+        o += N
+    return out
+
+
 class _EllApply(torch.autograd.Function):
-    """``plan(B, into)`` with g_B = ``plan.bwd_plan(g)`` (A_resᵀ·g through
-    the ELL forward of the transposed pattern) in place of autograd's
-    scatter-add over the padded gathered rows; counterpart of the JAX
-    package's ``_ell_apply_cv`` / ``_ell_apply_cv0``.  The cotangent of
-    ``into`` is g; the plan gets none, so gradients wrt A's values are not
-    propagated here (attach a ``bwd_plan`` only when A is a constant)."""
+    """``plan(B, into)`` through the row-unit kernel on the card (the plain
+    version on the CPU), with g_B = ``plan.bwd_plan(g)`` (A_resᵀ·g through
+    the forward of the transposed pattern; counterpart of the JAX package's
+    ``_ell_apply_cv`` / ``_ell_apply_cv0``) or, without a ``bwd_plan``, the
+    plain transposed scatter of vals·g, which sums in no fixed order on the
+    card.  The cotangent of ``into`` is g; the plan gets none, so gradients
+    wrt A's values are not propagated here, as in the JAX package."""
 
     @staticmethod
     def forward(ctx, plan, B, into):
         ctx.plan = plan
+        ctx.n = B.shape[0]
         ctx.has_into = into is not None
         if ctx.has_into:
             ctx.mark_dirty(into)  # the accumulator is updated in place
@@ -237,8 +331,11 @@ class _EllApply(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g_B = ctx.plan.bwd_plan(g.contiguous()) \
-            if ctx.needs_input_grad[1] else None
+        g_B = None
+        if ctx.needs_input_grad[1]:
+            plan = ctx.plan
+            g_B = plan.bwd_plan(g.contiguous()) if plan.bwd_plan is not None \
+                else _ell_transpose_scatter(plan, g, ctx.n)
         return None, g_B, g if ctx.has_into else None
 
 
@@ -249,26 +346,29 @@ def prepare_ell_device(row_ptr_dev, col_dev, vals_dev, *, m: int, nnz: int,
     the static bucket sizes from its copy of the row_ptr."""
     deg = np.diff(np.asarray(res_row_ptr_host, dtype=np.int64))
     meta, padded = ell_meta(deg, widths)
-    buckets, chunk_row = ell_buckets_core(row_ptr_dev, col_dev, vals_dev,
-                                          meta=meta)
+    buckets, chunk_row, rows = ell_buckets_core(row_ptr_dev, col_dev,
+                                                vals_dev, meta=meta)
     chunk1 = extras = None
     if buckets:
         n_extras = int(chunk_row.shape[0]) - int((deg > 0).sum())
         chunk1, extras = _gather_assembly_tables(chunk_row, m=m,
                                                  n_extras=n_extras)
     return EllPlan(m=m, buckets=buckets, chunk_row=chunk_row,
-                   padded_nnz=padded, nnz=nnz, chunk1=chunk1, extras=extras)
+                   padded_nnz=padded, nnz=nnz, chunk1=chunk1, extras=extras,
+                   rows=rows)
 
 
-def prepare_ell_transpose(plan: EllPlan, n: int) -> EllPlan:
+def prepare_ell_transpose(plan: EllPlan, n: int,
+                          keep_pads: bool = True) -> EllPlan:
     """Transposed-pattern EllPlan built on the device from ``plan``'s own
     buckets (so it works for the windowed hybrid's residue, whose CSR never
     exists as arrays of its own): flatten the padded (col, val, row)
     triples, sort by col, and feed the transposed CSR to
     :func:`prepare_ell_device`.  Padding entries ride along as (col 0,
     val 0) and count into transposed row 0's degree, as in the JAX
-    package.  One O(n) device-to-host copy (the transposed row_ptr) is the
-    only transfer."""
+    package; ``keep_pads=False`` drops them (the same g_B, other tables).
+    One O(n) device-to-host copy (the transposed row_ptr) is the only
+    transfer besides the row tables' own."""
     if not plan.buckets:
         return EllPlan(m=n, buckets=(), padded_nnz=0, nnz=0,
                        chunk_row=plan.chunk_row.new_zeros(0))
@@ -280,6 +380,9 @@ def prepare_ell_transpose(plan: EllPlan, n: int) -> EllPlan:
         rows_parts.append(plan.chunk_row[offs:offs + N].repeat_interleave(w))
         offs += N
     rows = torch.cat(rows_parts)
+    if not keep_pads:
+        _, real = unit_entries(plan.row_tables())
+        cols, vals, rows = cols[real], vals[real], rows[real]
     t_row_ptr = torch.cat([cols.new_zeros(1, dtype=torch.int64), torch.cumsum(
         torch.bincount(cols, minlength=n), 0)])
     order = torch.sort(cols, stable=True).indices
@@ -291,8 +394,14 @@ def prepare_ell_transpose(plan: EllPlan, n: int) -> EllPlan:
 def with_bwd_plan(plan: EllPlan, n: int) -> EllPlan:
     """Copy of ``plan`` carrying the transposed-pattern backward plan
     (``n`` = B's row count); its call then goes through :class:`_EllApply`.
-    Only valid when A's values are constants (a graph adjacency)."""
-    return dataclasses.replace(plan, bwd_plan=prepare_ell_transpose(plan, n))
+    Only valid when A's values are constants (a graph adjacency).  The
+    backward plan leaves out the forward's pad entries
+    (``prepare_ell_transpose(keep_pads=False)``): the same g_B, and on an
+    H100 its kernel ran 17 % faster on the reddit_posts residue, whose pads
+    all land in transposed row 0.  So its tables differ from the JAX
+    package's ``with_bwd_plan``, by design."""
+    return dataclasses.replace(plan, bwd_plan=prepare_ell_transpose(
+        plan, n, keep_pads=False))
 
 
 def prepare_ell(g: CSRGraph, dev: DeviceCSR | None = None,

@@ -1,21 +1,28 @@
 """GE-SpMM-style row-parallel CSR SpMM: the independent second-opinion
-baseline.
+baseline, and the row-unit kernel that also runs the windowed plan's ELL
+residue.
 
 Counterpart of ``flex_tpu.ops.gespmm``.  Every row goes through one code
-path: it is cut into chunks of at most ``w`` nonzeros, padded to ``w``; a
-chunk's partial sum is Σ_j vals[c, j] · B[cols[c, j], :], and the
-partials are scatter-added into their rows by ``chunk_row``.
+path: it is cut into chunks of at most ``w`` nonzeros, padded to ``w``;
+C[r, :] = Σ over the row's chunks and entries of vals · B[cols].
 
 - :func:`prepare_gespmm` computes the O(chunks) metadata on the host and
-  builds the ``[N, w]`` arrays on the device from the resident CSR,
-  with the ELL buckets' own gather (:func:`.ell_spmm.gather_chunks`).
-- :func:`gespmm_partials` computes the partials: the hand-written CUDA
-  kernel ``csrc/gespmm.cu`` for CUDA tensors (a warp per chunk, B rows
-  read straight from global memory), :func:`gespmm_partials_plain` for CPU
-  tensors.
-- The scatter-add stays outside the kernel, as in the JAX package; on the
-  card ``index_add_`` sums a split row's chunks in no fixed order, so two
-  runs may differ by f32 rounding.
+  builds the ``[N, w]`` arrays on the device from the resident CSR, with
+  the ELL buckets' own gather (:func:`.ell_spmm.gather_chunks`), and the
+  kernel's row tables (:func:`row_tables`).
+- :func:`gespmm_rows` computes whole output rows: the hand-written CUDA
+  kernel ``csrc/gespmm.cu`` for CUDA tensors, :func:`gespmm_rows_plain`
+  for CPU tensors.  The JAX package's kernel computes chunk partials and
+  scatter-adds them outside; here a row's chunks are summed in the kernel,
+  in a fixed order, so two calls give the same bits.
+
+The kernel reads any flat store of chunks in which a row's chunks are
+consecutive and full but for the last, so a row's nonzeros are one
+contiguous run: GE-SpMM's ``[N, w]`` arrays and the ELL buckets laid end
+to end (:mod:`.ell_spmm`).  :class:`RowTables` is what it reads: the store,
+each row's first entry in it and the work units, each at most
+:data:`ROW_UNIT_ENTRIES` nonzeros of one row.  Pads outside a row's run
+are never read.
 """
 from __future__ import annotations
 
@@ -24,60 +31,180 @@ import dataclasses
 import numpy as np
 import torch
 
-from flex_tpu_torch.ops.ell_spmm import gather_chunks
 from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
+from flex_tpu_torch.ops.units import row_units
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import DeviceCSR, resident_csr
 
 CH = 8  # the chunk count is padded to a multiple of CH, as in the JAX plan
+# most nonzeros in one unit of the row-unit kernel: 8 chunks of GE-SpMM's
+# w = 32, one warp's work
+ROW_UNIT_ENTRIES = 256
 
 
-def gespmm_partials_plain(cols, vals, B, max_gather_rows: int = 1 << 21):
-    """Plain PyTorch version of the partials: gather the (N, w, k) rows of
-    B, multiply by vals, sum over w; in sub-batches of about
-    ``max_gather_rows`` gathered rows.  Returns f32 [N, k]."""
+@dataclasses.dataclass
+class RowTables:
+    """What the row-unit kernel reads.  Row r's nonzeros are
+    ``cols/vals[row_start[r] + lo .. row_start[r] + hi)`` over its units
+    (r, lo, hi, part); a row of one unit has part -1, the units of a longer
+    row write partial rows ``part`` that ``splits`` (r, part_lo, part_hi)
+    adds up."""
+    cols: torch.Tensor       # i32 [T] the flat store of chunks
+    vals: torch.Tensor       # f32 [T]
+    row_start: torch.Tensor  # i32 [m]
+    units: torch.Tensor      # i32 [U, 4] (row, lo, hi, part)
+    splits: torch.Tensor     # i32 [S, 3] (row, part_lo, part_hi)
+    n_parts: int
+
+    @property
+    def m(self) -> int:
+        return int(self.row_start.shape[0])
+
+
+def row_tables(cols, vals, chunk_row, chunk_off, chunk_len, m: int,
+               chunk: int = ROW_UNIT_ENTRIES) -> RowTables:
+    """:class:`RowTables` of a flat store ``cols``/``vals`` whose chunk c
+    starts at ``chunk_off[c]``, holds ``chunk_len[c]`` nonzeros and belongs
+    to row ``chunk_row[c]`` (rows ≥ ``m`` are pad chunks and are skipped).
+    Built on the store's device; one O(m) copy of the row lengths to the
+    host cuts the units.  Raises if a row's chunks are not one contiguous
+    run of the store."""
+    T = int(cols.shape[0])
+    if T >= 2**31:
+        raise ValueError("the row-unit kernel's store is int32-indexed: it "
+                         "must hold < 2^31 entries")
+    dev = cols.device
+    live = (chunk_row.long() < m) & (chunk_len > 0)
+    rows = chunk_row.long()[live]
+    off = chunk_off.long()[live]
+    ln = chunk_len.long()[live]
+    start = torch.full((m,), T, dtype=torch.int64, device=dev)
+    start.scatter_reduce_(0, rows, off, reduce="amin")
+    end = torch.zeros(m, dtype=torch.int64, device=dev)
+    end.scatter_reduce_(0, rows, off + ln, reduce="amax")
+    length = torch.zeros(m, dtype=torch.int64, device=dev).scatter_add_(
+        0, rows, ln)
+    has = length > 0
+    length_h, gap = torch.stack(
+        [length, torch.where(has, end - start - length, 0)]).cpu().numpy()
+    if gap.any():
+        raise ValueError("a row's chunks are not one contiguous run of the "
+                         "flat store")
+    units, splits = row_units(length_h, chunk)
+    return RowTables(cols=cols, vals=vals,
+                     row_start=torch.where(has, start, 0).to(torch.int32),
+                     units=torch.from_numpy(units).to(dev),
+                     splits=torch.from_numpy(splits).to(dev),
+                     n_parts=int((units[:, 3] >= 0).sum()))
+
+
+def chunk_lengths(cols, vals, chunk_row):
+    """Chunk lengths as a bucket's (cols [N, w], vals [N, w]) arrays show
+    them: a chunk followed by another of its row is full; the last chunk of
+    a row runs to its last entry that is not a pad (column 0, value 0), so
+    an explicit zero at column 0 that ends a row reads as a pad (it adds
+    nothing).  For plans whose build did not keep the lengths."""
     N, w = cols.shape
-    k = B.shape[1]
-    step = max(1, max_gather_rows // max(w, 1))
-    parts = [(vals[s:s + step, :, None]
-              * B.index_select(0, cols[s:s + step].reshape(-1)).view(-1, w, k)
-              ).sum(dim=1) for s in range(0, N, step)]
-    return torch.cat(parts) if parts else B.new_zeros((0, k))
+    nz = (cols != 0) | (vals != 0)
+    pos = torch.arange(1, w + 1, device=cols.device)
+    last = torch.where(nz, pos, 0).amax(dim=1)
+    row = chunk_row.long()
+    is_last = torch.ones(N, dtype=torch.bool, device=cols.device)
+    is_last[:-1] = row[1:] != row[:-1]
+    return torch.where(is_last, last, w)
 
 
-def gespmm_partials(cols, vals, B):
-    """partial[c, :] = Σ_j vals[c, j] · B[cols[c, j], :] for every chunk c.
-    ``cols`` i32 [N, w] (pads point at row 0), ``vals`` f32 [N, w] (pads
-    are 0), ``B`` f32 [n, k].  Returns f32 [N, k].
+def tables_from_buckets(buckets, chunk_row, m: int) -> RowTables:
+    """:class:`RowTables` of (non-empty) bucket arrays alone (lengths by
+    :func:`chunk_lengths`): the buckets are laid end to end in a new flat
+    store, bucket-major as ``chunk_row`` runs."""
+    dev = chunk_row.device
+    offs, lens, base, o = [], [], 0, 0
+    for c, v in buckets:
+        N, w = c.shape
+        offs.append(base + torch.arange(N, device=dev, dtype=torch.int64) * w)
+        lens.append(chunk_lengths(c, v, chunk_row[o:o + N]))
+        base += N * w
+        o += N
+    return row_tables(torch.cat([c.reshape(-1) for c, _ in buckets]),
+                      torch.cat([v.reshape(-1) for _, v in buckets]),
+                      chunk_row, torch.cat(offs), torch.cat(lens), m)
+
+
+def unit_entries(t: RowTables):
+    """Every nonzero the units cover: (row, flat index) as i64 tensors, in
+    unit order."""
+    u = t.units.long()
+    lens = u[:, 2] - u[:, 1]
+    total = int(lens.sum())
+    rows = torch.repeat_interleave(u[:, 0], lens, output_size=total)
+    first = t.row_start.long()[u[:, 0]] + u[:, 1] - (torch.cumsum(lens, 0)
+                                                     - lens)
+    idx = torch.repeat_interleave(first, lens, output_size=total) \
+        + torch.arange(total, device=u.device)
+    return rows, idx
+
+
+def gespmm_rows_plain(t: RowTables, B, into=None,
+                      max_gather_rows: int = 1 << 21):
+    """Plain PyTorch version of :func:`gespmm_rows`: every covered nonzero's
+    vals · B[cols] scatter-added into its row (in sub-batches of about
+    ``max_gather_rows`` gathered rows), then added into ``into`` when
+    given.  Returns f32 [m, k]."""
+    rows, idx = unit_entries(t)
+    out = B.new_zeros((t.m, B.shape[1]))
+    for s in range(0, len(idx), max_gather_rows):
+        e = idx[s:s + max_gather_rows]
+        out.index_add_(0, rows[s:s + max_gather_rows],
+                       t.vals[e, None] * B.index_select(0, t.cols[e].long()))
+    return into.add_(out) if into is not None else out
+
+
+def gespmm_rows(t: RowTables, B, into=None):
+    """C[r, :] = Σ over row r's nonzeros of vals · B[cols, :] for every row
+    of ``t`` (f32 [m, k]); with ``into`` (f32 [m, k]) the sums are added to
+    it IN PLACE and it is returned.
 
     CUDA tensors launch ``csrc/gespmm.cu`` (and count the launch in
-    ``gespmm_partials.launches``); CPU tensors take
-    :func:`gespmm_partials_plain`.  Anything else raises."""
-    if cols.dim() != 2 or vals.shape != cols.shape or B.dim() != 2:
-        raise ValueError(f"cols and vals must be [N, w] and B 2-D, got "
-                         f"{tuple(cols.shape)}, {tuple(vals.shape)}, "
-                         f"{tuple(B.shape)}")
-    check_operands({"cols": (cols, cols.shape)}, {"vals": vals, "B": B})
+    ``gespmm_rows.launches``): the units, then the pass that adds the split
+    rows' partial rows, both in a fixed order.  CPU tensors take
+    :func:`gespmm_rows_plain`.  Anything else raises."""
+    if B.dim() != 2:
+        raise ValueError(f"B must be 2-D, got {tuple(B.shape)}")
+    m, k = t.m, B.shape[1]
+    floats = {"vals": t.vals, "B": B}
+    if into is not None:
+        if tuple(into.shape) != (m, k):
+            raise ValueError(f"into shape {tuple(into.shape)} != ({m}, {k})")
+        floats["into"] = into
+    check_operands({"cols": (t.cols, t.vals.shape[0]), "row_start": (
+        t.row_start, m), "units": (t.units, (t.units.shape[0], 4)),
+        "splits": (t.splits, (t.splits.shape[0], 3))}, floats)
     if B.device.type == "cpu":
-        return gespmm_partials_plain(cols, vals, B)
+        return gespmm_rows_plain(t, B, into)
     if B.device.type != "cuda":
         raise ValueError(f"no gespmm kernel for device {B.device}")
-    check_kernel_operands(cols=cols, vals=vals, B=B)
-    if cols.numel() and B.shape[0] == 0:
+    check_kernel_operands(("units",), cols=t.cols, row_start=t.row_start,
+                          units=t.units, splits=t.splits, **floats)
+    if t.cols.numel() and B.shape[0] == 0:
         raise ValueError("B has no rows for cols to point at")
     from flex_tpu_torch import kernels
 
-    N, w = cols.shape
-    k = B.shape[1]
-    partial = torch.empty((N, k), dtype=torch.float32, device=B.device)
-    kernels.launch("gespmm", "flex_gespmm_partials", B.device,
-                   cols.data_ptr(), vals.data_ptr(), B.data_ptr(),
-                   partial.data_ptr(), N, w, k)
-    gespmm_partials.launches += 1
-    return partial
+    out = into if into is not None else torch.empty(
+        (m, k), dtype=torch.float32, device=B.device)
+    scratch = torch.empty((t.n_parts, k), dtype=torch.float32,
+                          device=B.device)
+    kernels.launch("gespmm", "flex_gespmm_rows", B.device,
+                   t.cols.data_ptr(), t.vals.data_ptr(),
+                   t.row_start.data_ptr(), t.units.data_ptr(),
+                   t.splits.data_ptr(), B.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr(), t.units.shape[0], t.splits.shape[0], k,
+                   int(into is not None))
+    gespmm_rows.launches += 1
+    return out
 
 
-gespmm_partials.launches = 0
+gespmm_rows.launches = 0
 
 
 @dataclasses.dataclass
@@ -89,11 +216,13 @@ class GeSpmmPlan:
     chunk_row: torch.Tensor  # i32 [N] (pad chunks point at dump row m)
     nnz: int
     padded_nnz: int
+    # the kernel's tables over cols/vals; None = derive them at each call
+    rows: RowTables | None = None
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
-        partial = gespmm_partials(self.cols, self.vals, B)
-        out = B.new_zeros((self.m + 1, B.shape[1]))
-        return out.index_add_(0, self.chunk_row, partial)[:self.m]
+        t = self.rows if self.rows is not None else tables_from_buckets(
+            ((self.cols, self.vals),), self.chunk_row, self.m)
+        return gespmm_rows(t, B)
 
     @property
     def stats(self) -> dict:
@@ -105,10 +234,9 @@ class GeSpmmPlan:
         }
 
     def traffic_model(self, k: int) -> dict:
-        """Byte model: one (1, k) row of B per padded slot, the partials
-        written and read again, and the scattered C."""
-        N = int(self.cols.shape[0])
-        by = self.padded_nnz * (k * 4 + 8) + 2 * N * k * 4 + self.m * k * 4
+        """Byte model (the JAX package's): one (1, k) row of B per padded
+        slot, plus C.  The row-unit kernel reads no pad, so it moves less."""
+        by = self.padded_nnz * k * 4 + 2 * self.m * k * 4
         return {"bytes": int(by), "gathered_rows": self.padded_nnz}
 
 
@@ -118,6 +246,8 @@ def prepare_gespmm(g: CSRGraph, w: int = 32, dev: DeviceCSR | None = None,
     chunks, the chunk count is padded to a multiple of CH.  The host ships
     only O(chunks) metadata; each chunk is a contiguous CSR run, gathered
     on the device."""
+    from flex_tpu_torch.ops.ell_spmm import gather_chunks
+
     if w < 1:
         raise ValueError(f"chunk width must be positive, got w={w}")
     dev = resident_csr(g, dev, device)
@@ -141,8 +271,10 @@ def prepare_gespmm(g: CSRGraph, w: int = 32, dev: DeviceCSR | None = None,
     cols, vals = gather_chunks(
         torch.cat([dev.col, dev.col.new_zeros(w)]),
         torch.cat([dev.vals, dev.vals.new_zeros(w)]), meta[0], meta[1], w)
+    rows = row_tables(cols.view(-1), vals.view(-1), meta[2],
+                      torch.arange(N, device=dev.device) * w, meta[1], g.m)
     return GeSpmmPlan(m=g.m, w=w, cols=cols, vals=vals, chunk_row=meta[2],
-                      nnz=g.nnz, padded_nnz=N * w)
+                      nnz=g.nnz, padded_nnz=N * w, rows=rows)
 
 
 def spmm_gespmm(g: CSRGraph, B: torch.Tensor, **kwargs) -> torch.Tensor:

@@ -18,7 +18,9 @@ Three implementations, under the JAX package's names:
 - ``impl="xla"``: contiguous-window gather + one batched product, plain
   torch ops (:func:`_band_spmm_xla`).
 - ``impl="pallas"``: the unsplit band, one product per 128-column chunk of
-  the window.  :func:`band_spmm_v1`, the same source's second kernel.
+  the window.  :func:`band_spmm_v1`, the same source's second entry on the
+  same ranged kernel body (the chunks meet contiguous rows of B, so the
+  band is one product of depth W); its plan keeps depth ranges too.
 
 Band arrays are built on the device by one accumulating scatter from the
 resident CSR.  Only viable when the window is narrow: density =
@@ -124,30 +126,38 @@ BAND_TILE_ROWS = 128  # output rows of one block of the band kernels
 RANGE_STEP = 16       # depth of one stage of the ranged split-band kernel
 
 
-def band_depth_ranges(a_left, a_right, bm: int = BAND_TILE_ROWS):
+def band_depth_ranges(*bands, bm: int = BAND_TILE_ROWS):
     """int32 [P, ⌈TM/bm⌉, 2]: for each (panel, bm-row tile) the first and
-    one-past-last column of the concatenated depth [A_left | A_right]
-    (length 2W) that holds a nonzero, rounded out to multiples of
-    ``RANGE_STEP`` and clipped to [0, 2W]; an all-zero tile gets
-    lo == hi == 0.  The ranged kernel reads only these columns, and B only
-    at the rows they meet.  Built on the halves' device from the dense
-    halves alone, so a plan converted from the JAX plan's arrays gets the
+    one-past-last column of the concatenated depth ``[bands[0] | bands[1]
+    | ...]`` (the split band's [A_left | A_right], length 2W, or the
+    unsplit band alone, length W) that holds a nonzero, rounded out to
+    multiples of ``RANGE_STEP`` and clipped to the depth; an all-zero tile
+    gets lo == hi == 0.  The ranged kernel reads only these columns, and B
+    only at the rows they meet.  Built on the band's device from the dense
+    arrays alone, so a plan converted from the JAX plan's arrays gets the
     same table as the port's own build."""
-    P, TM, W = a_left.shape
+    P, TM, W = bands[0].shape
+    D = len(bands) * W
     n_tiles = max(-(-TM // bm), 1)
-    nz = torch.zeros((P, n_tiles, 2 * W), dtype=torch.bool,
-                     device=a_left.device)
+    nz = torch.zeros((P, n_tiles, D), dtype=torch.bool,
+                     device=bands[0].device)
     for t in range(n_tiles):
         rows = slice(t * bm, (t + 1) * bm)
-        nz[:, t, :W] = a_left[:, rows].ne(0).any(dim=1)
-        nz[:, t, W:] = a_right[:, rows].ne(0).any(dim=1)
-    col = torch.arange(2 * W, device=a_left.device)
-    lo = torch.where(nz, col, 2 * W).amin(dim=2, keepdim=True)
+        for h, band in enumerate(bands):
+            nz[:, t, h * W:(h + 1) * W] = band[:, rows].ne(0).any(dim=1)
+    col = torch.arange(D, device=bands[0].device)
+    lo = torch.where(nz, col, D).amin(dim=2, keepdim=True)
     hi = torch.where(nz, col + 1, 0).amax(dim=2, keepdim=True)
     lo = lo // RANGE_STEP * RANGE_STEP
-    hi = torch.clamp(-(-hi // RANGE_STEP) * RANGE_STEP, max=2 * W)
+    hi = torch.clamp(-(-hi // RANGE_STEP) * RANGE_STEP, max=D)
     empty = hi == 0
     return torch.cat([lo.masked_fill(empty, 0), hi], dim=2).to(torch.int32)
+
+
+def _check_ranges(ranges, P: int, TM: int, B) -> None:
+    if ranges is not None:
+        check_operands({"ranges": (ranges, (
+            P, max(-(-TM // BAND_TILE_ROWS), 1), 2))}, {"B": B})
 
 
 def _check_band_operands(tiles: dict, ws, B):
@@ -185,9 +195,7 @@ def band_spmm_v2(a_left, a_right, iW, B, ranges=None):
     take :func:`band_spmm_v2_plain`.  Anything else raises."""
     P, TM, W = _check_band_operands({"a_left": a_left, "a_right": a_right},
                                     iW, B)
-    if ranges is not None:
-        check_operands({"ranges": (ranges, (
-            P, max(-(-TM // BAND_TILE_ROWS), 1), 2))}, {"B": B})
+    _check_ranges(ranges, P, TM, B)
     if B.device.type == "cpu":
         return band_spmm_v2_plain(a_left, a_right, iW, B)
     if B.device.type != "cuda":
@@ -211,28 +219,35 @@ def band_spmm_v2(a_left, a_right, iW, B, ranges=None):
 band_spmm_v2.launches = 0
 
 
-def band_spmm_v1(band, ws128, B):
+def band_spmm_v1(band, ws128, B, ranges=None):
     """Unsplit-band product: out[p·TM : +TM] = Σ_j band[p][:, 128j : +128] ·
     B[(ws128[p]+j)·128 : +128], rows of B ≥ n read as zero.  ``band`` f32
     [P, TM, W], ``ws128`` i32 [P] in units of 128, ``B`` f32 [n, k].
-    Returns f32 [P·TM, k].
+    Returns f32 [P·TM, k].  ``ranges`` is the band's
+    :func:`band_depth_ranges`; without it the CUDA path derives it.
 
     CUDA tensors launch ``csrc/band_spmm.cu`` (and count the launch in
-    ``band_spmm_v1.launches``); CPU tensors take
+    ``band_spmm_v1.launches``): the chunks meet the contiguous rows
+    B[ws128·128 : +W], so a block reads its 128-row tile's depth range of
+    that one product alone, as :func:`band_spmm_v2` does.  CPU tensors take
     :func:`band_spmm_v1_plain`.  Anything else raises."""
     P, TM, W = _check_band_operands({"band": band}, ws128, B)
+    _check_ranges(ranges, P, TM, B)
     if B.device.type == "cpu":
         return band_spmm_v1_plain(band, ws128, B)
     if B.device.type != "cuda":
         raise ValueError(f"no band kernel for device {B.device}")
     _check_band_kernel_operands(W, B, band=band)
+    if ranges is None:
+        ranges = band_depth_ranges(band)
+    check_kernel_operands((), ranges=ranges)
     from flex_tpu_torch import kernels
 
     n, k = B.shape
     out = torch.empty((P * TM, k), dtype=torch.float32, device=B.device)
     kernels.launch("band_spmm", "flex_band_spmm_v1", B.device,
-                   band.data_ptr(), ws128.data_ptr(), B.data_ptr(),
-                   out.data_ptr(), P, TM, W, n, k)
+                   band.data_ptr(), ws128.data_ptr(), ranges.data_ptr(),
+                   B.data_ptr(), out.data_ptr(), P, TM, W, n, k)
     band_spmm_v1.launches += 1
     return out
 
@@ -253,7 +268,8 @@ class BandPlan:
     band: object         # impl xla/pallas: f32 [P, TM, W]; pallas2: (L, R)
     ws: torch.Tensor     # impl xla/pallas: ws128 i32 [P]; pallas2: iW i32 [P]
     impl: str = "pallas2"
-    # impl pallas2: band_depth_ranges of (L, R), i32 [P, ⌈TM/128⌉, 2]
+    # impl pallas2: band_depth_ranges of (L, R), pallas: of the band; i32
+    # [P, ⌈TM/128⌉, 2]
     ranges: torch.Tensor | None = None
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
@@ -264,7 +280,8 @@ class BandPlan:
         if self.impl == "pallas2":
             return band_spmm_v2(*self.band, self.ws, B,
                                 ranges=self.ranges)[:self.m]
-        return band_spmm_v1(self.band, self.ws, B)[:self.m]
+        return band_spmm_v1(self.band, self.ws, B,
+                            ranges=self.ranges)[:self.m]
 
     @property
     def stats(self) -> dict:
@@ -354,6 +371,8 @@ def prepare_band(
         table = ws // 128
         band = _build_band(dev.row_ptr, dev.col, dev.vals,
                            torch.from_numpy(ws).to(device), layout=layout)
+        if impl == "pallas":
+            ranges = band_depth_ranges(band)
     return BandPlan(
         m=g.m, n=g.n, tm=tm, w_pad=w_pad, band=band,
         ws=torch.from_numpy(table.astype(np.int32)).to(device), impl=impl,

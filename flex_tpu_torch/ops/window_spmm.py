@@ -44,6 +44,7 @@ from flex_tpu_torch.ops.ell_spmm import (
     EllPlan, _gather_assembly_tables, ell_buckets_core, ell_meta,
 )
 from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
+from flex_tpu_torch.ops.units import work_units
 from flex_tpu_torch.sparse.csr import (
     CSRGraph, indicator_cumsum, repeat_arange, repeat_values,
 )
@@ -274,37 +275,6 @@ FWD_CHUNK_STEPS = 8   # most steps in one unit of the forward kernel
 GB_CHUNK_SLOTS = 16   # most slots in one unit of the g_B kernel: equal work
 
 
-def work_units(ptr: np.ndarray, chunk: int) -> tuple[np.ndarray, np.ndarray]:
-    """Cut the ranges ``ptr[i] .. ptr[i+1]`` (a panel's steps, a block rank's
-    slots) into consecutive units of at most ``chunk``, as evenly as the
-    count allows.  Returns
-
-      units   int32[n_units, 4]  (owner i, lo, hi, part): a unit of an owner
-              with one unit has part -1 and writes the output tile; the
-              others write partial tile ``part``; an owner's parts are
-              consecutive and in range order.  An empty range keeps one
-              empty unit, so its output tile is written (as zeros).
-      splits  int32[n_split, 3]  (owner, part_lo, part_hi) for every owner
-              with several units: its output tile is the sum of those
-              partial tiles, taken in that order.
-    """
-    ptr = np.asarray(ptr, np.int64)
-    length = np.diff(ptr)
-    per = np.maximum(-(-length // chunk), 1)
-    owner = np.repeat(np.arange(len(per)), per)
-    start = np.cumsum(per) - per
-    j = np.arange(len(owner)) - start[owner]
-    L, c = length[owner], per[owner]
-    multi = c > 1
-    part = np.where(multi, np.cumsum(multi) - 1, -1)
-    units = np.stack([owner, ptr[owner] + j * L // c,
-                      ptr[owner] + (j + 1) * L // c, part], axis=1)
-    split = np.flatnonzero(per > 1)
-    part_lo = part[start[split]]
-    splits = np.stack([split, part_lo, part_lo + per[split]], axis=1)
-    return units.astype(np.int32), splits.astype(np.int32)
-
-
 def device_units(ptr: np.ndarray, chunk: int, device) -> tuple:
     """:func:`work_units` as a kernel wrapper takes them: (units, splits) as
     int32 tensors on ``device`` and the number of partial tiles."""
@@ -381,7 +351,8 @@ def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, *, layout,
     pattern duplicate-free (``unique_rc``).  Residue entries keep CSR
     order.  With ``transposed`` (last of ``layout``) each step's tile is
     laid out (G·W, TM) instead: the same scatter with the in-step index
-    terms swapped.  Returns (A, buckets, chunk_row)."""
+    terms swapped.  Returns (A, buckets, chunk_row, rows), ``rows`` the
+    residue's row-unit tables."""
     nnz, m, TM, W, nblk, total_steps, g_step, unique_rc, transposed = layout
     rows = rows_from_row_ptr(row_ptr, nnz, m)
     col64 = col.long()
@@ -406,9 +377,9 @@ def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, *, layout,
     miss_cum0 = torch.cat([miss.new_zeros(1, dtype=torch.int64),
                            torch.cumsum(miss, 0)])
     res_row_ptr = miss_cum0[row_ptr.long()]
-    buckets, chunk_row = ell_buckets_core(res_row_ptr, col[res_src],
-                                          vals[res_src], meta=ell_meta_)
-    return A, buckets, chunk_row
+    buckets, chunk_row, res_rows = ell_buckets_core(
+        res_row_ptr, col[res_src], vals[res_src], meta=ell_meta_)
+    return A, buckets, chunk_row, res_rows
 
 
 # ---------------------------------------------------------------------------
@@ -878,6 +849,8 @@ class WindowedPlan:
     # ranks' slots (g_B); None = derive them at each call
     panel_units: tuple | None = None
     slot_units: tuple | None = None
+    n_windows: int = 0       # real (non-sentinel) window slots
+    covered_nnz: int = 0     # nnz inside kept windows
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
         return _windowed_call(self, B)
@@ -892,18 +865,48 @@ class WindowedPlan:
 
     @property
     def stats(self) -> dict:
-        S = int(self.A.shape[0])
-        return {
-            "coverage": self.coverage,
-            "dense_bytes": self.A.numel() * 4,
-            "n_steps": S,
+        """The JAX plan's format-inflation counters: ``pad_ratio`` = residue
+        gathered rows / real residue nnz, ``step_fill`` = real window slots
+        / (steps·G), ``dense_occ`` = covered nnz / dense elements; plus the
+        longest panel's step count.  ``impl`` names the JAX package's
+        implementation this plan's kernels port (the port has no other)."""
+        a_elems = int(np.prod(self.A.shape))
+        s = {
+            "coverage": round(self.coverage, 4),
+            "dense_bytes": a_elems * 4,
+            "n_steps": int(self.A.shape[0]),
             "n_res": self.ell.nnz,
+            "W": self.W,
+            "impl": "pallas",
             "min_count_eff": self.min_count_eff,
             "transposed": self.transposed,
+            "pad_ratio": round(self.ell.padded_nnz / self.ell.nnz, 4)
+            if self.ell.nnz else 1.0,  # empty residue: no inflation
             "max_steps_per_panel": int(
                 (self.panel_step_ptr[1:] - self.panel_step_ptr[:-1]).max())
             if self.n_used_panels else 0,
         }
+        if self.n_windows and self.A.dim() == 3:
+            s["step_fill"] = round(
+                self.n_windows / max(int(self.A.shape[0]) * self._g_step(), 1),
+                4)
+        if self.covered_nnz:
+            s["dense_occ"] = round(self.covered_nnz / max(a_elems, 1), 6)
+        return s
+
+    def _g_step(self) -> int:
+        return int(self.A.shape[1 if self.transposed else 2]) // self.W
+
+    def traffic_model(self, k: int) -> dict:
+        """Byte model (the JAX package's): dense windowed A read once; per
+        window slot one (W, k) block of B (an upper bound); the output
+        assembled by one m-row gather; plus the residue's ELL model."""
+        st = self.stats
+        by = (st["dense_bytes"]
+              + st["n_steps"] * self._g_step() * self.W * k * 4
+              + 3 * self.m * k * 4)
+        res = self.ell.traffic_model(k) if self.ell.nnz else {"bytes": 0}
+        return {"bytes": int(by) + res["bytes"]}
 
 
 def _windowed_call(plan: WindowedPlan, B: torch.Tensor) -> torch.Tensor:
@@ -965,7 +968,7 @@ def prepare_windowed(
     meta, padded = ell_meta(res_deg)
     layout = (g.nnz, g.m, tm, W, sel["nblk"], sel["total_steps"], sel["G"],
               bool(sel["unique_rc"]), bool(transposed))
-    A, buckets, chunk_row = _build_windowed_ell(
+    A, buckets, chunk_row, res_rows = _build_windowed_ell(
         dev.row_ptr, dev.col, dev.vals, tabs["slot"], tabs["pstep0"],
         layout=layout, ell_meta_=meta)
     n_extras = int(chunk_row.shape[0]) - int((res_deg > 0).sum())
@@ -973,7 +976,7 @@ def prepare_windowed(
                                              n_extras=n_extras)
     ell = EllPlan(m=g.m, buckets=buckets, chunk_row=chunk_row,
                   padded_nnz=padded, nnz=int(sel["n_res"]), chunk1=chunk1,
-                  extras=extras)
+                  extras=extras, rows=res_rows)
     return WindowedPlan(
         m=g.m, n=g.n, tm=tm, W=W, n_used_panels=int(sel["n_used_panels"]),
         A=A, first=tabs["first"], out_panel=tabs["out_panel"],
@@ -987,6 +990,8 @@ def prepare_windowed(
         transposed=bool(transposed),
         panel_units=tabs["panel_units"],
         slot_units=None if transposed else tabs["slot_units"],
+        n_windows=int(np.count_nonzero(sel["win_step"] != sel["nblk"])),
+        covered_nnz=int(g.nnz - sel["n_res"]),
     )
 
 

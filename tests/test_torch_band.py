@@ -6,7 +6,8 @@ plans against SciPy under res_check, and the refusals.  The split band's
 depth ranges (one per 128-row tile) hold every nonzero, are the same on a
 plan converted from the JAX plan's arrays, and a NumPy emulation of the
 kernel's range-restricted loop equals the plain version and the Pallas
-kernel.  The CUDA kernels themselves run only on a card:
+kernel; the same for the unsplit band (``impl="pallas"``), whose kernel
+runs on the same ranged body.  The CUDA kernels themselves run only on a card:
 tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
@@ -241,10 +242,22 @@ def test_band_depth_ranges_hold_every_nonzero(name):
         kinds.add("left" if hi <= W else "right" if lo >= W else "both")
     if name == "halves_and_empty":
         assert kinds == {"empty", "left", "right", "both"}
-    for impl in ("xla", "pallas"):
-        assert prepare_band(make(), device="cpu", impl=impl,
-                            **kw).ranges is None
+    assert prepare_band(make(), device="cpu", impl="xla", **kw).ranges is None
+    # the unsplit band's ranges: of its own depth W, every nonzero inside
+    p1 = prepare_band(make(), device="cpu", impl="pallas", **kw)
+    r1 = p1.ranges.numpy()
+    assert p1.ranges.dtype == torch.int32 and r1.shape == r.shape
+    band = p1.band.numpy()
+    for p in range(band.shape[0]):
+        for t in range(r1.shape[1]):
+            lo, hi = r1[p, t]
+            assert lo % RANGE_STEP == 0 and 0 <= lo <= hi <= W
+            nz = np.flatnonzero(band[p, t * 128:(t + 1) * 128].any(axis=0))
+            assert (lo == hi) if not len(nz) else \
+                (lo <= nz[0] and nz[-1] < hi)
     torch.testing.assert_close(band_depth_ranges(*plan.band), plan.ranges,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(band_depth_ranges(p1.band), p1.ranges,
                                rtol=0, atol=0)
 
 
@@ -260,7 +273,12 @@ def test_band_convert_carries_the_same_depth_ranges(name):
     conv1 = band_plan_from_numpy(
         jax_band_dict(j_prepare_band(jax_graph(g), impl="pallas", **kw)),
         "cpu")
-    assert conv1.ranges is None
+    np.testing.assert_array_equal(
+        conv1.ranges.numpy(),
+        prepare_band(g, device="cpu", impl="pallas", **kw).ranges.numpy())
+    conv_x = band_plan_from_numpy(
+        jax_band_dict(j_prepare_band(jax_graph(g), impl="xla", **kw)), "cpu")
+    assert conv_x.ranges is None
 
 
 def _emulate_ranged_v2(plan, B, bm=128):
@@ -314,3 +332,60 @@ def test_band_v2_wrapper_rejects_a_bad_range_table():
                 p2.ranges.to("meta")):
         with pytest.raises(ValueError):
             band_spmm_v2(*p2.band, p2.ws, B, ranges=bad)
+
+
+def _emulate_ranged_v1(plan, B, bm=128):
+    """What csrc/band_spmm.cu's kernel computes for the unsplit band, in
+    NumPy: each 128-row tile the product of its depth range of the band
+    alone with the B rows ws128·128 + [lo, hi) (rows >= n as zero)."""
+    W, k = plan.w_pad, B.shape[1]
+    ws = plan.ws.numpy().astype(np.int64) * 128
+    B_pad = np.zeros((-(-plan.n // 128) * 128 + W, k), np.float32)
+    B_pad[:plan.n] = B
+    band = plan.band.numpy()
+    P, TM, _ = band.shape
+    out = np.full((P, TM, k), np.nan, np.float32)
+    for p in range(P):
+        for t in range(-(-TM // bm)):
+            lo, hi = plan.ranges[p, t].tolist()
+            rows = band[p, t * bm:(t + 1) * bm]
+            out[p, t * bm:t * bm + len(rows)] = \
+                rows[:, lo:hi] @ B_pad[ws[p] + lo:ws[p] + hi]
+    return out.reshape(P * TM, k)
+
+
+@pytest.mark.parametrize("k", [16, 41, 128])
+@pytest.mark.parametrize("name", sorted(RANGE_CASES))
+def test_ranged_v1_loop_matches_plain_and_pallas(name, k):
+    """Kernel 6 on kernel 5's ranged body: the emulated loop against the
+    plain version, the wrapper on the CPU and ``_call_pallas_v1`` (the
+    Pallas kernel in interpret mode, lanes padded as the JAX plan pads
+    them)."""
+    make, kw = RANGE_CASES[name]
+    g = make()
+    jplan = j_prepare_band(jax_graph(g), impl="pallas", **kw)
+    plan = band_plan_from_numpy(jax_band_dict(jplan), "cpu")
+    B = make_features(g, k)
+    emu = _emulate_ranged_v1(plan, B)
+    assert not np.isnan(emu).any()
+    B_t = torch.from_numpy(B)
+    np.testing.assert_allclose(
+        emu, band_spmm_v1_plain(plan.band, plan.ws, B_t).numpy(),
+        rtol=1e-5, atol=1e-5)
+    via = band_spmm_v1(plan.band, plan.ws, B_t, ranges=plan.ranges)
+    np.testing.assert_allclose(emu, via.numpy(), rtol=1e-5, atol=1e-5)
+    kt = -(-k // 128) * 128
+    B_lanes = jnp.zeros((g.n, kt), jnp.float32).at[:, :k].set(B)
+    ref = np.asarray(jplan._call_pallas_v1(B_lanes))[:, :k]
+    np.testing.assert_allclose(emu[:g.m], ref, rtol=1e-5, atol=1e-5)
+
+
+def test_band_v1_wrapper_rejects_a_bad_range_table():
+    make, kw = CASES["band1024"]
+    p1 = prepare_band(make(), device="cpu", impl="pallas", **kw)
+    B = torch.ones((p1.n, 4))
+    band_spmm_v1(p1.band, p1.ws, B, ranges=p1.ranges)
+    for bad in (p1.ranges.long(), p1.ranges[:-1], p1.ranges[..., :1],
+                p1.ranges.to("meta")):
+        with pytest.raises(ValueError):
+            band_spmm_v1(p1.band, p1.ws, B, ranges=bad)

@@ -316,6 +316,14 @@ def test_prepare_ell_transpose_tables_match_jax(name):
     port = prepare_ell_transpose(prepare_ell(g, device="cpu"), g.n)
     assert_same_ell(port, jax_ell_dict(ref))
     assert port.m == g.n and port.nnz == jplan.padded_nnz > g.nnz
+    # a difference by design: the port's with_bwd_plan drops the pad
+    # entries (measured faster on the card; the same g_B), so its tables
+    # are prepare_ell_transpose's without them, not the JAX package's
+    dropped = with_bwd_plan(prepare_ell(g, device="cpu"), g.n).bwd_plan
+    assert dropped.nnz == g.nnz < ref.nnz
+    assert_same_ell(dropped, jax_ell_dict(
+        prepare_ell_transpose(prepare_ell(g, device="cpu"), g.n,
+                              keep_pads=False)))
 
 
 def test_prepare_ell_transpose_of_empty_plan():

@@ -1,11 +1,15 @@
 """Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
-forward, g_A, g_B, transposed forward, the two band kernels, GE-SpMM)
-against their plain twins, the unit kernels on the edges of their work
-units and the ranged band kernel on empty, one-half and full ranges, whole plans on the card against SciPy,
-gradients against SciPy's Aᵀ·co, and a few GCN train steps.  Every test is
+forward, g_A, g_B, transposed forward, the two band kernels, the row-unit
+kernel of GE-SpMM and the ELL residue) against their plain twins, the unit
+kernels on the edges of their work units and the ranged band kernels on
+empty, one-half and full ranges, whole plans on the card against SciPy,
+repeat calls of whole plans and of g_B bit for bit, gradients against
+SciPy's Aᵀ·co, and a few GCN train steps.  Every test is
 marked ``cuda`` and skips without a card.  The file imports no JAX, so on
 a machine with PyTorch alone it runs as
 ``python -m pytest --noconftest tests/test_torch_cuda.py``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +20,10 @@ from flex_tpu_torch import (
 from flex_tpu_torch.io import (
     banded_graph, community_graph, make_features, rmat_graph,
 )
-from flex_tpu_torch.ops.gespmm import gespmm_partials, gespmm_partials_plain
+from flex_tpu_torch.ops.ell_spmm import (
+    ell_spmm_plain, prepare_ell_transpose, with_bwd_plan,
+)
+from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_plain
 from flex_tpu_torch.ops.pallas_band import (
     band_depth_ranges, band_spmm_v1, band_spmm_v1_plain, band_spmm_v2,
     band_spmm_v2_plain,
@@ -212,7 +219,8 @@ def test_plan_without_tables_still_launches_the_gB_kernel(cuda):
         (p(B) * co).sum().backward()
         assert window_bwd_gB.launches == n3 + 1
         grads.append(B.grad)
-    # the residue's scatter-add sums in an order of its own on each run
+    # without a bwd_plan the residue's g_B is a plain scatter-add, which
+    # sums in an order of its own on each run
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
 
 
@@ -572,18 +580,31 @@ def test_band_v2_kernel_on_depth_ranges(cuda, TM, W, k):
 
 @pytest.mark.parametrize("k", [32, 41, 128, 200])
 def test_band_v1_kernel_is_unchanged(cuda, k):
-    """Kernel 6 keeps its synchronous tile product: against plain on
-    windows anywhere in B, every third past n, TM not a multiple of 128;
-    two launches give the same bits."""
+    """Kernel 6, now on kernel 5's ranged ring: against plain on windows
+    anywhere in B, every third past n, TM not a multiple of 128, tiles
+    with an empty, a narrow and the full range; two launches, the table
+    derived and a table of full-depth ranges give the same bits."""
     rng = np.random.default_rng(k)
     P, TM, W, n = 6, 200, 256, 5000 + 3
     band = torch.rand((P, TM, W), device=cuda) * 2 - 1
+    band[0, :128] = 0                                   # an empty tile
+    band[1, :, 40:] = 0
+    band[1, :, :8] = 0                                  # a narrow range
     ws = rng.integers(0, -(-n // 128), P)
     ws[::3] = -(-n // 128) - 1
     ws = torch.from_numpy(ws.astype(np.int32)).to(cuda)
     B = torch.rand((n, k), device=cuda) * 2 - 1
-    out = band_spmm_v1(band, ws, B)
-    assert torch.equal(out, band_spmm_v1(band, ws, B))
+    ranges = band_depth_ranges(band)
+    r = ranges.cpu().numpy()
+    assert tuple(r[0, 0]) == (0, 0) and tuple(r[1, 0]) == (0, 48)
+    before = band_spmm_v1.launches
+    out = band_spmm_v1(band, ws, B, ranges=ranges)
+    assert band_spmm_v1.launches == before + 1
+    full = ranges.clone()
+    full[..., 0], full[..., 1] = 0, W
+    for again in (ranges, None, full):
+        assert torch.equal(out, band_spmm_v1(band, ws, B, ranges=again))
+    assert bool((out[:128] == 0).all())
     ref = band_spmm_v1_plain(band, ws, B)
     tol = 2 * W * EPS32 * band_spmm_v1_plain(band.abs(), ws, B.abs()).double()
     assert bool(((out.double() - ref.double()).abs() <= tol).all())
@@ -617,37 +638,139 @@ def _hub_and_empty(w=32, m=3000):
                              name="hub_and_empty")
 
 
+def _rows_tol(t, B, into=None):
+    """2·L·eps32·(|A|·|B|) per row (L its length), plus |into|: the
+    rounding bound of two f32 sums of a row in different orders."""
+    absprod = gespmm_rows_plain(dataclasses.replace(t, vals=t.vals.abs()),
+                                B.abs()).double()
+    u = t.units.long()
+    L = torch.zeros(t.m, dtype=torch.float64, device=B.device).index_add_(
+        0, u[:, 0], (u[:, 2] - u[:, 1]).double())
+    tol = 2 * L[:, None] * EPS32 * absprod + 1e-6
+    return tol if into is None else tol + 2 * EPS32 * into.abs().double()
+
+
+def _assert_rows_close(out, ref, tol):
+    assert bool(((out.double() - ref.double()).abs() <= tol).all())
+
+
 @pytest.mark.parametrize("k", [8, 41, 128, 200])
 @pytest.mark.parametrize("w", [7, 32, 40])
 def test_gespmm_kernel_matches_plain_and_scipy(cuda, w, k):
     """k a multiple of 4 or not, within one 128-column slice or beyond; w
     below, at and above a warp's 32 entries; pad chunks, empty rows and a
-    row of 40 chunks."""
+    row of 40 chunks (several units and the reduce pass); launched again,
+    the same bits."""
     g = _hub_and_empty()
     plan = prepare_gespmm(g, w=w, device=cuda)
+    assert plan.rows.splits.shape[0] > 0
     B = make_features(g, k)
     B_dev = torch.from_numpy(B).to(cuda)
-    before = gespmm_partials.launches
-    out = gespmm_partials(plan.cols, plan.vals, B_dev)
-    assert gespmm_partials.launches == before + 1
-    torch.testing.assert_close(
-        out, gespmm_partials_plain(plan.cols, plan.vals, B_dev),
-        rtol=1e-5, atol=1e-5)
-    C = plan(B_dev).cpu().numpy()
+    before = gespmm_rows.launches
+    out = plan(B_dev)
+    assert gespmm_rows.launches == before + 1
+    assert torch.equal(out, plan(B_dev))
+    _assert_rows_close(out, gespmm_rows_plain(plan.rows, B_dev),
+                       _rows_tol(plan.rows, B_dev))
+    C = out.cpu().numpy()
     assert res_check(spmm_scipy(g, B), C, g.degrees).err_frac == 0
     assert np.all(C[g.degrees == 0] == 0.0)
 
 
+@pytest.mark.parametrize("k", [16, 41, 128])
+def test_ell_residue_kernel_with_into_matches_plain(cuda, k):
+    """The windowed plan's residue and its transposed plan, without its pad
+    entries (``with_training_bwd``) and with them (row 0 holds all), and
+    ``prepare_ell``'s plan, through the row-unit kernel, added into an
+    accumulator in place, against the plain version; repeat calls give the
+    same bits."""
+    make, kw = CASES["community"]
+    g = make()
+    plan = with_training_bwd(prepare_windowed(g, device=cuda, **kw))
+    for ell in (plan.ell, plan.ell.bwd_plan, prepare_ell(g, device=cuda),
+                prepare_ell_transpose(plan.ell, g.n)):
+        n = int(ell.rows.cols.max()) + 1
+        B = torch.rand((n, k), device=cuda) * 2 - 1
+        base = torch.rand((ell.m, k), device=cuda) * 2 - 1
+        before = gespmm_rows.launches
+        out = ell(B, into=base.clone())
+        assert gespmm_rows.launches == before + 1
+        assert torch.equal(out, ell(B, into=base.clone()))
+        ref = ell_spmm_plain(ell, B, into=base.clone())
+        _assert_rows_close(out, ref, _rows_tol(ell.rows, B, base))
+
+
+def test_repeat_calls_are_bit_equal(cuda):
+    """A second call equals the first bit for bit: the GE-SpMM plan, the
+    ELL plan with ``into=``, the windowed forward and its g_B through
+    ``with_training_bwd`` (no atomics and no unordered sum on any of
+    them)."""
+    make, kw = CASES["community"]
+    g = make()
+    B = torch.from_numpy(make_features(g, 41)).to(cuda)
+    ge = prepare_gespmm(g, device=cuda)
+    assert torch.equal(ge(B), ge(B))
+    ell = prepare_ell(g, device=cuda)
+    base = torch.rand((g.m, 41), device=cuda)
+    assert torch.equal(ell(B, into=base.clone()), ell(B, into=base.clone()))
+    plan = with_training_bwd(prepare_windowed(g, device=cuda, **kw))
+    assert torch.equal(plan(B), plan(B))
+    co = torch.rand((g.m, 41), device=cuda)
+    grads = []
+    for _ in range(2):
+        Bg = B.clone().requires_grad_()
+        (plan(Bg) * co).sum().backward()
+        grads.append(Bg.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_residue_without_bwd_plan_gives_the_plain_gradient(cuda):
+    """A residue on the card without a ``bwd_plan`` stays differentiable in
+    B: its forward is the kernel, its g_B the plain transposed scatter,
+    equal to autograd through the plain version; ``into``'s cotangent is
+    g."""
+    g = CASES["community"][0]()
+    ell = prepare_ell(g, device=cuda)
+    assert ell.bwd_plan is None
+    co = torch.rand((g.m, 32), device=cuda)
+    B0 = torch.from_numpy(make_features(g, 32)).to(cuda)
+    grads = []
+    for fn in (ell, lambda B, into: ell_spmm_plain(ell, B, into)):
+        B = B0.clone().requires_grad_()
+        base = torch.ones((g.m, 32), device=cuda, requires_grad=True)
+        (fn(B, into=base.clone()) * co).sum().backward()
+        grads.append((B.grad, base.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(grads[0][1], co)
+    np.testing.assert_allclose(grads[0][0].cpu().numpy(),
+                               g.to_scipy().T @ co.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    # with a bwd_plan the same gradient comes from the kernel
+    tb = with_bwd_plan(ell, g.n)
+    B = B0.clone().requires_grad_()
+    before = gespmm_rows.launches
+    (tb(B) * co).sum().backward()
+    assert gespmm_rows.launches == before + 2
+    torch.testing.assert_close(B.grad, grads[0][0], rtol=1e-4, atol=1e-4)
+
+
 def test_gespmm_kernel_refuses_what_it_cannot_take(cuda):
     plan = prepare_gespmm(_hub_and_empty(), device=cuda)
+    t = plan.rows
     B = torch.ones((plan.m, 8), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        gespmm_partials(plan.cols, plan.vals,
-                        torch.ones((8, plan.m), device=cuda).t())
+        gespmm_rows(t, torch.ones((8, plan.m), device=cuda).t())
     with pytest.raises(ValueError, match="several devices"):
-        gespmm_partials(plan.cols, plan.vals, B.cpu())
+        gespmm_rows(t, B.cpu())
     with pytest.raises(ValueError, match="int32"):
-        gespmm_partials(plan.cols.long(), plan.vals, B)
+        gespmm_rows(dataclasses.replace(t, cols=t.cols.long()), B)
+    with pytest.raises(ValueError, match="contiguous"):
+        gespmm_rows(t, B, into=torch.ones((8, plan.m), device=cuda).t())
+    off = torch.zeros(t.units.numel() + 1, dtype=torch.int32,
+                      device=cuda)[1:].view(-1, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        gespmm_rows(dataclasses.replace(t, units=off), B)
 
 
 @pytest.mark.parametrize("method", ["xla", "bcoo", "ell", "gespmm"])

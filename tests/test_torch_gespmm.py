@@ -1,25 +1,37 @@
 """GE-SpMM of the PyTorch port against the JAX package: identical chunk
-tables from the device build, the partials' plain version and whole plans
-against the JAX plan with its Pallas kernel in interpret mode
-(rtol=atol=1e-5: f32 sums in another order), and the port's own plans
-against SciPy under res_check.  The CUDA kernel itself runs only on a
-card: tests/test_torch_cuda.py."""
+tables from the device build, the row-unit kernel's tables (every real
+nonzero in exactly one unit of at most ROW_UNIT_ENTRIES, in order; row
+lengths the CSR's degrees; split rows own partial rows), a NumPy emulation
+of the kernel and its reduce pass and whole plans against the JAX plan
+with its Pallas kernel in interpret mode (rtol=atol=1e-5: f32 sums in
+another order; for rows of thousands of nonzeros the rounding bound of two
+such sums), converted plans carrying the same tables, the byte model,
+and the port's own plans against SciPy under res_check.  The CUDA kernel
+itself runs only on a card: tests/test_torch_cuda.py."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
+import flex_tpu.ops
 from flex_tpu.ops.gespmm import prepare_gespmm as j_prepare_gespmm
 
+from flex_tpu_torch import spmm
 from flex_tpu_torch.convert import gespmm_plan_from_numpy
-from flex_tpu_torch.io import make_features, rmat_graph
+from flex_tpu_torch.io import make_features, rmat_graph, uniform_graph
 from flex_tpu_torch.ops.gespmm import (
-    CH, gespmm_partials, gespmm_partials_plain, prepare_gespmm,
+    CH, RowTables, gespmm_rows, gespmm_rows_plain, prepare_gespmm,
+    tables_from_buckets,
 )
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.utils.check import res_check
-from test_torch_ell import dup_graph, jax_graph
+from test_torch_ell import (
+    _hub, assert_sums_close, check_row_tables, dup_graph, emulate_row_units,
+    jax_graph,
+)
 
 
 def _long_rows_and_empties():
@@ -39,6 +51,8 @@ GRAPHS = {
     "rmat500": lambda: rmat_graph(500, 6000, seed=3),
     "long_rows": _long_rows_and_empties,
     "dups": dup_graph,
+    "hub_synth": _hub,
+    "hub_synth_T": lambda: _hub(transposed=True),
 }
 
 
@@ -94,20 +108,24 @@ def test_gespmm_matches_scipy(name, k):
 
 
 def test_gespmm_partials_sub_batches_and_wrapper():
-    """The plain version in sub-batches equals one batch, and the wrapper
-    takes it for CPU tensors."""
-    plan = prepare_gespmm(GRAPHS["rmat2048"](), w=16, device="cpu")
-    B = torch.from_numpy(make_features(GRAPHS["rmat2048"](), 8))
-    whole = gespmm_partials_plain(plan.cols, plan.vals, B)
-    parts = gespmm_partials_plain(plan.cols, plan.vals, B,
-                                  max_gather_rows=16 * 37)
-    torch.testing.assert_close(parts, whole, rtol=0, atol=0)
-    before = gespmm_partials.launches
-    torch.testing.assert_close(gespmm_partials(plan.cols, plan.vals, B),
-                               whole, rtol=0, atol=0)
-    assert gespmm_partials.launches == before  # no kernel on the CPU
-    pads = plan.chunk_row == plan.m
-    assert not bool(whole[pads].any())
+    """The plain version of the row-unit wrapper in sub-batches equals one
+    batch, the wrapper takes it for CPU tensors (no launch), ``into`` is
+    added to in place, and rows without nonzeros come out zero."""
+    g = GRAPHS["rmat2048"]()
+    plan = prepare_gespmm(g, w=16, device="cpu")
+    B = torch.from_numpy(make_features(g, 8))
+    whole = gespmm_rows_plain(plan.rows, B)
+    parts = gespmm_rows_plain(plan.rows, B, max_gather_rows=37)
+    torch.testing.assert_close(parts, whole, rtol=1e-6, atol=1e-6)
+    before = gespmm_rows.launches
+    torch.testing.assert_close(gespmm_rows(plan.rows, B), whole, rtol=0,
+                               atol=0)
+    base = torch.ones((g.m, 8))
+    out = gespmm_rows(plan.rows, B, into=base)
+    assert out.data_ptr() == base.data_ptr()
+    torch.testing.assert_close(out, whole + 1, rtol=1e-6, atol=1e-6)
+    assert gespmm_rows.launches == before  # no kernel on the CPU
+    assert not bool(whole[torch.from_numpy(g.degrees == 0)].any())
 
 
 def test_gespmm_zero_nnz_graph():
@@ -120,18 +138,110 @@ def test_gespmm_zero_nnz_graph():
 
 def test_gespmm_rejects_bad_arguments():
     plan = prepare_gespmm(GRAPHS["rmat500"](), w=8, device="cpu")
+    t = plan.rows
     B = torch.ones((plan.m, 4))
-    gespmm_partials(plan.cols, plan.vals, B)
-    for cols, vals, b in ((plan.cols.long(), plan.vals, B),
-                          (plan.cols, plan.vals.double(), B),
-                          (plan.cols, plan.vals, B.double()),
-                          (plan.cols, plan.vals[:-1], B),
-                          (plan.cols.view(-1), plan.vals.view(-1), B),
-                          (plan.cols, plan.vals, B[0])):
+    gespmm_rows(t, B)
+    bad_tables = (
+        dataclasses.replace(t, cols=t.cols.long()),
+        dataclasses.replace(t, vals=t.vals.double()),
+        dataclasses.replace(t, vals=t.vals[:-1]),
+        dataclasses.replace(t, units=t.units[:, :3].contiguous()),
+        dataclasses.replace(t, splits=t.splits.long()),
+        dataclasses.replace(t, row_start=t.row_start.long()),
+    )
+    for tab, b, into in [(x, B, None) for x in bad_tables] + [
+            (t, B.double(), None), (t, B[0], None),
+            (t, B, torch.ones((plan.m + 1, 4))),
+            (t, B, torch.ones((plan.m, 4), dtype=torch.float64))]:
         with pytest.raises(ValueError):
-            gespmm_partials(cols, vals, b)
+            gespmm_rows(tab, b, into=into)
     with pytest.raises(ValueError, match="no gespmm kernel"):
-        gespmm_partials(plan.cols.to("meta"), plan.vals.to("meta"),
-                        B.to("meta"))
+        meta = RowTables(*(x.to("meta") for x in (
+            t.cols, t.vals, t.row_start, t.units, t.splits)), t.n_parts)
+        gespmm_rows(meta, B.to("meta"))
     with pytest.raises(ValueError, match="width"):
         prepare_gespmm(GRAPHS["rmat500"](), w=0, device="cpu")
+
+
+@pytest.mark.parametrize("w", [8, 32])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_gespmm_row_tables_cover_every_nonzero(name, w):
+    """Every real nonzero in exactly one unit, in order; a unit at most
+    ROW_UNIT_ENTRIES nonzeros of one row; split rows own partial rows; the
+    row lengths are the CSR's degrees and no pad lies inside a row's run."""
+    g = GRAPHS[name]()
+    plan = prepare_gespmm(g, w=w, device="cpu")
+    check_row_tables(plan.rows, g.row_ptr, g.col, g.vals)
+    assert plan.rows.cols.data_ptr() == plan.cols.data_ptr()  # one store
+    if name == "hub_synth_T":    # hub rows of thousands of nonzeros
+        assert g.degrees.max() > 4 * 256
+        assert plan.rows.splits.shape[0] > 0
+
+
+@pytest.mark.parametrize("k", [16, 41, 128])
+@pytest.mark.parametrize("name,w", [("rmat500", 8), ("long_rows", 8),
+                                    ("rmat500", 32), ("hub_synth_T", 32),
+                                    ("dups", 32)])
+def test_gespmm_row_unit_emulation_matches_pallas(name, w, k):
+    """The NumPy emulation of the row-unit kernel and its reduce pass on
+    the port's tables against the JAX plan (``_gespmm_call``: the Pallas
+    chunk kernel in interpret mode, then its scatter-add); every row is
+    written, empty ones as zeros."""
+    g = GRAPHS[name]()
+    B = make_features(g, k)
+    plan = prepare_gespmm(g, w=w, device="cpu")
+    emu = emulate_row_units(plan.rows, B)
+    assert not np.isnan(emu).any() and not emu[g.degrees == 0].any()
+    jplan = j_prepare_gespmm(jax_graph(g), w=w)
+    assert jplan.interpret
+    absprod = emulate_row_units(
+        dataclasses.replace(plan.rows, vals=plan.rows.vals.abs()), np.abs(B))
+    assert_sums_close(emu, np.asarray(jplan(jnp.asarray(B))), g.degrees,
+                      absprod)
+    assert_sums_close(plan(torch.from_numpy(B)).numpy(), emu, g.degrees,
+                      absprod)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_gespmm_convert_carries_the_same_row_tables(name):
+    g = GRAPHS[name]()
+    mine = prepare_gespmm(g, w=8, device="cpu")
+    conv = gespmm_plan_from_numpy(
+        jax_gespmm_dict(j_prepare_gespmm(jax_graph(g), w=8)), "cpu")
+    for f in ("cols", "vals", "row_start", "units", "splits"):
+        np.testing.assert_array_equal(getattr(conv.rows, f).numpy(),
+                                      getattr(mine.rows, f).numpy(), f)
+    assert conv.rows.n_parts == mine.rows.n_parts
+    # a plan without tables derives the same at its call
+    derived = tables_from_buckets(((mine.cols, mine.vals),), mine.chunk_row,
+                                  mine.m)
+    np.testing.assert_array_equal(derived.units.numpy(),
+                                  mine.rows.units.numpy())
+    B = torch.from_numpy(make_features(g, 8))
+    bare = dataclasses.replace(mine, rows=None)
+    torch.testing.assert_close(bare(B), mine(B), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_gespmm_traffic_model_matches_jax(name):
+    g = GRAPHS[name]()
+    mine = prepare_gespmm(g, w=16, device="cpu")
+    ref = j_prepare_gespmm(jax_graph(g), w=16)
+    assert mine.stats == ref.stats
+    for k in (16, 128):
+        assert mine.traffic_model(k) == ref.traffic_model(k)
+
+
+@pytest.mark.parametrize("k", [16, 41])
+def test_spmm_default_method_is_xla_as_in_jax(k):
+    """``spmm(g, B)`` names no method: the port and the JAX package both
+    take ``"xla"``, which any graph can run (the windowed method would
+    refuse this one: a uniform graph has no dense windows)."""
+    g = uniform_graph(20_000, 80_000, seed=2)
+    B = make_features(g, k)
+    C = spmm(g, B, device="cpu")
+    np.testing.assert_allclose(C.numpy(),
+                               np.asarray(flex_tpu.ops.spmm(jax_graph(g), B)),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="coverage"):
+        spmm(g, B, method="windowed", device="cpu")

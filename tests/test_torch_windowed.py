@@ -87,6 +87,7 @@ def jax_windowed_dict(p) -> dict:
         "win_step": np.asarray(p.win_step),
         "row_gather": np.asarray(p.row_gather), "coverage": p.coverage,
         "min_count_eff": p.min_count_eff, "ell": jax_ell_dict(p.ell),
+        "n_windows": p.n_windows, "covered_nnz": p.covered_nnz,
     }
 
 
@@ -248,3 +249,23 @@ def test_window_fwd_rejects_bad_arguments():
     with pytest.raises(ValueError, match="panel_step_ptr"):
         window_spmm_fwd(*good.values(),
                         **dict(kw, n_panels=plan.n_used_panels + 1))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_windowed_stats_and_traffic_model_match_jax(name):
+    """The plan's counters (``pad_ratio``, ``step_fill``, ``dense_occ``,
+    ``W``, ``impl`` and the rest) and byte model equal the JAX plan's, on
+    the port's own build and on a plan converted from the JAX arrays; the
+    port adds the longest panel's step count."""
+    make, kw = CASES[name]
+    g = make()
+    mine = prepare_windowed(g, device="cpu", **kw)
+    ref = j_prepare_windowed(jax_graph(g), **kw)
+    conv = windowed_plan_from_numpy(jax_windowed_dict(ref), "cpu")
+    for plan in (mine, conv):
+        st = plan.stats
+        assert st.pop("max_steps_per_panel") >= 1
+        assert st == ref.stats
+        for k in (16, 128):
+            assert plan.traffic_model(k) == ref.traffic_model(k)
+    assert {"step_fill", "dense_occ", "pad_ratio"} <= set(ref.stats)
