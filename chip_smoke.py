@@ -23,7 +23,11 @@ Phases:
      the same kernel on full-depth ranges.  The row-unit kernel on GE-SpMM
      plans (pad chunks, empty and split rows; k = 128, 41, 200) and on ELL
      plans and their transposed plans added into an accumulator, each
-     launched twice for equal bits.
+     launched twice for equal bits.  g_A runs on the forward's units of
+     panels of 1, 8, 9 and 17 steps with an all-sentinel step, TM 128, 200,
+     256 and 384, k = 16, 32, 41, 128, 200 (beyond its resident depth of 128)
+     and a misaligned g at k = 41; its sentinel tiles must be exactly zero,
+     and a second launch, one-step units and derived units give its bits.
   4. the forward path at full size: reddit_posts(seed=0) -> rbdeg ->
      window_select(tm=256, W=128, min_count=64, max_dense_bytes=6 GiB) ->
      prepare_windowed on cuda -> plan(B), B = make_features(g, 128),
@@ -38,16 +42,20 @@ Phases:
   6. the gradient path at full size: loss = (plan(B) * co).sum() with B and
      plan.A requiring grad; the backward launches the g_A and g_B kernels;
      g_B against SciPy's A^T.co (res_check err_frac <= 1e-4), g_A against
-     its plain version; once more with ``with_training_bwd`` (twice, for
-     equal bits), and g_B at k = 41.
+     its plain version and A.grad against the kernel's g_A; the gradient
+     call timed with and without A's gradient; once more with
+     ``with_training_bwd`` (twice, for equal bits), and g_B at k = 41.
   7. the training path at full size: GCN(128 -> 128 -> 41) through
      ``make_train_step`` with Adam(1e-2), 2 warm-up and 5 timed steps; the
      parameter gradients of the first step against the same loss taken
      through the plain versions on the card; the launch counts per step, a
      finite and falling loss, ms/step, peak memory and the step's split.
   8. the two backward kernels on the main path's own tensors, as in 5
-     (g_B at k = 128 and k = 41, with its units, reduce pass, longest
-     chain alone and one unit per chain); then the residue alone: the
+     (g_A at k = 128 and 41 in the forward's units and one step a block,
+     beside the plain version's bmm alone on gathered operands, the two
+     gathers, and ptxas's registers and spills; g_B at k = 128 and k = 41,
+     with its units, reduce pass, longest chain alone and one unit per
+     chain); then the residue alone: the
      row-unit kernel added into an accumulator at k = 128, 41 and 32
      against its plain version and cuSPARSE on the residue's CSR, and the
      transposed residue without its pad entries (``with_training_bwd``'s)
@@ -243,20 +251,40 @@ def bwd_slot_tables(win_step, out_panel, n, W, G):
             "units": d["slot_units"]}
 
 
+def step_units(S, dev):
+    """The step grain of the g_A kernel: a table of one-step units."""
+    from flex_tpu_torch.ops.window_spmm import device_units
+
+    return device_units(np.arange(S + 1, dtype=np.int32), 1, dev)
+
+
 def check_gA_kernel(torch, out_panel, win_step, g, B, TM, W, label,
-                    chunk=1024):
+                    units=None, chunk=1024):
     """|gA_kernel - gA_plain| <= 2·k·eps32·(|g|·|B|ᵀ) elementwise (k is the
-    contraction length; sentinel tiles must be exactly zero).  The plain
-    version runs ``chunk`` steps at a time to bound its temporaries.
-    Returns (g_A, max_abs_err)."""
+    contraction length); sentinel tiles exactly zero.  Each element sums
+    over k in one fixed order whatever the unit table, so a second launch,
+    the step grain and (when ``units`` is given) the derived units give the
+    same bits.  The plain version runs ``chunk`` steps at a time to bound
+    its temporaries.  Returns (g_A, max_abs_err)."""
     from flex_tpu_torch.ops.window_spmm import (
         window_bwd_gA, window_bwd_gA_plain,
     )
 
     S, k = out_panel.shape[0], B.shape[1]
     G = win_step.shape[0] // S
-    gA = window_bwd_gA(out_panel, win_step, g, B, TM=TM, W=W)
+    gA = window_bwd_gA(out_panel, win_step, g, B, TM=TM, W=W, units=units)
+    again = [units, step_units(S, g.device)] + ([None] if units else [])
+    for u in again:
+        require_same_bits(torch, "window_bwd_gA", f"{label} units="
+                          f"{'derived' if u is None else u[0].shape[0]}", gA,
+                          window_bwd_gA(out_panel, win_step, g, B, TM=TM, W=W,
+                                        units=u))
     torch.cuda.synchronize()
+    nblk = max(-(-B.shape[0] // W), 1)
+    sent = (win_step == nblk).view(S, G)
+    if bool(gA.view(S, TM, G, W).permute(0, 2, 1, 3)[sent].any()):
+        raise AssertionError(f"g_A kernel on {label}: a sentinel tile is not "
+                             f"zero")
     g_abs, B_abs = g.abs(), B.abs()
     max_err = ratio = 0.0
     bad = not bool(torch.isfinite(gA).all())
@@ -272,7 +300,8 @@ def check_gA_kernel(torch, out_panel, win_step, g, B, TM, W, label,
         raise AssertionError(f"g_A kernel disagrees with plain on {label}: "
                              f"max_abs_err={max_err:.3e} ratio={ratio:.3f}")
     log(f"[kernel-vs-plain] window_bwd_gA {label}: max_abs_err={max_err:.3e} "
-        f"worst err/bound={ratio:.4f} ok")
+        f"worst err/bound={ratio:.4f} sentinel tiles {int(sent.sum())} zero, "
+        f"{len(again) + 1} launches bit-equal ok")
     return gA, max_err
 
 
@@ -298,20 +327,50 @@ def check_gB_kernel(torch, tabs, out_panel, A, g, W, label):
                          L[:, None])
 
 
-def check_bwd_kernels(torch, t, n_panels, W, label, ks=KS):
-    """Both backward kernels on one random-table case, at each k."""
+def check_bwd_kernels(torch, t, n_panels, W, label, ptr=None, ks=KS):
+    """Both backward kernels on one random-table case, at each k; g_A with
+    the forward's units of ``ptr`` (and, inside, one-step and derived
+    units), and at k = 41 once more with a g that is not 16-byte aligned
+    (4-byte copies)."""
+    from flex_tpu_torch.ops.window_spmm import FWD_CHUNK_STEPS, device_units
+
     TM, GW = t["A"].shape[1], t["A"].shape[2]
     n = t["B"].shape[0]
     tabs = bwd_slot_tables(t["win_step"], t["out_panel"], n, W, GW // W)
+    units = None if ptr is None else device_units(
+        ptr.cpu().numpy(), FWD_CHUNK_STEPS, t["A"].device)
     for k in ks:
         g = torch.rand((n_panels * TM, k), device=t["A"].device) * 2 - 1
         B = t["B"] if k == t["B"].shape[1] else \
             torch.rand((n, k), device=g.device) * 2 - 1
         check_gA_kernel(torch, t["out_panel"], t["win_step"], g, B, TM, W,
-                        f"{label} k={k}")
+                        f"{label} k={k}", units=units)
+        if k == 41:
+            g_off = torch.empty(g.numel() + 1, device=g.device)[1:].view_as(g)
+            g_off.copy_(g)
+            check_gA_kernel(torch, t["out_panel"], t["win_step"], g_off, B,
+                            TM, W, f"{label} k={k} g misaligned", units=units)
         if tabs is not None:
             check_gB_kernel(torch, tabs, t["out_panel"], t["A"], g, W,
                             f"{label} k={k}")
+
+
+def check_gA_unit_edges(torch, rng, dev="cuda"):
+    """Kernel 2 on the forward's units of panels of 1, 8, 9 and 17 steps
+    with an all-sentinel step, n % W != 0, TM 128, 256 and 384 (a block
+    takes 256 rows), k = 16, 41, 128 and 200 (a depth beyond the resident
+    tile's cap of 128)."""
+    from flex_tpu_torch.ops.window_spmm import FWD_CHUNK_STEPS as CS
+
+    steps = np.array([1, CS, CS + 1, 2 * CS + 1])
+    for TM in (128, 256, 384):
+        t, n_panels, W, ptr = random_window_case(
+            torch, rng, steps, 9_000 + 5, dev, TM=TM,
+            sentinel_steps=(CS + 4,))
+        check_bwd_kernels(torch, t, n_panels, W,
+                          f"unit edges TM={TM} S={int(steps.sum())}", ptr,
+                          ks=(16, 41, K, 200))
+        del t
 
 
 def check_window_t_kernel(torch, first, out_panel, win_step, A_T, B_T,
@@ -639,7 +698,7 @@ def phase_kernels_vs_plain(torch, dev="cuda"):
                              f"{chains}, or no full unit")
     label = f"S={int(steps.sum())} panels={n_panels} n=50037"
     check_window_kernel_ks(torch, t, n_panels, W, ptr, label)
-    check_bwd_kernels(torch, t, n_panels, W, label)
+    check_bwd_kernels(torch, t, n_panels, W, label, ptr)
     # TM not a multiple of the 128-row tile, W = 64, G = 2
     steps = np.array([3, 2 * CS + 1, 1])
     t, n_panels, W, ptr = random_window_case(
@@ -647,7 +706,7 @@ def phase_kernels_vs_plain(torch, dev="cuda"):
         chains=(CL + 1,))
     label = f"S={int(steps.sum())} TM=200 G=2 W=64 n=3005"
     check_window_kernel_ks(torch, t, n_panels, W, ptr, label)
-    check_bwd_kernels(torch, t, n_panels, W, label)
+    check_bwd_kernels(torch, t, n_panels, W, label, ptr)
     # all-sentinel panel and a tiny graph with a single partial block
     steps = np.array([3, 2])
     t, n_panels, W, ptr = random_window_case(torch, rng, steps, 200, dev,
@@ -655,7 +714,8 @@ def phase_kernels_vs_plain(torch, dev="cuda"):
     t["win_step"][:3 * 4] = -(-200 // W)  # panel 0: every window a sentinel
     check_window_kernel_ks(torch, t, n_panels, W, ptr,
                            "sentinel panel, n=200")
-    check_bwd_kernels(torch, t, n_panels, W, "sentinel panel, n=200")
+    check_bwd_kernels(torch, t, n_panels, W, "sentinel panel, n=200", ptr)
+    check_gA_unit_edges(torch, rng, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -795,12 +855,14 @@ WHOLE_OWNER_RECORD_MS = {
 }
 
 
-# What kernels 4 to 7 and the residue took before they were redesigned
-# (one block per panel or per tile, loads and FMAs in turn; kernels 5 and
-# 6 over the whole depth; kernel 7 as chunk partials with the scatter-add
-# outside; the residue in plain torch), on an NVIDIA H100 80GB HBM3 at
-# 700 W: printed beside this run's times, not part of the kernels line.
+# What kernels 2 and 4 to 7 and the residue took before they were
+# redesigned (one block per panel or per tile, loads and FMAs in turn;
+# kernels 5 and 6 over the whole depth; kernel 7 as chunk partials with the
+# scatter-add outside; the residue in plain torch), on an NVIDIA H100 80GB
+# HBM3 at 700 W: printed beside this run's times, not part of the kernels
+# line.
 REDESIGN_RECORD_MS = {
+    "window_bwd_gA": 15.36,
     "window_spmm_t_fwd": {"k41": 11.67, "k32": 8.68},
     "transposed_t_elap": {"k41": 14.15, "k32": 13.18},
     "band_spmm_v2": 2.909, "pallas2_t_elap": 2.909,
@@ -881,6 +943,29 @@ def kernel_wrappers() -> list:
             band_spmm_v2, band_spmm_v1, gespmm_rows]
 
 
+def kernel_usage(source: str, name: str) -> list:
+    """Registers and spill bytes that ptxas reported for the entries of
+    ``csrc/<source>.cu`` whose mangled name holds ``name`` (empty when the
+    library was built by an earlier process)."""
+    from flex_tpu_torch import kernels
+
+    out, entry = [], None
+    for line in kernels.build_log.get(source, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if name in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if entry and m:
+            out.append({"entry": entry, "spill_stores": int(m.group(1)),
+                        "spill_loads": int(m.group(2))})
+        m = re.search(r"Used (\d+) registers", line)
+        if entry and m and out and out[-1]["entry"] == entry:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def reset_launches():
     for fn in kernel_wrappers():
         fn.launches = 0
@@ -897,10 +982,10 @@ def expect_launches(launches: dict, what: str, **counts):
         raise AssertionError(f"{what} launched {launches}, expected {want}")
 
 
-def phase_gradient(torch, g, plan, B_dev):
+def phase_gradient(torch, g, plan, B_dev, time_cuda_ms):
     """Phase 6.  Returns (launch counts, g_A's max error against plain, the
     cotangent co, the dense half's share of it, the plan with the training
-    backward)."""
+    backward, its launch counts, the gradient call's times)."""
     import dataclasses
 
     from flex_tpu_torch.ops.window_spmm import with_training_bwd
@@ -932,12 +1017,27 @@ def phase_gradient(torch, g, plan, B_dev):
     g_dense = dense_cotangent(torch, plan, co)
     gA_again, gA_err = check_gA_kernel(
         torch, plan.out_panel, plan.win_step, g_dense, B_dev, plan.tm, plan.W,
-        "main path")
+        "main path k=128", units=plan.panel_units)
     diff = float((A.grad - gA_again).abs().max())
     if tuple(A.grad.shape) != tuple(plan.A.shape) or not diff <= 1e-5:
         raise AssertionError(f"A.grad differs from the g_A kernel on the "
                              f"backward's own cotangent: max |diff| {diff}")
+    log(f"[grad] A.grad vs the g_A kernel on the dense cotangent: max |diff| "
+        f"{diff:.3e}")
     del A, gA_again, loss
+
+    # the gradient call, timed: with A's gradient (kernel 2 runs) and with
+    # B's alone
+    def grad_call(wrt_A):
+        Ai = plan.A.detach().requires_grad_(wrt_A)
+        Bi = B_dev.clone().requires_grad_()
+        (dataclasses.replace(plan, A=Ai)(Bi) * co).sum().backward()
+
+    grad_ms = {wrt: time_cuda_ms(grad_call, wrt, iters=5)
+               for wrt in (True, False)}
+    log(f"[grad] gradient call (forward + backward): B and A requiring grad "
+        f"{grad_ms[True]:.3f} ms, B alone {grad_ms[False]:.3f} ms, "
+        f"difference {grad_ms[True] - grad_ms[False]:.3f} ms")
 
     t0 = time.perf_counter()
     tplan = with_training_bwd(plan)
@@ -970,7 +1070,7 @@ def phase_gradient(torch, g, plan, B_dev):
     check_gB_against_scipy(g, B41.grad, np.ascontiguousarray(gold[:, :41]),
                            col_deg, "with_training_bwd k=41")
     del B41
-    return launches, gA_err, co, g_dense, tplan, l2
+    return launches, gA_err, co, g_dense, tplan, l2, grad_ms
 
 
 def profile_steps(torch, step, args, n=2):
@@ -1144,13 +1244,13 @@ def slots_percentiles(plan) -> list[int]:
     return [int(np.percentile(n, q)) for q in (50, 99, 100)]
 
 
-def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
+def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err, grad_ms,
                       launches_grad, launches_train, peaks, time_cuda_ms):
     """Phase 8: the two backward kernels on the main path's tensors.
     Returns their rows of the kernels line."""
     from flex_tpu_torch.ops.window_spmm import (
-        GB_CHUNK_SLOTS, device_units, window_bwd_gA, window_bwd_gA_plain,
-        window_bwd_gB, window_bwd_gB_plain,
+        FWD_CHUNK_STEPS, GB_CHUNK_SLOTS, _padded, _window_rows, device_units,
+        window_bwd_gA, window_bwd_gA_plain, window_bwd_gB, window_bwd_gB_plain,
     )
 
     n_win, _, n_flops = window_bytes_flops(plan, K)
@@ -1161,23 +1261,66 @@ def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
             "n_blk_used": plan.n_blk_used, "units": plan.slot_units}
     tables_bytes = 4 * (plan.win_step.numel() + plan.out_panel.numel())
 
-    # kernel 2: reads g and B once, writes every tile of g_A (sentinels too)
-    gA_args = (plan.out_panel, plan.win_step, g_dense, B_dev)
-    gA_ms = time_cuda_ms(lambda: window_bwd_gA(*gA_args, TM=TM, W=W), iters=5)
+    # kernel 2: reads g and B once, writes every tile of g_A (sentinels too);
+    # the forward's units (one block per unit and 128-row tile) and the step
+    # grain (one block per step and 128-row tile) at k = 128 and 41
+    gA_args = (plan.out_panel, plan.win_step)
+    gd41 = g_dense[:, :41].contiguous()
+    B41 = B_dev[:, :41].contiguous()
+    steps1 = step_units(S, "cuda")
+    gA_call = lambda gd, b, units: window_bwd_gA(  # noqa: E731
+        *gA_args, gd, b, TM=TM, W=W, units=units)
+    _, gA_err_41 = check_gA_kernel(torch, *gA_args, gd41, B41, TM, W,
+                                   "main path k=41", units=plan.panel_units)
+    gA_ms = time_cuda_ms(gA_call, g_dense, B_dev, plan.panel_units, iters=10)
+    gA_ms_41 = time_cuda_ms(gA_call, gd41, B41, plan.panel_units, iters=10)
+    gA_steps_ms = time_cuda_ms(gA_call, g_dense, B_dev, steps1, iters=10)
+    gA_steps_ms_41 = time_cuda_ms(gA_call, gd41, B41, steps1, iters=10)
     gA_plain_ms = time_cuda_ms(
-        lambda: window_bwd_gA_plain(*gA_args, TM=TM, W=W), iters=3, warmup=1)
-    gA_bytes = (g_dense.numel() + B_dev.numel() + plan.A.numel()) * 4 \
-        + tables_bytes
-    gA_bound, gA_by = bound(gA_bytes, n_flops, peaks)
+        lambda: window_bwd_gA_plain(*gA_args, g_dense, B_dev, TM=TM, W=W),
+        iters=3, warmup=1)
+    units_bytes = 4 * plan.panel_units[0].numel()
+    gA_bound, gA_by = bound(
+        (g_dense.numel() + B_dev.numel() + plan.A.numel()) * 4
+        + tables_bytes + units_bytes, n_flops, peaks)
+    gA_bytes_41 = (gd41.numel() + B41.numel() + plan.A.numel()) * 4 \
+        + tables_bytes + units_bytes
+    gA_bound_41, gA_by_41 = bound(gA_bytes_41, n_flops * 41 / K, peaks)
+    # the library yardstick: the plain version's one bmm (cuBLAS SGEMM, TF32
+    # off) on operands gathered beforehand, and the two gathers apart
+    gather_g = lambda gd: gd.view(-1, TM, gd.shape[1])[  # noqa: E731
+        plan.out_panel.long()]
+    gather_B = lambda b: _padded(b, W)[  # noqa: E731
+        _window_rows(plan.win_step, W, b.device).view(S, -1)]
+    lib = {}
+    for kk, gd, b in ((K, g_dense, B_dev), (41, gd41, B41)):
+        g_p, Bw = gather_g(gd), gather_B(b)
+        out = torch.empty((S, TM, GW), device="cuda")
+        lib[kk] = {
+            "bmm_ms": time_cuda_ms(lambda: torch.bmm(
+                g_p, Bw.transpose(1, 2), out=out), iters=5),
+            "gather_g_ms": time_cuda_ms(gather_g, gd, iters=5),
+            "gather_B_ms": time_cuda_ms(gather_B, b, iters=5)}
+        del g_p, Bw, out
+    usage = kernel_usage("window_spmm_bwd", "window_bwd_gA")
     log(f"[kernels] window_bwd_gA: real windows {n_win}, "
-        f"{n_flops / 1e12:.4f} TFLOP, {gA_bytes / 1e9:.3f} GB, "
-        f"{n_flops / (gA_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+        f"{n_flops / 1e12:.4f} TFLOP, {n_flops / (gA_ms * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s achieved; units of at most {FWD_CHUNK_STEPS} steps "
+        f"{plan.panel_units[0].shape[0]}: {gA_ms:.3f} ms, k=41 "
+        f"{gA_ms_41:.3f} ms (bound {gA_bound_41:.3f} ms, {gA_by_41}); one "
+        f"step a block {S}: {gA_steps_ms:.3f} ms, k=41 {gA_steps_ms_41:.3f} "
+        f"ms; library bmm alone on gathered operands {lib[K]['bmm_ms']:.3f} "
+        f"ms (k=41 {lib[41]['bmm_ms']:.3f}), gathers of g "
+        f"{lib[K]['gather_g_ms']:.3f} and of B {lib[K]['gather_B_ms']:.3f} "
+        f"ms (k=41 {lib[41]['gather_g_ms']:.3f}, "
+        f"{lib[41]['gather_B_ms']:.3f}); plain {gA_plain_ms:.3f} ms; "
+        f"ptxas {usage}; the kernel took "
+        f"{REDESIGN_RECORD_MS['window_bwd_gA']} ms before its redesign")
 
     # kernel 3: reads the real windows of A and g once, writes the compact out
     gB_err = check_gB_kernel(torch, tabs, plan.out_panel, plan.A, g_dense, W,
                              "main path k=128")
     # the train step's second layer calls it at k = 41
-    gd41 = g_dense[:, :41].contiguous()
     gB_err_41 = check_gB_kernel(torch, tabs, plan.out_panel, plan.A, gd41, W,
                                 "main path k=41")
     gB_call = lambda gd=g_dense, units=plan.slot_units: window_bwd_gB(  # noqa: E731
@@ -1250,7 +1393,17 @@ def phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
         "replaces": "flex_tpu/ops/window_spmm.py:841",
         "launches": launches_grad["window_bwd_gA"], "max_abs_err": gA_err,
         "ms": gA_ms, "plain_ms": gA_plain_ms, "bound_ms": gA_bound,
-        "bound_by": gA_by, "library_ms": None,
+        "bound_by": gA_by, "library_ms": lib[K]["bmm_ms"],
+        "ms_k41": gA_ms_41, "max_abs_err_k41": gA_err_41,
+        "bound_ms_k41": gA_bound_41, "bound_by_k41": gA_by_41,
+        "library_ms_k41": lib[41]["bmm_ms"],
+        "gather_g_ms": lib[K]["gather_g_ms"],
+        "gather_B_ms": lib[K]["gather_B_ms"],
+        "ms_one_step_per_block": gA_steps_ms,
+        "ms_one_step_per_block_k41": gA_steps_ms_41,
+        "units": int(plan.panel_units[0].shape[0]),
+        "grad_call_ms": grad_ms[True], "grad_call_B_only_ms": grad_ms[False],
+        "ptxas": usage,
     }, {
         "name": "window_bwd_gB", "route": "cuda", "source": src,
         "replaces": "flex_tpu/ops/window_spmm.py:882",
@@ -2021,13 +2174,13 @@ def main() -> int:
         f"{n_flops / (dense_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
 
     # 6. gradient path, 7. training path, 8. the backward kernels
-    launches_grad, gA_err, co, g_dense, tplan, launches_tgrad = \
-        phase_gradient(torch, g, plan, B_dev)
+    launches_grad, gA_err, co, g_dense, tplan, launches_tgrad, grad_ms = \
+        phase_gradient(torch, g, plan, B_dev, time_cuda_ms)
     launches_train = phase_training(torch, g, plan, tplan, B_dev,
                                     time_cuda_ms, smi,
                                     profile="--profile" in sys.argv[1:])
     rows += phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
-                              launches_grad, launches_train, peaks,
+                              grad_ms, launches_grad, launches_train, peaks,
                               time_cuda_ms)
     residue = phase_residue(torch, plan, tplan, peaks, time_cuda_ms)
     log(f"[kernels] launches: forward path {launches}, gradient path "

@@ -11,14 +11,35 @@
 //   g_B block b            = sum over the slots (s, j) with win_step[s*G+j] == b of
 //                            A[s][:, j*W:(j+1)*W]^T . g[out_panel[s]*TM : +TM, :]
 //
-// g_A: every (step, window) tile is independent and is written exactly once,
-// so one block owns one (window slot, BM-row, BN-column) tile.  A sentinel
-// window (id nblk) and B rows >= n write zeros, which the TPU kernel got from
-// a zero block appended to B; no padded copy of B is made, and the output
-// needs no zero-fill pass.  The contraction runs over k, and both operands
-// are k-contiguous rows, so both are staged transposed through shared memory
-// (one padded column keeps the transposing stores to 2-way bank conflicts).
-// Offsets into g_A are 64-bit (S*TM*G*W ~ 1.6e9 on the main path).
+// g_A: every (step, window) tile is independent and is written exactly once;
+// there is no sum across steps, so no second pass.  One block owns one work
+// unit of consecutive steps of one panel (the forward's plan.panel_units,
+// ops/window_spmm.py:work_units; a table of one-step units gives the step
+// grain) and 256 rows of TM.  All G windows of a step, and all steps of a
+// unit, meet the same rows of the cotangent, so that tile is loaded once
+// per block into shared memory and stays resident; a k beyond its cap (128)
+// walks the depth in chunks of the cap, reloading the tile per chunk.  The
+// W-row block of B that window j meets streams through two shared stages of
+// 128 rows x 16 depths, fetched one stage ahead into registers by 16-byte
+// reads and stored transposed after the FMAs, without a pause between the
+// windows of the unit.  Both operands lie depth-major, so a thread's 8 x 16
+// register tile takes an outer product per depth (2 + 4 float4 reads per
+// 128 FMAs).  A sentinel window (id nblk) gets its zeros up front, without
+// loads or FMAs; B rows >= n and depths >= k read as zero, so no padded
+// copy of B is made.  The output is written once by float4 streaming
+// stores (st.global.cs), so it does not evict g and B from L2; offsets are
+// 64-bit (S*TM*G*W ~ 1.6e9 on the main path).  Each element sums over k in
+// ascending order: the same bits on every launch and for every unit table.
+//
+// What was learned on an NVIDIA H100 80GB HBM3 at 700 W on the main path's
+// tables: B staged by cp.async as it lies (k-contiguous rows, read four
+// depths a float4) starved the register file, so nothing was prefetched;
+// B transposed by 4-byte cp.async copies cost about a quarter of the
+// kernel (the copies pass through L1, four lines a warp request); through
+// registers it costs little.  An 8 x 16 tile at one block an SM beat 8 x 8
+// at two (which spilled); a 32-deep stage spilled; the plan's units beat
+// one step a block (a block's start costs some microseconds).  PERF.md has
+// the times.
 //
 // g_B: the TPU grid walked the slots in block-id order and carried a block's
 // sum from step to step; CUDA blocks run in no order.  The host sorts the
@@ -40,120 +61,17 @@
 // Bound: each window does 2*TM*W*k FMA-operations against TM*W*4 bytes of A
 // read (g_B) or written (g_A): 64 flop/byte at k=128, above the FP32 ridge of
 // an H100 (67 TFLOP/s over 3.35 TB/s = 20 flop/byte), so the FP32 CUDA cores
-// bound both.  g_A is a shared-memory-tiled SGEMM with an 8x8 register tile
-// per thread.  g_B shares the forward's pieces (csrc/window_tile.cuh): equal
-// units keep every SM busy, the column tile follows k (32, 48, 64 or 128
-// columns, so k = 41 does the FMAs of 48), and a three-stage cp.async ring
-// keeps the next loads in flight under the FMAs with one barrier per
-// 16-deep stage.  Exact f32 FMA throughout: no TF32, no split precision.
+// bound both; at k=41 g_A's stores weigh as much as its FMAs.  g_B shares the
+// forward's pieces (csrc/window_tile.cuh): equal units keep every SM busy,
+// the column tile follows k (32, 48, 64 or 128 columns, so k = 41 does the
+// FMAs of 48), and a three-stage cp.async ring keeps the next loads in
+// flight under the FMAs with one barrier per 16-deep stage.  g_A's depth is
+// k itself, in stages of 16 (k = 41 does the FMAs of 48).  Exact f32 FMA
+// throughout: no TF32, no split precision.
 
 #include "window_tile.cuh"
 
 namespace {
-
-constexpr int BM = 128;  // output rows per block
-constexpr int BN = 128;  // output columns per block
-constexpr int BK = 16;   // contraction depth per shared-memory stage
-constexpr int RM = 8;    // rows per thread
-constexpr int RN = 8;    // columns per thread: two runs of 4, BN/2 apart
-constexpr int NT = (BM / RM) * (BN / RN);  // 256 threads
-constexpr int PAD = 4;   // keeps rows 16-byte aligned, spreads the banks
-
-// acc += a (column of RM values) x b (row of RN values), for BK stages
-template <int LDA, int LDB>
-__device__ __forceinline__ void tile_fma(float (*As)[LDA], float (*Bs)[LDB],
-                                         int tr, int tc,
-                                         float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int q = 0; q < BK; ++q) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&As[q][tr * RM]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&As[q][tr * RM + 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[q][tc * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[q][BN / 2 + tc * 4]);
-    const float a[RM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[RN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// rows [n_rows, k] row-major -> dst[q][r] = rows[row0 + r][kk + q], zero
-// beyond n_rows (or row_limit) and beyond k
-__device__ __forceinline__ void load_rows_transposed(
-    float (*dst)[BM + PAD], const float* __restrict__ rows, int64_t row0,
-    int64_t row_limit, int kk, int k, int tid) {
-#pragma unroll
-  for (int t = 0; t < (BM * BK) / NT; ++t) {
-    const int i = tid + t * NT;
-    const int r = i / BK;
-    const int q = i % BK;
-    float v = 0.f;
-    if (row0 + r < row_limit && kk + q < k) v = rows[(row0 + r) * k + kk + q];
-    dst[q][r] = v;
-  }
-}
-
-__global__ void __launch_bounds__(NT)
-window_bwd_gA_kernel(const float* __restrict__ g, const float* __restrict__ B,
-                     const int32_t* __restrict__ win_step,
-                     const int32_t* __restrict__ out_panel,
-                     float* __restrict__ gA, int TM, int G, int W, int n,
-                     int k, int nblk) {
-  static_assert(BM == BN, "both operands use the BM-wide transposing loader");
-  __shared__ __align__(16) float Gs[BK][BM + PAD];  // cotangent, [k][row]
-  __shared__ __align__(16) float Bs[BK][BN + PAD];  // B block,   [k][w]
-
-  const int sg = blockIdx.x;  // flat window slot s*G + j
-  const int s = sg / G;
-  const int j = sg % G;
-  const int row0 = blockIdx.y * BM;  // within TM
-  const int col0 = blockIdx.z * BN;  // within W
-  const int tid = threadIdx.x;
-  const int tr = tid / (BN / RN);
-  const int tc = tid % (BN / RN);
-  const int64_t GW = (int64_t)G * W;
-
-  float acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) acc[i][c] = 0.f;
-
-  const int blk = win_step[sg];
-  if (blk < nblk) {  // same for the whole block; a sentinel tile stays zero
-    const float* g_rows = g + (int64_t)out_panel[s] * TM * k;
-    const int64_t b_row0 = (int64_t)blk * W + col0;
-    // rows of this W-block that exist: up to the block's end and up to n
-    const int64_t b_end = (int64_t)blk * W + W;
-    const int64_t b_limit = b_end < n ? b_end : (int64_t)n;
-    for (int kk = 0; kk < k; kk += BK) {
-      load_rows_transposed(Gs, g_rows, row0, TM, kk, k, tid);
-      load_rows_transposed(Bs, B, b_row0, b_limit, kk, k, tid);
-      __syncthreads();
-      tile_fma<BM + PAD, BN + PAD>(Gs, Bs, tr, tc, acc);
-      __syncthreads();
-    }
-  }
-
-  // epilogue: every element of the tile is written exactly once (float4:
-  // W % 4 == 0, so a run of 4 columns lies wholly inside or outside W)
-  float* tile = gA + (int64_t)s * TM * GW + (int64_t)j * W;
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = row0 + tr * RM + i;
-    if (r >= TM) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = col0 + h * (BN / 2) + tc * 4;
-      if (c < W)
-        *reinterpret_cast<float4*>(tile + (int64_t)r * GW + c) = make_float4(
-            acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-            acc[i][4 * h + 3]);
-    }
-  }
-}
 
 namespace fw = flex_window;
 
@@ -251,18 +169,277 @@ int launch_gB(const float* A, const float* g, const int32_t* slot_s,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- g_A ------------------------------------------------------------------
+
+constexpr int GA_RM = 8;                // rows a thread
+constexpr int GA_RN = 16;               // columns a thread, four runs of 4
+constexpr int GA_TC = 8;                // thread columns
+constexpr int GA_TR = fw::NT / GA_TC;   // thread rows
+constexpr int GA_BM = GA_TR * GA_RM;    // rows of TM a block: 256
+constexpr int GA_BN = GA_TC * GA_RN;    // columns of a window a tile: 128
+constexpr int GA_KC = 128;              // resident depth of the cotangent tile
+constexpr int GA_LDA = GA_BM + 4;       // row strides of the depth-major
+constexpr int GA_LDB = GA_BN + 4;       // resident tile and of a B stage
+constexpr int GA_STAGE = fw::BK * GA_LDB;
+constexpr int GA_SMEM = (GA_KC * GA_LDA + 2 * GA_STAGE) * 4;
+static_assert(GA_BN == 128 && fw::NT == 256,
+              "a B stage is 16 rows of 16 depths a warp");
+
+// depth of the resident cotangent tile: k up to the cap, in whole stages
+__device__ __forceinline__ int ga_depth(int k) {
+  const int d = (k + fw::BK - 1) / fw::BK * fw::BK;
+  return d < fw::BK ? fw::BK : (d > GA_KC ? GA_KC : d);
+}
+
+// A B stage (128 rows x 16 depths) passes through registers on its way to
+// shared memory, where it lies depth-major.  Thread (warp w, lane l) holds
+// row c = 16 w + l % 16 at depths q0 .. q0 + 3 and q0 + 8 .. q0 + 11,
+// q0 = 4 (l / 16): a warp's reads are 16 rows x 32 bytes (whole sectors),
+// its transposed stores 32 banks at once.  VEC16: k % 4 == 0 and the rows
+// 16-byte aligned, two 16-byte reads; else eight 4-byte reads.
+template <bool VEC16>
+__device__ __forceinline__ void ga_fetch(float (&rb)[8],
+                                         const float* __restrict__ rows_b,
+                                         int rows, int kk, int k, int tid) {
+  const int c = tid / 32 * 16 + tid % 16;
+  const int q0 = kk + 4 * (tid % 32 / 16);
+  const float* src = rows_b + (int64_t)c * k + q0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = q0 + 8 * h;
+    if constexpr (VEC16) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < rows && q < k)
+        v = __ldcg(reinterpret_cast<const float4*>(src + 8 * h));
+      rb[4 * h] = v.x, rb[4 * h + 1] = v.y, rb[4 * h + 2] = v.z,
+             rb[4 * h + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        rb[4 * h + e] = c < rows && q + e < k ? __ldcg(src + 8 * h + e) : 0.f;
+    }
+  }
+}
+
+// ... and its transposed store: dst[q * LD + c] (LD % 32 == 4)
+template <int LD>
+__device__ __forceinline__ void ga_put(float* dst, const float (&rb)[8],
+                                       int tid) {
+  const int c = tid / 32 * 16 + tid % 16;
+  const int q0 = 4 * (tid % 32 / 16);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dst[(q0 + 8 * h + e) * LD + c] = rb[4 * h + e];
+}
+
+// units[u] = (panel, s_lo, s_hi, part): steps s_lo .. s_hi - 1; block b
+// owns unit b / n_rt and row tile b % n_rt of TM (the row tiles of a unit
+// run side by side and share its B rows in L2; part is not read: g_A has no
+// sum across steps).  Every (window, column tile) of the unit is one output
+// tile, written once.
+template <bool VEC16>
+__global__ void __launch_bounds__(fw::NT, 1)
+window_bwd_gA_kernel(const float* __restrict__ g, const float* __restrict__ B,
+                     const int32_t* __restrict__ win_step,
+                     const int32_t* __restrict__ out_panel,
+                     const int32_t* __restrict__ units,
+                     float* __restrict__ gA, int TM, int G, int W, int n,
+                     int k, int nblk) {
+  extern __shared__ __align__(16) float smem[];
+  const int depth = ga_depth(k);
+  float* Gs = smem;                        // resident tile [depth][row]
+  float* Bs = smem + GA_KC * GA_LDA;       // two B stages [depth][col]
+
+  const int n_rt = (TM + GA_BM - 1) / GA_BM;
+  const int unit = blockIdx.x / n_rt;
+  const int row0 = blockIdx.x % n_rt * GA_BM;  // within TM
+  const int rows_valid = TM - row0 < GA_BM ? TM - row0 : GA_BM;
+  const int tid = threadIdx.x;
+  const int tr = tid / GA_TC;
+  const int tc = tid % GA_TC;
+  const int GW = G * W;
+  const int slot_lo = units[4 * unit + 1] * G;
+  const int slot_hi = units[4 * unit + 2] * G;
+  const int n_ct = (W + GA_BN - 1) / GA_BN;  // column tiles of a window
+  // stages of a tile's depth (one of zeros when k == 0)
+  const int n_ks = k > 0 ? (k + fw::BK - 1) / fw::BK : 1;
+
+  // a sentinel window's tile is written as zeros, without loads or FMAs
+  int n_real = 0;
+  for (int sl = slot_lo; sl < slot_hi; ++sl) {
+    if (win_step[sl] < nblk) {
+      ++n_real;
+      continue;
+    }
+    float4* tile = reinterpret_cast<float4*>(
+        gA + ((int64_t)(sl / G) * TM + row0) * GW + (sl % G) * W);
+    const int w4 = W / 4;
+    for (int e = tid; e < rows_valid * w4; e += fw::NT)
+      __stcs(tile + (int64_t)(e / w4) * (GW / 4) + e % w4,
+             make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+  const int T = n_real * n_ct * n_ks;
+  if (T == 0) return;
+  auto next_real = [&](int sl) {
+    while (sl < slot_hi && win_step[sl] >= nblk) ++sl;
+    return sl;
+  };
+
+  // the fetches run one stage ahead of the FMAs, over the same sequence of
+  // (real window, column tile, depth) stages; the B rows of the fetches'
+  // tile are found once per tile
+  int ld_slot = next_real(slot_lo), ld_ct = 0, ld_kk = 0;
+  const float* ld_rows_b = B;  // the first B row of the fetches' tile
+  int ld_rows = 0;
+  auto ld_tile = [&]() {
+    const int c0 = ld_ct * GA_BN;
+    const int64_t b0 = (int64_t)win_step[ld_slot] * W + c0;
+    ld_rows_b = B + b0 * k;
+    // rows of B that exist: within the window and below n
+    const int64_t lim = n - b0 < W - c0 ? n - b0 : W - c0;
+    ld_rows = lim > 0 ? (int)lim : 0;
+  };
+  float rb[8];
+  auto fetch = [&]() {
+    ga_fetch<VEC16>(rb, ld_rows_b, ld_rows, ld_kk, k, tid);
+    ld_kk += fw::BK;
+    if (ld_kk >= k) {
+      ld_kk = 0;
+      if (++ld_ct == n_ct) {
+        ld_ct = 0;
+        ld_slot = next_real(ld_slot + 1);
+      }
+      if (ld_slot < slot_hi) ld_tile();
+    }
+  };
+  // the resident tile holds rows row0.. of panel g_panel, depth g_k0..
+  int g_panel = out_panel[ld_slot / G];
+  int g_k0 = 0;
+  auto load_g = [&]() {
+    fw::load_transposed<GA_BM, GA_LDA>(Gs, g, (int64_t)g_panel * TM + row0,
+                                       rows_valid, g_k0, depth, k, tid);
+    fw::cp_async_commit();
+    fw::cp_async_wait<0>();
+  };
+
+  // the first resident tile: with 16-byte reads it comes through registers
+  // as the B stages do, four (128-row, 16-depth) pieces in flight (the sums
+  // are not live yet); 4-byte reads go faster by cp.async
+  if constexpr (VEC16) {
+    const float* rows_g = g + ((int64_t)g_panel * TM + row0) * k;
+    const int pieces = GA_BM / 128 * (depth / fw::BK);
+    for (int p0 = 0; p0 < pieces; p0 += 4) {
+      float pc[4][8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (p0 + u < pieces) {
+          const int half = (p0 + u) % (GA_BM / 128);
+          ga_fetch<VEC16>(pc[u], rows_g + (int64_t)half * 128 * k,
+                          rows_valid - 128 * half,
+                          (p0 + u) / (GA_BM / 128) * fw::BK, k, tid);
+        }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (p0 + u < pieces)
+          ga_put<GA_LDA>(Gs + (p0 + u) / (GA_BM / 128) * fw::BK * GA_LDA +
+                             (p0 + u) % (GA_BM / 128) * 128,
+                         pc[u], tid);
+    }
+  } else {
+    load_g();
+  }
+  ld_tile();
+  fetch();
+  ga_put<GA_LDB>(Bs, rb, tid);  // stage 0
+  if (T > 1) fetch();           // stage 1, in registers
+
+  float acc[GA_RM][GA_RN];
+#pragma unroll
+  for (int i = 0; i < GA_RM; ++i)
+#pragma unroll
+    for (int j = 0; j < GA_RN; ++j) acc[i][j] = 0.f;
+
+  int t = 0;  // stages taken; stage t lies in Bs + (t & 1) * GA_STAGE
+  for (int sl = next_real(slot_lo); sl < slot_hi; sl = next_real(sl + 1)) {
+    const int p = out_panel[sl / G];
+    for (int ct = 0; ct < n_ct; ++ct) {
+      for (int kk = 0; kk < n_ks * fw::BK; kk += fw::BK, ++t) {
+        if (kk % GA_KC == 0 && (p != g_panel || kk != g_k0)) {
+          // another panel (a unit across panels) or the next depth chunk
+          // of a k beyond the cap: the tile reloads
+          __syncthreads();  // every thread is done with the tile it held
+          g_panel = p;
+          g_k0 = kk;
+          load_g();
+        }
+        __syncthreads();  // stage t stored (and the tile), t - 1 read
+        fw::fma_stage_depthmajor_ld<GA_RM, GA_RN, GA_TC, GA_LDA, GA_LDB>(
+            Gs + (kk - g_k0) * GA_LDA, Bs + (t & 1) * GA_STAGE, tr, tc, acc);
+        if (t + 1 < T) {
+          ga_put<GA_LDB>(Bs + ((t + 1) & 1) * GA_STAGE, rb, tid);  // t + 1
+          if (t + 2 < T) fetch();  // stage t + 2, under the next FMAs
+        }
+      }
+
+      // the tile is done: store it; every element once, streaming past L2
+      using M = fw::ColMap<GA_RN, GA_TC>;
+      const int c0 = ct * GA_BN;
+      float* tile = gA + ((int64_t)(sl / G) * TM + row0) * GW +
+                    (sl % G) * W + c0;
+#pragma unroll
+      for (int i = 0; i < GA_RM; ++i) {
+        const int r = tr * GA_RM + i;
+#pragma unroll
+        for (int run = 0; run < M::RUNS; ++run) {
+          const int c = M::col(tc, 4 * run);
+          // W % 16 == 0: a run of 4 lies wholly inside the window or not
+          if (r < rows_valid && c0 + c < W)
+            __stcs(reinterpret_cast<float4*>(tile + (int64_t)r * GW + c),
+                   make_float4(acc[i][4 * run], acc[i][4 * run + 1],
+                               acc[i][4 * run + 2], acc[i][4 * run + 3]));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][4 * run + e] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+template <bool VEC16>
+int launch_gA(const float* g, const float* B, const int32_t* win_step,
+              const int32_t* out_panel, const int32_t* units, float* gA,
+              int n_units, int TM, int G, int W, int n, int k, int nblk,
+              cudaStream_t st) {
+  const int err = fw::allow_smem(window_bwd_gA_kernel<VEC16>, GA_SMEM);
+  if (err) return err;
+  const int blocks = n_units * ((TM + GA_BM - 1) / GA_BM);
+  window_bwd_gA_kernel<VEC16><<<blocks, fw::NT, GA_SMEM, st>>>(
+      g, B, win_step, out_panel, units, gA, TM, G, W, n, k, nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// W % 16 == 0 (the wrapper checks).  units is int32[n_units][4] and covers
+// every step once; gA [S, TM, G*W] is written whole.  g and B move 16
+// bytes a read when k % 4 == 0 and both are 16-byte aligned, else 4.
 extern "C" int flex_window_bwd_gA(const float* g, const float* B,
                                   const int32_t* win_step,
-                                  const int32_t* out_panel, float* gA, int S,
-                                  int TM, int G, int W, int n, int k, int nblk,
-                                  void* stream) {
-  if (S == 0 || G == 0 || TM == 0) return 0;
-  const dim3 grid(S * G, (TM + BM - 1) / BM, (W + BN - 1) / BN);
-  window_bwd_gA_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, B, win_step, out_panel, gA, TM, G, W, n, k, nblk);
-  return static_cast<int>(cudaGetLastError());
+                                  const int32_t* out_panel,
+                                  const int32_t* units, float* gA,
+                                  int n_units, int TM, int G, int W, int n,
+                                  int k, int nblk, void* stream) {
+  if (n_units == 0 || G == 0 || TM == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  return vec ? launch_gA<true>(g, B, win_step, out_panel, units, gA, n_units,
+                               TM, G, W, n, k, nblk, st)
+             : launch_gA<false>(g, B, win_step, out_panel, units, gA, n_units,
+                                TM, G, W, n, k, nblk, st);
 }
 
 // A 16-byte aligned, W % 16 == 0 (the wrapper checks).  units is

@@ -1,5 +1,5 @@
 // Shared pieces of the window kernels that are cut into work units
-// (csrc/window_spmm.cu: the forward; csrc/window_spmm_bwd.cu: g_B;
+// (csrc/window_spmm.cu: the forward; csrc/window_spmm_bwd.cu: g_A and g_B;
 // csrc/window_spmm_t.cu: the transposed forward) and of the ranged split
 // band kernel (csrc/band_spmm.cu): the cp.async ring, the tile loaders, the
 // register-tile products, the tile store and the passes that add partial
@@ -263,6 +263,65 @@ __device__ __forceinline__ void fma_stage_depthmajor(
     load_cols<RN, TC>(Bs + q * BN, tc, b);
 #pragma unroll
     for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// ---- depth-major stages of k-contiguous operands ------------------------
+//
+// The g_A kernel multiplies a cotangent tile (rows x depth) by a B block
+// (output columns x depth): both are rows of k floats, contiguous along the
+// contraction.  A thread's outer product wants, at each depth, a run of its
+// rows and a run of its columns side by side, so both operands lie in
+// shared memory transposed, depth-major: the resident cotangent tile enters
+// by the 4-byte cp.async copies below (once a block), the B stages through
+// registers (csrc/window_spmm_bwd.cu).
+
+// dst[q * LD + r] (ROWS rows x `depth`, depth % 8 == 0) <-
+// src[(row0 + r) * k + k0 + q], zero where r >= rows_valid or
+// k0 + q >= k.  A warp copies 4 rows x 8 depths at a time: four whole
+// 32-byte sectors of global memory, and (LD % 32 == 4) the 32 banks of
+// shared memory once each.
+template <int ROWS, int LD>
+__device__ __forceinline__ void load_transposed(float* dst,
+                                                const float* __restrict__ src,
+                                                int64_t row0, int rows_valid,
+                                                int k0, int depth, int k,
+                                                int tid) {
+  static_assert(LD % 32 == 4 && ROWS % 4 == 0, "LD % 32 == 4");
+  const int lane = tid % 32;
+  const int dq = depth / 8;  // depth groups of 8
+  for (int w = tid / 32; w < (ROWS / 4) * dq; w += NT / 32) {
+    const int r = (w / dq) * 4 + lane / 8;
+    const int q = (w % dq) * 8 + lane % 8;
+    const bool ok = r < rows_valid && k0 + q < k;
+    cp_async4(dst + q * LD + r, ok ? src + (row0 + r) * k + k0 + q : src, ok);
+  }
+}
+
+// Depth-major product with padded strides: acc[i][j] += sum over the BK
+// depths q, in ascending order, of As[q * LDA + tr * RMT + i] *
+// Bs[q * LDB + col(tc, j)], columns by ColMap<RN, TCOLS> (runs of 4, read by
+// float4), rows a run of RMT read by float4.
+template <int RMT, int RN, int TCOLS, int LDA, int LDB>
+__device__ __forceinline__ void fma_stage_depthmajor_ld(
+    const float* __restrict__ As, const float* __restrict__ Bs, int tr,
+    int tc, float (&acc)[RMT][RN]) {
+  static_assert(RMT % 4 == 0, "rows by float4");
+#pragma unroll
+  for (int q = 0; q < BK; ++q) {
+    float a[RMT];
+#pragma unroll
+    for (int i = 0; i < RMT; i += 4) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(As + q * LDA + tr * RMT + i);
+      a[i] = v.x, a[i + 1] = v.y, a[i + 2] = v.z, a[i + 3] = v.w;
+    }
+    float b[RN];
+    load_cols<RN, TCOLS>(Bs + q * LDB, tc, b);
+#pragma unroll
+    for (int i = 0; i < RMT; ++i)
 #pragma unroll
       for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }

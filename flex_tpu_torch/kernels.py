@@ -113,8 +113,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flex_window_spmm_reduce.argtypes = [p, p, p, i, i, p]
         lib.flex_window_spmm_reduce.restype = i
     elif name == "window_spmm_bwd":
-        # (g, B, win_step, out_panel, g_A, S, TM, G, W, n, k, nblk, stream)
-        lib.flex_window_bwd_gA.argtypes = [p, p, p, p, p,
+        # (g, B, win_step, out_panel, units, g_A,
+        #  n_units, TM, G, W, n, k, nblk, stream)
+        lib.flex_window_bwd_gA.argtypes = [p, p, p, p, p, p,
                                            i, i, i, i, i, i, i, p]
         lib.flex_window_bwd_gA.restype = i
         # (A, g, slot_s, slot_g, units, out_panel, out, scratch,

@@ -21,7 +21,8 @@ add.
   into units of a few steps, one CUDA block each: long panels and slot
   chains no longer hold the card behind one block.  The units of a split
   panel write partial tiles, which a second kernel adds in unit order.
-  The forward, g_B and the transposed forward run in units.
+  The forward, g_B and the transposed forward run in units; g_A runs in
+  the forward's units too (no sum across steps, so no second kernel).
 - :func:`window_bwd_gA` and :func:`window_bwd_gB` are the dense half's two
   gradients (``csrc/window_spmm_bwd.cu``, plain versions beside them);
   :class:`_WindowSpmm` ties the three into one differentiable call, so a
@@ -511,10 +512,22 @@ def window_bwd_gA_plain(out_panel, win_step, g, B, *, TM, W):
     return torch.bmm(g_p, Bw.transpose(1, 2))
 
 
-def window_bwd_gA(out_panel, win_step, g, B, *, TM, W):
+def panel_runs(out_panel: np.ndarray) -> np.ndarray:
+    """int32[runs+1]: the steps of the r-th run of equal ``out_panel`` are
+    ``ptr[r] .. ptr[r+1]`` (a plan's panels, whose steps are consecutive)."""
+    op = np.asarray(out_panel)
+    starts = np.flatnonzero(np.r_[True, op[1:] != op[:-1]]) if len(op) else []
+    return np.append(starts, len(op)).astype(np.int32)
+
+
+def window_bwd_gA(out_panel, win_step, g, B, *, TM, W, units=None):
     """Gradient of the dense half wrt A's values:
     g_A[s][:, j·W:(j+1)·W] = g[out_panel[s]·TM : +TM] · B[win_step[s·G+j]·W : +W]ᵀ.
     Sentinel windows, and B rows ≥ n, give zeros.  Returns f32 [S, TM, G·W].
+    ``units`` are the steps' work units, as the forward takes them (a plan's
+    ``panel_units``); each CUDA block owns one and keeps its cotangent tile
+    resident.  Without them the CUDA path derives them from the runs of
+    ``out_panel`` (:func:`panel_runs`, ``FWD_CHUNK_STEPS``).
 
     CUDA tensors launch ``csrc/window_spmm_bwd.cu`` (and count the launch
     in ``window_bwd_gA.launches``); CPU tensors take
@@ -529,11 +542,18 @@ def window_bwd_gA(out_panel, win_step, g, B, *, TM, W):
     G = win_step.shape[0] // S if S else 0
     check_operands({"out_panel": (out_panel, S),
                      "win_step": (win_step, S * G)}, {"g": g, "B": B})
+    _check_units(units, g.device)
     if g.device.type == "cpu":
         return window_bwd_gA_plain(out_panel, win_step, g, B, TM=TM, W=W)
     if g.device.type != "cuda":
         raise ValueError(f"no window kernel for device {g.device}")
     _check_window_kernel_operands(W, g=g, B=B)
+    if units is None:  # a trip to the host: a plan carries its own
+        units = device_units(panel_runs(out_panel.cpu().numpy()),
+                             FWD_CHUNK_STEPS, g.device)
+    # the largest units first, so the last blocks to start are short ones
+    tab = units[0]
+    unit_tab = tab[torch.argsort(tab[:, 1] - tab[:, 2], stable=True)]
     n, k = B.shape
     from flex_tpu_torch import kernels
 
@@ -541,8 +561,8 @@ def window_bwd_gA(out_panel, win_step, g, B, *, TM, W):
     g_A = torch.empty((S, TM, G * W), dtype=torch.float32, device=g.device)
     kernels.launch("window_spmm_bwd", "flex_window_bwd_gA", g.device,
                    g.data_ptr(), B.data_ptr(), win_step.data_ptr(),
-                   out_panel.data_ptr(), g_A.data_ptr(), S, TM, G, W, n, k,
-                   max(-(-n // W), 1))
+                   out_panel.data_ptr(), unit_tab.data_ptr(), g_A.data_ptr(),
+                   unit_tab.shape[0], TM, G, W, n, k, max(-(-n // W), 1))
     window_bwd_gA.launches += 1
     return g_A
 
@@ -653,7 +673,7 @@ class _WindowSpmm(torch.autograd.Function):
         g_A = g_B = None
         if ctx.needs_input_grad[1]:
             g_A = window_bwd_gA(plan.out_panel, plan.win_step, g, B,
-                                TM=A.shape[1], W=W)
+                                TM=A.shape[1], W=W, units=plan.panel_units)
         if ctx.needs_input_grad[2]:
             nblk = max(-(-n // W), 1)
             tabs = {"bwd_tabs": plan.bwd_tabs, "slot_ptr": plan.slot_ptr,

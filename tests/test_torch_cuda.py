@@ -1,7 +1,7 @@
 """Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
 forward, g_A, g_B, transposed forward, the two band kernels, the row-unit
 kernel of GE-SpMM and the ELL residue) against their plain twins, the unit
-kernels on the edges of their work units and the ranged band kernels on
+kernels (g_A too) on the edges of their work units and the ranged band kernels on
 empty, one-half and full ranges, whole plans on the card against SciPy,
 repeat calls of whole plans and of g_B bit for bit, gradients against
 SciPy's Aᵀ·co, and a few GCN train steps.  Every test is
@@ -352,6 +352,92 @@ def test_unit_kernels_take_a_misaligned_B_and_refuse_the_rest(cuda):
         window_bwd_gB(*gargs, t["A"], g.clone(), units=tuple(
             x.cpu() if torch.is_tensor(x) else x
             for x in bwd["slot_units"]), **kw3)
+
+
+def _gA_tol(t, g, B, TM, W):
+    """2·k·eps32·(|g|·|B|ᵀ): two length-k f32 sums in different orders."""
+    absprod = window_bwd_gA_plain(t["out_panel"], t["win_step"], g.abs(),
+                                  B.abs(), TM=TM, W=W)
+    return 2 * B.shape[1] * EPS32 * absprod.double()
+
+
+@pytest.mark.parametrize("k", [16, 41, 128, 200])
+@pytest.mark.parametrize("TM,G,W,n", [(256, 4, 128, 9000 + 5),
+                                      (128, 4, 128, 9000 + 5),
+                                      (384, 4, 128, 9000 + 5),
+                                      (200, 2, 64, 3000 + 5)])
+def test_gA_kernel_on_unit_edges(cuda, TM, G, W, n, k):
+    """g_A on the forward's units of panels of 1, 8, 9 and 43 steps with an
+    all-sentinel step, against plain (|diff| <= 2·k·eps32·(|g|·|B|ᵀ));
+    k = 200 walks the resident tile's depth in two chunks.  Sentinel tiles
+    are exactly zero; a second launch, one-step units and derived units
+    give the same bits."""
+    t, n_panels, _ = _unit_edge_tables(cuda, TM, G, W, n)
+    S = t["out_panel"].shape[0]
+    g = torch.rand((n_panels * TM, k), device=cuda) * 2 - 1
+    B = torch.rand((n, k), device=cuda) * 2 - 1
+    args = (t["out_panel"], t["win_step"], g, B)
+    units = device_units(t["ptr"].cpu().numpy(), FWD_CHUNK_STEPS, cuda)
+    n3 = window_bwd_gA.launches
+    gA = window_bwd_gA(*args, TM=TM, W=W, units=units)
+    assert window_bwd_gA.launches == n3 + 1
+    steps = device_units(np.arange(S + 1, dtype=np.int32), 1, cuda)
+    for again in (units, steps, None):
+        assert torch.equal(gA, window_bwd_gA(*args, TM=TM, W=W, units=again))
+    ref = window_bwd_gA_plain(*args, TM=TM, W=W)
+    assert bool(((gA.double() - ref.double()).abs()
+                 <= _gA_tol(t, g, B, TM, W)).all())
+    sent = (t["win_step"] == -(-n // W)).view(S, G)
+    assert bool(sent[FWD_CHUNK_STEPS + 3].all())
+    assert not bool(gA.view(S, TM, G, W).permute(0, 2, 1, 3)[sent].any())
+
+
+def test_gA_kernel_takes_a_misaligned_g_and_refuses_the_rest(cuda):
+    """At k = 41 g and B move by 4-byte copies, aligned or not: the same
+    bits.  Operands must be contiguous, the unit tables on the card."""
+    TM, G, W, n, k = 256, 4, 128, 2000, 41
+    t, n_panels, _ = _unit_edge_tables(cuda, TM, G, W, n)
+    units = device_units(t["ptr"].cpu().numpy(), FWD_CHUNK_STEPS, cuda)
+    op, win = t["out_panel"], t["win_step"]
+    g = torch.rand(n_panels * TM * k + 1, device=cuda)[1:].view(-1, k)
+    B = torch.rand(n * k + 1, device=cuda)[1:].view(n, k)
+    assert g.data_ptr() % 16 and B.data_ptr() % 16
+    out = window_bwd_gA(op, win, g, B, TM=TM, W=W, units=units)
+    assert torch.equal(out, window_bwd_gA(op, win, g.clone(), B.clone(),
+                                          TM=TM, W=W, units=units))
+    assert bool(((out.double() - window_bwd_gA_plain(
+        op, win, g, B, TM=TM, W=W).double()).abs()
+        <= _gA_tol(t, g, B, TM, W)).all())
+    with pytest.raises(ValueError, match="contiguous"):
+        window_bwd_gA(op, win, torch.rand((k, n_panels * TM),
+                                          device=cuda).t(), B, TM=TM, W=W)
+    with pytest.raises(ValueError, match="unit tables lie on"):
+        window_bwd_gA(op, win, g, B, TM=TM, W=W, units=tuple(
+            x.cpu() if torch.is_tensor(x) else x for x in units))
+    with pytest.raises(ValueError):
+        window_bwd_gA(op, win, g, B, TM=TM, W=W,
+                      units=(units[0][:, :3], units[1], units[2]))
+
+
+def test_gA_of_a_plan_is_the_backward_and_repeats_its_bits(cuda):
+    """A.grad of a plan's gradient call is the kernel's g_A in the plan's
+    units, bit for bit, on every call."""
+    make, kw = CASES["community"]
+    g = make()
+    plan = prepare_windowed(g, device=cuda, **kw)
+    co = torch.rand((g.m, 41), device=cuda)
+    B = torch.from_numpy(make_features(g, 41)).to(cuda)
+    grads = []
+    for _ in range(2):
+        A = plan.A.detach().clone().requires_grad_()
+        (dataclasses.replace(plan, A=A)(B) * co).sum().backward()
+        grads.append(A.grad)
+    assert torch.equal(grads[0], grads[1])
+    gd = torch.zeros((plan.n_used_panels * plan.tm + 1, 41), device=cuda)
+    gd.index_add_(0, plan.row_gather[:plan.m], co)
+    gA = window_bwd_gA(plan.out_panel, plan.win_step, gd[:-1].contiguous(),
+                       B, TM=plan.tm, W=plan.W, units=plan.panel_units)
+    torch.testing.assert_close(grads[0], gA, rtol=0, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
