@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases (needs one CUDA card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain only
-    python3 chip_smoke.py --profile  # also trace two train steps
+    python3 chip_smoke.py --profile  # also trace two GCN and two GAT steps
 
 Phases:
   1. environment: card name and power limit, torch/CUDA versions; TF32 off.
@@ -69,12 +69,28 @@ Phases:
  10. GE-SpMM at full size on that graph (w = 32, k = 128 and 41): the
      plan is the row-unit kernel alone; its unit report, equal bits.
  11. the baselines ``"xla"`` and ``"bcoo"`` at full size (k = 128).
+ 7b. GraphSAGE(128 -> 128 -> 41) on the main path's windowed plan with its
+     training backward: the first step's gradients against the plain
+     plan, launch counts (kernels 1, 3, 7), ms/step and peak memory over 5
+     timed steps; a checkpoint after step 3, restored into a fresh model
+     and Adam, must give step 4's loss and parameters bit for bit.
+ 11b. GAT(128 -> 4 heads x 16 -> 41, Adam 1e-2) on the main path's graph
+     (unit self-loops): kernel 7 on the dynamic SpMM's forward and g_B
+     tables against plain at k = 16 and 41, the first step's loss and
+     gradients against the plain dynamic SpMM, whether two forwards give
+     the same bits, 2 warm-up and 5 timed steps (16 launches of kernel 7
+     a step), ms/step and peak memory.
  12. band at full size: banded_graph(262144, 256, 64.0, seed=2), tm = 256,
      k = 128, the three impls through ``bench_spmm``, both band kernels
      against plain on the plans' tensors; both kernels' depth ranges (their
      build time, the share of the depth they read, the empty tiles), each
      kernel on full-depth ranges beside the ranged run (bit-equal), the
      bound of its ranges and of its format.
+ 13. panel at full size: reorder(hub_graph(200000, 20M, n_hub_cols=512,
+     hub_frac=0.95, seed=0), "deg"), k = 128, through ``bench_spmm``
+     without hub rows and with hub_threshold=100 (the hub prefix on kernel
+     7, held to its plain version), beside cuSPARSE on the same CSR; the
+     plans' stats and host seconds.
 Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after.
@@ -1073,9 +1089,10 @@ def phase_gradient(torch, g, plan, B_dev, time_cuda_ms):
     return launches, gA_err, co, g_dense, tplan, l2, grad_ms
 
 
-def profile_steps(torch, step, args, n=2):
+def profile_steps(torch, step, args, n=2, tag="train"):
     """``n`` train steps under torch.profiler: the device's busy share of
-    the wall time and the kernels by their summed device time."""
+    the wall time and the kernels by their summed device time (lines
+    ``[profile]``, naming ``tag``'s steps)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1098,10 +1115,10 @@ def profile_steps(torch, step, args, n=2):
     busy_us = sum(dev_us(e) for e in rows)
     if busy_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    log(f"[profile] {n} train steps: wall {wall_us / 1e3:.2f} ms, device "
+    log(f"[profile] {n} {tag} steps: wall {wall_us / 1e3:.2f} ms, device "
         f"busy {busy_us / 1e3:.2f} ms, idle share "
         f"{max(0.0, 1 - busy_us / wall_us):.4f}")
-    for e in rows[:12]:
+    for e in rows[:16]:
         log(f"[profile]   {dev_us(e) / 1e3 / n:9.3f} ms/step  x{e.count / n:g}"
             f"  {e.key[:90]}")
 
@@ -1127,21 +1144,21 @@ def plain_plan(torch, plan):
     return call
 
 
-def check_first_step_gradients(torch, model, plan, tplan, X, y, mask,
-                               rel=1e-3):
+def check_first_step_gradients(torch, model, loss_fn, fast, plain, X, y,
+                               mask, tag, rel=1e-3):
     """The parameter gradients of the first train step, through the kernels
-    (forward, g_B and the transposed residue), against the same loss through
-    :func:`plain_plan`: |diff| <= rel · max|plain gradient| elementwise, for
-    each parameter.  The two differ by f32 sums in another order, through
-    two layers, a relu and a softmax."""
-    from flex_tpu_torch.models import gcn_loss
-
-    grads = []
-    for p in (tplan, plain_plan(torch, plan)):
+    (``fast``: the plan or attention graph the step uses), against the same
+    loss through ``plain`` (the plain versions, all tensor ops):
+    |diff| <= rel · max|plain gradient| elementwise, for each parameter.
+    The two differ by f32 sums in another order, through two layers and a
+    softmax.  Returns the first step's loss through the kernels."""
+    grads, losses = [], []
+    for p in (fast, plain):
         model.zero_grad(set_to_none=True)
-        loss = gcn_loss(model, p, X, y, mask)
+        loss = loss_fn(model, p, X, y, mask)
         loss.backward()
         grads.append({n: q.grad.clone() for n, q in model.named_parameters()})
+        losses.append(float(loss.detach()))
         del loss
     model.zero_grad(set_to_none=True)
     worst = {}
@@ -1150,11 +1167,37 @@ def check_first_step_gradients(torch, model, plan, tplan, X, y, mask,
         diff = float((grads[0][n] - ref).abs().max())
         worst[n] = diff / scale if scale else float("inf")
         if not bool(grads[0][n].isfinite().all()) or not worst[n] <= rel:
-            raise AssertionError(f"first step's {n}.grad differs from the "
-                                 f"plain versions': max |diff| {diff:.3e} "
-                                 f"over max |ref| {scale:.3e}")
-    log(f"[train] first step's gradients vs plain versions, max |diff| / "
-        f"max |ref|: {worst} (limit {rel}) ok")
+            raise AssertionError(f"[{tag}] first step's {n}.grad differs "
+                                 f"from the plain versions': max |diff| "
+                                 f"{diff:.3e} over max |ref| {scale:.3e}")
+    log(f"[{tag}] first step's loss {losses[0]:.8f} (plain {losses[1]:.8f}); "
+        f"gradients vs plain versions, max |diff| / max |ref|: {worst} "
+        f"(limit {rel}) ok")
+    return losses[0]
+
+
+def node_labels(torch, m, n_cls):
+    """The train phases' labels and mask: seeded labels, every node
+    labelled."""
+    rng = np.random.default_rng(0)
+    return (torch.from_numpy(rng.integers(0, n_cls, m)).cuda(),
+            torch.ones(m, device="cuda"))
+
+
+def timed_steps(torch, step, args, n):
+    """``n`` train steps, each bracketed by CUDA events.  Returns (losses,
+    per-step device ms, host ms per step)."""
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        ev[i].record()
+        losses.append(step(*args))
+    ev[n].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    return losses, [ev[i].elapsed_time(ev[i + 1]) for i in range(n)], host_ms
 
 
 def phase_training(torch, g, plan, tplan, X, time_cuda_ms, smi,
@@ -1169,31 +1212,21 @@ def phase_training(torch, g, plan, tplan, X, time_cuda_ms, smi,
              for d, c in ((d_in, d_hid), (d_hid, n_cls))]
     if assoc != ["axw", "axw"]:
         raise AssertionError(f"association {assoc}, expected axw twice")
-    rng = np.random.default_rng(0)
-    y = torch.from_numpy(rng.integers(0, n_cls, g.m)).cuda()
-    mask = torch.ones(g.m, device="cuda")
+    y, mask = node_labels(torch, g.m, n_cls)
     model = GCN(d_in, d_hid, n_cls, nnz=g.nnz,
                 generator=torch.Generator().manual_seed(0)).cuda()
     opt = torch.optim.Adam(model.parameters(), lr=1e-2)
     step = make_train_step(model, plan, opt)  # attaches the training bwd
-    check_first_step_gradients(torch, model, plan, tplan, X, y, mask)
+    check_first_step_gradients(torch, model, gcn_loss, tplan,
+                               plain_plan(torch, plan), X, y, mask, "train")
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     losses = [step(X, y, mask) for _ in range(2)]            # warm-up
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-    t0 = time.perf_counter()
-    for i in range(5):
-        ev[i].record()
-        losses.append(step(X, y, mask))
-    ev[5].record()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    timed, step_ms, host_ms = timed_steps(torch, step, (X, y, mask), 5)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
-    losses = [float(x) for x in losses]
+    losses = [float(x) for x in losses + timed]
     with torch.no_grad():
         after = float(gcn_loss(model, plan, X, y, mask))
     log(f"[train] losses {[round(x, 6) for x in losses]} then {after:.6f}")
@@ -1633,10 +1666,20 @@ def unit_size_ms(torch, t, B, time_cuda_ms, into=None) -> dict:
 
 def rows_bytes(t, nnz, n_in, n_out):
     """Bytes a row-unit product must move: the nonzeros' cols and vals
-    once, the row and unit tables, ``n_in`` floats of input (B, and an
-    accumulator that is read) and ``n_out`` floats of output."""
+    once, the row and unit tables, ``n_in`` floats of input (the rows of B
+    that the nonzeros name, and an accumulator that is read) and ``n_out``
+    floats of output."""
     return (nnz * 8 + 4 * (t.row_start.numel() + t.units.numel()
                            + t.splits.numel()) + 4 * (n_in + n_out))
+
+
+def distinct_cols(torch, t):
+    """How many distinct columns a row-unit table's nonzeros name: the rows
+    of B its product must read at least once."""
+    from flex_tpu_torch.ops.gespmm import unit_entries
+
+    _, idx = unit_entries(t)
+    return int(torch.unique(t.cols[idx]).numel())
 
 
 def phase_gespmm(torch, g, dev, B, gold, A_csr, peaks, bench_spmm,
@@ -1660,6 +1703,7 @@ def phase_gespmm(torch, g, dev, B, gold, A_csr, peaks, bench_spmm,
     st = plan.stats
     t = plan.rows
     rep = rows_report(t)
+    b_rows = distinct_cols(torch, t)
     out = {}
     for k in (K, 41):
         B_dev = torch.from_numpy(np.ascontiguousarray(B[:, :k])).cuda()
@@ -1669,9 +1713,10 @@ def phase_gespmm(torch, g, dev, B, gold, A_csr, peaks, bench_spmm,
         ms = time_cuda_ms(gespmm_rows, t, B_dev, iters=10)
         plain_ms = time_cuda_ms(gespmm_rows_plain, t, B_dev, iters=3,
                                 warmup=1)
-        # each input once (the nonzeros' cols and vals, the tables, B), C
-        # written once; the operations this graph needs, pads not counted
-        n_bytes = rows_bytes(t, g.nnz, B_dev.numel(), g.m * k)
+        # each input once (the nonzeros' cols and vals, the tables, the rows
+        # of B they name), C written once; the operations this graph needs,
+        # pads not counted
+        n_bytes = rows_bytes(t, g.nnz, b_rows * k, g.m * k)
         bound_ms, bound_by = bound(n_bytes, 2.0 * g.nnz * k, peaks)
         library_ms = time_cuda_ms(torch.sparse.mm, A_csr, B_dev, iters=20)
         out[k] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1762,6 +1807,8 @@ def phase_residue(torch, plan, tplan, peaks, time_cuda_ms):
     del At
     reps = {"forward": rows_report(ell.rows), "transposed": rows_report(
         nopad.rows), "transposed_with_pads": rows_report(bwd.rows)}
+    b_rows, g_rows = distinct_cols(torch, ell.rows), distinct_cols(
+        torch, nopad.rows)
     out = {}
     for k in (K, 41, 32):
         B = torch.rand((n, k), device="cuda") * 2 - 1
@@ -1772,7 +1819,8 @@ def phase_residue(torch, plan, tplan, peaks, time_cuda_ms):
         plain_ms = time_cuda_ms(lambda: ell_spmm_plain(ell, B, into=acc),
                                 iters=3, warmup=1)
         lib_ms = time_cuda_ms(torch.sparse.mm, A_res, B, iters=20)
-        b_ms, b_by = bound(rows_bytes(ell.rows, nnz, n * k + m * k, m * k),
+        b_ms, b_by = bound(rows_bytes(ell.rows, nnz, b_rows * k + m * k,
+                                      m * k),
                            2.0 * nnz * k, peaks)
         gk = torch.rand((m, k), device="cuda") * 2 - 1
         bwd_err = check_gespmm_kernel(torch, nopad.rows, gk,
@@ -1795,7 +1843,7 @@ def phase_residue(torch, plan, tplan, peaks, time_cuda_ms):
                                     warmup=1)
         bwd_lib_ms = time_cuda_ms(torch.sparse.mm, A_res_T, gk, iters=20)
         # the function needs the real nonzeros only: the pads add zeros
-        bb_ms, bb_by = bound(rows_bytes(nopad.rows, nnz, m * k, n * k),
+        bb_ms, bb_by = bound(rows_bytes(nopad.rows, nnz, g_rows * k, n * k),
                              2.0 * nnz * k, peaks)
         out[k] = {"err": err, "ms": fwd_ms, "plain_ms": plain_ms,
                   "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1993,6 +2041,280 @@ def phase_band(torch, peaks, bench_spmm, time_cuda_ms):
     }]
 
 
+# ---------------------------------------------------------------------------
+# the models on the card (SAGE, GAT) and the panel plan
+# ---------------------------------------------------------------------------
+
+def phase_sage(torch, g, plan, tplan, X, smi):
+    """GraphSAGE(128 -> 128 -> 41) on the main path's windowed plan with its
+    training backward: the first step's gradients against the plain plan,
+    3 steps, a checkpoint, 5 timed steps; then a fresh model and optimizer
+    restored from the checkpoint must give step 4's loss and parameters
+    bit for bit.  Returns the launch counts of the 8 steps."""
+    import tempfile
+
+    from flex_tpu_torch.models import (
+        GraphSAGE, make_sage_train_step, sage_loss,
+    )
+    from flex_tpu_torch.models.checkpoint import (
+        restore_checkpoint, save_checkpoint,
+    )
+
+    d_in, d_hid, n_cls = 128, 128, 41
+    y, mask = node_labels(torch, g.m, n_cls)
+
+    def fresh(seed):
+        model = GraphSAGE(d_in, d_hid, n_cls, nnz=g.nnz,
+                          generator=torch.Generator().manual_seed(seed))
+        model = model.cuda()
+        return model, torch.optim.Adam(model.parameters(), lr=1e-2)
+
+    model, opt = fresh(0)
+    check_first_step_gradients(torch, model, sage_loss, tplan,
+                               plain_plan(torch, plan), X, y, mask, "sage")
+    step = make_sage_train_step(model, tplan, opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = [step(X, y, mask) for _ in range(3)]   # 2 warm-up + step 3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sage.pt")
+        t0 = time.perf_counter()
+        save_checkpoint(path, model, opt, step=3)
+        save_s = time.perf_counter() - t0
+        timed, step_ms, host_ms = timed_steps(torch, step, (X, y, mask), 1)
+        after4 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        more, more_ms, more_host = timed_steps(torch, step, (X, y, mask), 4)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        resumed, r_opt = fresh(1)
+        restored = restore_checkpoint(path, resumed, r_opt)
+        loss4 = make_sage_train_step(resumed, tplan, r_opt)(X, y, mask)
+    losses += timed + more
+    step_ms += more_ms
+    host_ms = (host_ms + 4 * more_host) / 5
+    same = restored == 3 and torch.equal(loss4, losses[3]) and all(
+        torch.equal(p, after4[n]) for n, p in resumed.named_parameters())
+    if not same:
+        raise AssertionError(f"[sage] resumed step 4: loss {float(loss4)!r} "
+                             f"vs {float(losses[3])!r}, restored step "
+                             f"{restored}: not the same bits")
+    # 2 forward and 2 g_B per step, as the GCN's; kernel 7 runs the residue
+    expect_launches(launches, "8 SAGE train steps", window_spmm_fwd=16,
+                    window_bwd_gB=16, gespmm_rows=32)
+    losses = [float(x) for x in losses]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"[sage] loss {losses}: not finite and falling")
+    log(f"[sage] losses {[round(x, 6) for x in losses]}; checkpoint after "
+        f"step 3 ({save_s:.3f}s to write), restored into a fresh model and "
+        f"Adam: step 4's loss {float(loss4)!r} and parameters equal the "
+        f"uninterrupted run's bit for bit")
+    log("[sage] " + json.dumps({
+        "ms_per_step": float(np.median(step_ms)),
+        "ms_per_step_host": host_ms, "step_ms": step_ms,
+        "peak_memory_allocated": peak, "launches_8_steps": launches,
+        "card": smi}))
+    return launches
+
+
+def plain_dyn(torch, plan):
+    """A copy of the plan whose call, (vals, B) -> A(vals)·B, is the
+    row-unit kernel's plain version on the plan's forward tables: all
+    tensor ops, so autograd differentiates it in vals and B with no kernel
+    of the package."""
+    import dataclasses
+
+    from flex_tpu_torch.ops.dyn_ell import DynEllPlan
+    from flex_tpu_torch.ops.gespmm import gespmm_rows_plain
+
+    class PlainDynPlan(DynEllPlan):
+        def __call__(self, vals, B):
+            return gespmm_rows_plain(dataclasses.replace(self.fwd, vals=vals),
+                                     B)
+
+    return PlainDynPlan(**{f.name: getattr(plan, f.name)
+                           for f in dataclasses.fields(plan)})
+
+
+def edge_dots_unpadded(torch, dyn, g, B):
+    """The dynamic SpMM's g_vals as ``DynEllPlan.edge_dots`` computes it,
+    but gathered from g and B as they are: the yardstick of its padding."""
+    out = g.new_empty(dyn.nnz)
+    for s in range(0, dyn.nnz, dyn.max_gather_rows):
+        e = slice(s, s + dyn.max_gather_rows)
+        out[e] = (g.index_select(0, dyn.rows[e].long())
+                  * B.index_select(0, dyn.cols[e].long())).sum(1)
+    return out
+
+
+def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
+    """GAT(128 -> 4 heads x 16 -> 41) on the main path's graph (unit
+    self-loops: attention over N(i) and i): kernel 7 on the dynamic SpMM's
+    forward and g_B tables against plain at k = 16 and 41, the first
+    step's loss and gradients against the plain dynamic SpMM, two forwards
+    compared bit for bit, 2 warm-up and 5 timed Adam(1e-2) steps with
+    kernel 7's launches per step.  Returns kernel 7's numbers here."""
+    import dataclasses
+
+    from flex_tpu_torch.models import (
+        GAT, gat_loss, make_gat_train_step, prepare_attention,
+    )
+    from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_plain
+
+    d_in, d_hid, n_cls, heads = 128, 16, 41, 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ag = prepare_attention(g, dev=dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    dyn = ag.plan
+    rng = np.random.default_rng(2)
+    vals = torch.from_numpy(rng.random(g.nnz, dtype=np.float32)).cuda()
+    kern = {}
+    b_rows = {"fwd": distinct_cols(torch, dyn.fwd),
+              "gB": distinct_cols(torch, dyn.bwd)}
+    for k in (d_hid, n_cls):
+        Bk = torch.rand((g.m, k), device="cuda") * 2 - 1
+        for part, t in (("fwd", dataclasses.replace(dyn.fwd, vals=vals)),
+                        ("gB", dataclasses.replace(
+                            dyn.bwd, vals=vals.index_select(0, dyn.perm)))):
+            err = check_gespmm_kernel(torch, t, Bk,
+                                      f"GAT dynamic {part} k={k}")
+            ms = time_cuda_ms(gespmm_rows, t, Bk, iters=10)
+            plain_ms = time_cuda_ms(gespmm_rows_plain, t, Bk, iters=3,
+                                    warmup=1)
+            n_bytes = rows_bytes(t, g.nnz, b_rows[part] * k, t.m * k)
+            bound_ms, bound_by = bound(n_bytes, 2.0 * g.nnz * k, peaks)
+            kern[f"{part}_k{k}"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=bound_ms, bound_by=bound_by)
+        kern[f"call_fwd_k{k}"] = time_cuda_ms(dyn, vals, Bk, iters=10)
+        # g_vals (plain torch): the plan's gathers, and the same products
+        # gathered without the zero column it adds when k % 4 == 0
+        gk = torch.rand((g.m, k), device="cuda") * 2 - 1
+        kern[f"g_vals_k{k}"] = time_cuda_ms(dyn.edge_dots, gk, Bk, iters=5)
+        kern[f"g_vals_unpadded_k{k}"] = time_cuda_ms(
+            lambda: edge_dots_unpadded(torch, dyn, gk, Bk), iters=5)
+        del Bk, gk
+    y, mask = node_labels(torch, g.m, n_cls)
+    model = GAT(d_in, d_hid, n_cls, n_heads=heads,
+                generator=torch.Generator().manual_seed(0)).cuda()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    check_first_step_gradients(
+        torch, model, gat_loss, ag,
+        dataclasses.replace(ag, plan=plain_dyn(torch, dyn)), X, y, mask,
+        "gat")
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        same_bits = torch.equal(model(ag, X), model(ag, X))
+    step = make_gat_train_step(model, ag, opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = [step(X, y, mask) for _ in range(2)]            # warm-up
+    timed, step_ms, host_ms = timed_steps(torch, step, (X, y, mask), 5)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # per step and head: one dynamic SpMM forward and its g_B, two layers
+    expect_launches(launches, "7 GAT train steps",
+                    gespmm_rows=7 * 2 * 2 * heads)
+    losses = [float(x) for x in losses + timed]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"[gat] loss {losses}: not finite and falling")
+    if profile:
+        profile_steps(torch, step, (X, y, mask), tag="GAT train")
+    out = {"ms_per_step": float(np.median(step_ms)),
+           "ms_per_step_host": host_ms, "step_ms": step_ms,
+           "peak_memory_allocated": peak, "launches_7_steps": launches,
+           "launches_per_step": launches["gespmm_rows"] // 7,
+           "two_forwards_same_bits": same_bits,
+           "prepare_attention_s": prep_s, "kernel": kern, "card": smi}
+    log(f"[gat] losses {[round(x, 6) for x in losses]}; two forwards give "
+        f"the same bits: {same_bits}")
+    log("[gat] " + json.dumps(out))
+    del ag, model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+PANEL_CASE = dict(m=200_000, nnz_target=20_000_000, n_hub_cols=512,
+                  hub_frac=0.95, seed=0)
+# below the case's maximum degree (123): the rows above it form a prefix
+# after DEG, the hub rows
+PANEL_HUB_THRESHOLD = 100
+
+
+def phase_panel(torch, peaks, bench_spmm, time_cuda_ms, smi):
+    """Panel at full size: the JAX package's own panel case, DEG-ordered,
+    k = 128; without hub rows (the default threshold of 512 is above the
+    maximum degree) and with them (threshold 100: a hub prefix on kernel
+    7).  Each plan through ``bench_spmm`` beside cuSPARSE on the same CSR;
+    kernel 7 on the hub tables against plain.  Returns its numbers."""
+    from flex_tpu_torch.io.csv_loader import make_features
+    from flex_tpu_torch.io.synth import hub_graph
+    from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_plain
+    from flex_tpu_torch.ops.ref import spmm_scipy
+    from flex_tpu_torch.reorder import reorder
+    from flex_tpu_torch.sparse.device import DeviceCSR
+
+    t0 = time.perf_counter()
+    g = hub_graph(**PANEL_CASE)
+    t1 = time.perf_counter()
+    g = reorder(g, "deg", check=False)
+    t2 = time.perf_counter()
+    B = make_features(g, K)
+    gold = spmm_scipy(g, B)
+    t3 = time.perf_counter()
+    max_deg = int(g.degrees.max())
+    log(f"[panel] host: hub_graph {t1 - t0:.1f}s, deg {t2 - t1:.1f}s, "
+        f"features + SciPy gold {t3 - t2:.1f}s; {g}, max degree {max_deg}")
+    dev = DeviceCSR.from_graph(g, "cuda")
+    B_dev = torch.from_numpy(B).cuda()
+    A_csr = csr_tensor(torch, g)
+    library_ms = time_cuda_ms(torch.sparse.mm, A_csr, B_dev, iters=20)
+    del A_csr
+    out = {"max_degree": max_deg, "m": g.m, "nnz": g.nnz,
+           "graph_host_s": t2 - t0, "library_ms": library_ms, "card": smi}
+    for name, kw in (("no_hubs", {}),
+                     ("hubs", dict(hub_threshold=PANEL_HUB_THRESHOLD))):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        r, plan = bench_checked(bench_spmm, g, K, "panel", f"panel {name}",
+                                dev=dev, B=B, gold=gold, iters=10, **kw)
+        launches = read_launches()
+        st = plan.stats
+        if (st["n_hub_rows"] > 0) != (name == "hubs"):
+            raise AssertionError(f"[panel] {name}: {st['n_hub_rows']} hub "
+                                 f"rows")
+        # 3 warm-up + 10 timed + 1 checked call; kernel 7 runs the hub rows
+        expect_launches(launches, f"the panel path ({name})",
+                        gespmm_rows=14 if name == "hubs" else 0)
+        res = {"t_pre_s": r.t_pre_s, "t_elap_ms": r.t_elap_ms,
+               "gflops": r.gflops, "err_frac": r.err_frac, "stats": st,
+               "traffic_model_bytes": plan.traffic_model(K)["bytes"],
+               "peak_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": launches["gespmm_rows"],
+               "repeat_same_bits": torch.equal(plan(B_dev), plan(B_dev))}
+        if plan.hub_rows is not None:
+            t = plan.hub_rows
+            hub_nnz = int(g.row_ptr[plan.n_hub_rows])
+            res["hub_err"] = check_gespmm_kernel(torch, t, B_dev,
+                                                 "panel hub rows k=128")
+            res["hub_ms"] = time_cuda_ms(gespmm_rows, t, B_dev, iters=20)
+            res["hub_plain_ms"] = time_cuda_ms(gespmm_rows_plain, t, B_dev,
+                                               iters=3, warmup=1)
+            hub_b_rows = distinct_cols(torch, t)
+            res["hub_bound_ms"], res["hub_bound_by"] = bound(
+                rows_bytes(t, hub_nnz, hub_b_rows * K, t.m * K),
+                2.0 * hub_nnz * K, peaks)
+            res["hub_nnz"], res["hub_b_rows"] = hub_nnz, hub_b_rows
+        out[name] = res
+        log(f"[panel] {name}: tElap {r.t_elap_ms:.3f} ms beside cuSPARSE "
+            f"{library_ms:.3f} ms on the same CSR; " + json.dumps(res))
+        del plan
+        torch.cuda.empty_cache()
+    del dev, B_dev
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     import torch
@@ -2179,6 +2501,8 @@ def main() -> int:
     launches_train = phase_training(torch, g, plan, tplan, B_dev,
                                     time_cuda_ms, smi,
                                     profile="--profile" in sys.argv[1:])
+    # 7b. GraphSAGE on the same plan, with a checkpoint and a resume
+    launches_sage = phase_sage(torch, g, plan, tplan, B_dev, smi)
     rows += phase_bwd_kernels(torch, g, plan, B_dev, co, g_dense, gA_err,
                               grad_ms, launches_grad, launches_train, peaks,
                               time_cuda_ms)
@@ -2205,17 +2529,42 @@ def main() -> int:
                               bench_spmm, time_cuda_ms)
     del A_csr
     phase_baselines(torch, g, dev, B, gold, bench_spmm)
-    del dev, B_dev, gold
+    del gold
+    torch.cuda.empty_cache()
+    # 11b. GAT on the main path's graph
+    gat = phase_gat(torch, g, dev, B_dev, peaks, time_cuda_ms, smi,
+                    profile="--profile" in sys.argv[1:])
+    del dev, B_dev
     torch.cuda.empty_cache()
     # 12. band, on its own graph
     rows += phase_band(torch, peaks, bench_spmm, time_cuda_ms)
+    # 13. panel, on its own graph
+    panel = phase_panel(torch, peaks, bench_spmm, time_cuda_ms, smi)
     # kernel 7 also runs the main path's residue: its launches there, and
     # the residue's own numbers
     gespmm_row.update({
         "launches_forward_path": launches["gespmm_rows"],
         "launches_gradient_path": launches_grad["gespmm_rows"],
         "launches_training_bwd_gradient": launches_tgrad["gespmm_rows"],
-        "launches_train_7_steps": launches_train["gespmm_rows"]})
+        "launches_train_7_steps": launches_train["gespmm_rows"],
+        "launches_sage_8_steps": launches_sage["gespmm_rows"],
+        "launches_gat_7_steps": gat["launches_7_steps"]["gespmm_rows"],
+        "launches_gat_per_step": gat["launches_per_step"],
+        "gat_ms_per_step": gat["ms_per_step"],
+        "launches_panel_hubs_path": panel["hubs"]["launches"],
+        "launches_panel_no_hubs_path": panel["no_hubs"]["launches"]})
+    for key, r in gat["kernel"].items():
+        if isinstance(r, dict):
+            gespmm_row.update({f"gat_{key}_{f}": v for f, v in r.items()})
+        else:
+            gespmm_row[f"gat_{key}_ms"] = r
+    hubs = panel["hubs"]
+    gespmm_row.update({f"panel_{f}": hubs[f] for f in (
+        "hub_ms", "hub_plain_ms", "hub_bound_ms", "hub_err", "t_elap_ms")})
+    gespmm_row["panel_library_ms"] = panel["library_ms"]
+    for r in rows:   # kernels 1 and 3 also run SAGE's aggregation
+        if r["name"] in ("window_spmm_fwd", "window_bwd_gB"):
+            r["launches_sage_8_steps"] = launches_sage[r["name"]]
     for k, r in residue.items():
         gespmm_row.update({f"residue_{key}_k{k}": r[key] for key in (
             "ms", "plain_ms", "library_ms", "bound_ms", "err", "bwd_ms",

@@ -30,8 +30,11 @@ impls (``"pallas2"``, ``"pallas"``) are recomputed from the band.
 ``gespmm_plan_from_numpy`` keys: ``m``, ``w``, ``cols``, ``vals``,
 ``chunk_row``, ``nnz``, ``padded_nnz``.
 
-``gcn_params_from_numpy`` loads the JAX GCN's parameter pytree
-(``W1``, ``b1``, ``W2``, ``b2``) into the port's module.
+``gcn_params_from_numpy``, ``gat_params_from_numpy`` and
+``sage_params_from_numpy`` load a JAX model's parameter pytree (GCN:
+``W1``, ``b1``, ``W2``, ``b2``; GAT: ``W1``, ``a1s``, ``a1d``, ``W2``,
+``a2s``, ``a2d``; GraphSAGE: ``Ws1``, ``Wn1``, ``b1``, ``Ws2``, ``Wn2``,
+``b2``) into the port's module, checking every shape.
 """
 from __future__ import annotations
 
@@ -127,14 +130,33 @@ def gespmm_plan_from_numpy(d: dict, device) -> GeSpmmPlan:
         rows=tables_from_buckets(((cols, vals),), chunk_row, int(d["m"])))
 
 
-def gcn_params_from_numpy(params: dict, model) -> None:
-    """Copy the four arrays of a JAX GCN parameter pytree into ``model``
-    (a :class:`flex_tpu_torch.models.GCN`), on the module's own device."""
+def _params_from_numpy(params: dict, model, names) -> None:
     with torch.no_grad():
-        for name in ("W1", "b1", "W2", "b2"):
+        for name in names:
             p = getattr(model, name)
             a = torch.from_numpy(np.array(params[name], dtype=np.float32))
             if a.shape != p.shape:
                 raise ValueError(f"{name}: shape {tuple(a.shape)} != "
                                  f"{tuple(p.shape)}")
             p.copy_(a)
+
+
+def gcn_params_from_numpy(params: dict, model) -> None:
+    """Copy the four arrays of a JAX GCN parameter pytree into ``model``
+    (a :class:`flex_tpu_torch.models.GCN`), on the module's own device."""
+    _params_from_numpy(params, model, ("W1", "b1", "W2", "b2"))
+
+
+def gat_params_from_numpy(params: dict, model) -> None:
+    """Copy the six arrays of a JAX GAT parameter pytree into ``model``
+    (a :class:`flex_tpu_torch.models.GAT`), on the module's own device."""
+    _params_from_numpy(params, model, ("W1", "a1s", "a1d", "W2", "a2s",
+                                       "a2d"))
+
+
+def sage_params_from_numpy(params: dict, model) -> None:
+    """Copy the six arrays of a JAX GraphSAGE parameter pytree into
+    ``model`` (a :class:`flex_tpu_torch.models.GraphSAGE`), on the module's
+    own device."""
+    _params_from_numpy(params, model, ("Ws1", "Wn1", "b1", "Ws2", "Wn2",
+                                       "b2"))

@@ -7,6 +7,8 @@ the JAX package.
 - :func:`rmat_graph` — R-MAT / Kronecker power-law graphs.
 - :func:`uniform_graph` — uniform sparsity (what band and windowed refuse).
 - :func:`banded_graph` — diagonal-band sparsity (the band strategy's case).
+- :func:`hub_graph` — edges concentrated on a few popular columns (the
+  panel strategy's case).
 - :func:`community_graph`, :func:`bipartite_projection_graph`,
   :func:`reddit_posts` — community graphs (the windowed strategy's case).
 """
@@ -159,6 +161,31 @@ def community_graph(
         sel.sort()
         pair = pair[sel]
     return _sym_from_pairs(pair, m, rng, shuffle, name)
+
+
+def hub_graph(
+    m: int,
+    nnz_target: int,
+    n_hub_cols: int = 512,
+    hub_frac: float = 0.9,
+    seed: int = 0,
+    name: str = "hub",
+) -> CSRGraph:
+    """Hub-concentrated column skew: ``hub_frac`` of all edges point at
+    ``n_hub_cols`` popular columns (Zipf within the hub set), the rest
+    uniform.  After a DEG ordering each tm-row panel's unique columns
+    collapse to about ``n_hub_cols``, the regime of the panel strategy's
+    dense A blocks."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, m, int(nnz_target * 1.15) + 16)
+    is_hub = rng.random(len(rows)) < hub_frac
+    zipf_w = 1.0 / np.arange(1, n_hub_cols + 1) ** 0.8
+    cols = np.where(
+        is_hub,
+        rng.choice(n_hub_cols, len(rows), p=zipf_w / zipf_w.sum()),
+        rng.integers(0, m, len(rows)),
+    )
+    return _trim_to_csr(rows, cols, nnz_target, m, rng, name)
 
 
 def _sym_from_pairs(pair, m, rng, shuffle, name) -> CSRGraph:

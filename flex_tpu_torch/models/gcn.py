@@ -11,19 +11,13 @@ parameters keep the JAX package's names, shapes and orientation
 """
 from __future__ import annotations
 
-import math
 from typing import Callable
 
 import torch
 from torch import nn
 
+from flex_tpu_torch.models.common import glorot_uniform
 from flex_tpu_torch.ops.gcn import gcn_layer
-
-
-def _glorot_uniform(shape, generator: torch.Generator) -> torch.Tensor:
-    limit = math.sqrt(6.0 / (shape[0] + shape[1]))
-    return (torch.rand(shape, generator=generator, dtype=torch.float32)
-            * 2 - 1) * limit
 
 
 class GCN(nn.Module):
@@ -35,9 +29,9 @@ class GCN(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         self.nnz = nnz
-        self.W1 = nn.Parameter(_glorot_uniform((d_in, d_hidden), generator))
+        self.W1 = nn.Parameter(glorot_uniform((d_in, d_hidden), generator))
         self.b1 = nn.Parameter(torch.zeros(d_hidden))
-        self.W2 = nn.Parameter(_glorot_uniform((d_hidden, n_classes),
+        self.W2 = nn.Parameter(glorot_uniform((d_hidden, n_classes),
                                                generator))
         self.b2 = nn.Parameter(torch.zeros(n_classes))
 
@@ -57,18 +51,11 @@ def gcn_loss(model: GCN, plan, X, y, mask) -> torch.Tensor:
 
 def make_train_step(model: GCN, plan, optimizer) -> Callable:
     """Returns ``step(X, y, mask) -> loss``; ``optimizer`` holds
-    ``model.parameters()``.
+    ``model.parameters()``.  The plan goes through
+    :func:`.common.training_plan` (a windowed plan gets its transposed
+    residue backward)."""
+    from flex_tpu_torch.models import common
 
-    A windowed plan without a transposed residue backward gets one
-    attached here (``with_training_bwd``): training differentiates only
-    the parameters, and the adjacency is a constant.  A bare EllPlan is
-    not wrapped: it does not record B's row count (n != m on rectangular
-    graphs), so callers use ``ell_spmm.with_bwd_plan`` with the right n."""
-    from flex_tpu_torch.models.common import make_step
-    from flex_tpu_torch.ops.window_spmm import WindowedPlan, with_training_bwd
-
-    if isinstance(plan, WindowedPlan) and plan.ell.bwd_plan is None:
-        plan = with_training_bwd(plan)
-    return make_step(
+    return common.make_step(
         lambda plan_, X, y, mask: gcn_loss(model, plan_, X, y, mask),
-        plan, optimizer)
+        common.training_plan(plan), optimizer)

@@ -12,9 +12,11 @@
 - ``"band"``     — dense column-window path for banded matrices
                    (``impl="pallas2"``, ``"xla"`` or ``"pallas"``).
 - ``"gespmm"``   — GE-SpMM row-parallel chunks (second-opinion baseline).
+- ``"panel"``    — hub rows as row sums + tail rows as dense tm-row panels,
+                   for graphs whose rows share few columns after a DEG
+                   ordering.
 
-The names, and the default ``"xla"``, are the JAX package's.  Its
-``"panel"`` is not ported yet.
+The names, and the default ``"xla"``, are the JAX package's.
 
 Also here: :func:`gcn_layer` and :func:`pick_association`
 (:mod:`.gcn`), the GCN layer on any prepared plan.
@@ -36,15 +38,13 @@ PREPARE = {
     "windowed": ("window_spmm", "prepare_windowed"),
     "band": ("pallas_band", "prepare_band"),
     "gespmm": ("gespmm", "prepare_gespmm"),
+    "panel": ("panel_spmm", "prepare_panel"),
 }
-NOT_PORTED = ("panel",)
 
 
 def prepare_fn(method: str):
-    """The ``prepare_*`` function of a device method; unknown and
-    not-yet-ported methods raise a ValueError that names them."""
-    if method in NOT_PORTED:
-        raise ValueError(f"spmm method {method!r} is not ported yet")
+    """The ``prepare_*`` function of a device method; an unknown method
+    raises a ValueError that names it."""
     if method not in PREPARE:
         raise ValueError(f"unknown spmm method {method!r}")
     module, fn = PREPARE[method]

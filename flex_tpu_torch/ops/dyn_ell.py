@@ -1,0 +1,151 @@
+"""Dynamic-value SpMM: a static sparsity pattern, fresh edge values per
+call, differentiable in both.
+
+Counterpart of ``flex_tpu.ops.dyn_ell``: C = A(vals) · B, where ``vals``
+(length nnz, CSR order) is an argument with a gradient.  Attention GNNs
+(GAT) recompute the edge values every forward pass, so their pattern is
+fixed but their values are not.
+
+The JAX package assembles width-bucketed ELL value matrices from ``vals``
+at every call, which costs it about twice the static ELL call.  Here no
+assembly is needed: a CSR row's nonzeros are already one contiguous run,
+so the row-unit kernel (:func:`.gespmm.gespmm_rows`, ``csrc/gespmm.cu``)
+reads the resident CSR itself, with ``vals`` swapped in as its value
+store.  Its tables (chunk r = row r at ``row_ptr[r]``, ``deg[r]`` long) are
+built once at prepare time.
+
+Backward (:class:`_DynSpmm`):
+  - g_B = A(vals)ᵀ · g runs on the same kernel over the transposed
+    pattern, whose tables and permutation ``perm`` (a stable sort of the
+    edges by column) are built once; per call its values are
+    ``vals[perm]``.
+  - g_vals[e] = ⟨g[row_e], B[col_e]⟩ is plain torch (the JAX package gets
+    it from autodiff of XLA gathers, with no Pallas kernel), in
+    sub-batches of edges, so no nnz × k temporary is built whole.
+
+CPU tensors take the kernel's plain version (:func:`.gespmm.gespmm_rows`
+dispatches on the device).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from flex_tpu_torch.ops.ell_spmm import DEFAULT_WIDTHS
+from flex_tpu_torch.ops.gespmm import RowTables, gespmm_rows, row_tables
+from flex_tpu_torch.sparse.csr import CSRGraph
+from flex_tpu_torch.sparse.device import (
+    DeviceCSR, resident_csr, rows_from_row_ptr,
+)
+
+
+@dataclasses.dataclass
+class DynEllPlan:
+    """The static structure; ``plan(vals, B)`` is A(vals) · B with fresh
+    edge values (CSR order, length nnz)."""
+
+    m: int
+    n: int
+    nnz: int
+    rows: torch.Tensor   # i64 [nnz] CSR-order row ids
+    cols: torch.Tensor   # i32 [nnz] CSR-order column ids (the CSR's own)
+    fwd: RowTables       # over the CSR (values replaced at each call)
+    bwd: RowTables       # over the transposed pattern; no value store: each
+    #                      call passes vals[perm]
+    perm: torch.Tensor   # i64 [nnz]: transposed entry t is CSR entry perm[t]
+    max_gather_rows: int = 2 * 1024 * 1024
+
+    def __call__(self, vals: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+        if tuple(vals.shape) != (self.nnz,):
+            raise ValueError(f"vals must have shape ({self.nnz},), got "
+                             f"{tuple(vals.shape)}")
+        if B.dim() != 2 or B.shape[0] != self.n:
+            raise ValueError(f"B must be ({self.n}, k), got "
+                             f"{tuple(B.shape)}")
+        return _DynSpmm.apply(self, vals, B)
+
+    def edge_dots(self, g: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+        """⟨g[row_e], B[col_e]⟩ for every edge e (f32 [nnz]), in sub-batches
+        of about ``max_gather_rows`` edges."""
+        if g.shape[1] % 4 == 0:
+            # rows of a multiple of 16 bytes take PyTorch's vectorized row
+            # gather, which on the card is several times slower on narrow
+            # rows than the element gather of the same rows with a zero
+            # column added (chip_smoke.py's [gat] line times both); the
+            # zero adds nothing to the dot products
+            g = torch.nn.functional.pad(g, (0, 1))
+            B = torch.nn.functional.pad(B, (0, 1))
+        out = g.new_empty(self.nnz)
+        step = max(1, self.max_gather_rows)
+        for s in range(0, self.nnz, step):
+            r = self.rows[s:s + step]
+            c = self.cols[s:s + step].long()
+            out[s:s + step] = (g.index_select(0, r)
+                               * B.index_select(0, c)).sum(1)
+        return out
+
+
+class _DynSpmm(torch.autograd.Function):
+    """A(vals) · B with g_B = A(vals)ᵀ · g on the row-unit kernel and
+    g_vals by :meth:`DynEllPlan.edge_dots`."""
+
+    @staticmethod
+    def forward(ctx, plan, vals, B):
+        vals = vals.to(torch.float32).contiguous()
+        B = B.contiguous()
+        ctx.plan = plan
+        ctx.save_for_backward(vals, B)
+        return gespmm_rows(dataclasses.replace(plan.fwd, vals=vals), B)
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        vals, B = ctx.saved_tensors
+        g = g.contiguous()
+        g_vals = g_B = None
+        if ctx.needs_input_grad[1]:
+            g_vals = plan.edge_dots(g, B)
+        if ctx.needs_input_grad[2]:
+            g_B = gespmm_rows(dataclasses.replace(
+                plan.bwd, vals=vals.index_select(0, plan.perm)), g)
+        return None, g_vals, g_B
+
+
+def prepare_dyn_ell(g: CSRGraph, dev: DeviceCSR | None = None,
+                    widths: tuple[int, ...] = DEFAULT_WIDTHS,
+                    device=None) -> DynEllPlan:
+    """Build the structure on the device from the resident CSR (``dev``, or
+    ``g`` moved to ``device``: CUDA unless the caller names another).
+    ``widths`` keeps the JAX signature: the row-unit kernel reads whole
+    CSR rows, so no width ladder is needed and it is not read."""
+    del widths
+    dev = resident_csr(g, dev, device)
+    d = dev.device
+    m, n, nnz = g.m, g.n, g.nnz
+    rows = rows_from_row_ptr(dev.row_ptr, nnz, m)
+    deg = (dev.row_ptr[1:] - dev.row_ptr[:-1]).long()
+    fwd = row_tables(dev.col, dev.vals, torch.arange(m, device=d),
+                     dev.row_ptr[:m], deg, m)
+    perm = torch.argsort(dev.col, stable=True)
+    deg_t = torch.bincount(dev.col.long(), minlength=n)
+    start_t = torch.cumsum(deg_t, 0) - deg_t
+    bwd = row_tables(rows.index_select(0, perm).to(torch.int32),
+                     dev.vals[:0], torch.arange(n, device=d), start_t,
+                     deg_t, n)
+    return DynEllPlan(m=m, n=n, nnz=nnz, rows=rows, cols=dev.col, fwd=fwd,
+                      bwd=bwd, perm=perm)
+
+
+def spmm_dyn(g: CSRGraph, vals, B, **kwargs) -> torch.Tensor:
+    """One-shot dynamic-value SpMM (prepare + call) on the device of
+    ``kwargs`` (CUDA unless ``device`` names another)."""
+    plan = prepare_dyn_ell(g, **kwargs)
+    d = plan.cols.device
+
+    def t(a):
+        return (a if torch.is_tensor(a) else torch.from_numpy(
+            np.asarray(a))).to(device=d, dtype=torch.float32)
+
+    return plan(t(vals), t(B))

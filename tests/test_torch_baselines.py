@@ -81,6 +81,8 @@ METHOD_KW = {
     "windowed": dict(tm=128, W=128, J=4, min_count=8, min_coverage=0.0),
     "windowed:transposed": dict(tm=128, W=128, J=4, min_count=8,
                                 min_coverage=0.0, transposed=True),
+    # no row reaches the default hub threshold: tail panels only
+    "panel": dict(tm=64),
 }
 
 
@@ -97,7 +99,7 @@ def test_spmm_dispatcher_matches_jax(case):
     np.testing.assert_array_equal(spmm(g, B, method="ref"), spmm_scipy(g, B))
 
 
-@pytest.mark.parametrize("method", ["xla", "bcoo", "gespmm", "band"])
+@pytest.mark.parametrize("method", ["xla", "bcoo", "gespmm", "band", "panel"])
 def test_new_methods_need_a_device(monkeypatch, method):
     g = banded_graph(600, 64, 8.0, seed=7)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -107,7 +109,7 @@ def test_new_methods_need_a_device(monkeypatch, method):
         prepare_fn(method)(g)
 
 
-@pytest.mark.parametrize("method,word", [("panel", "not ported"),
+@pytest.mark.parametrize("method,word", [("cusparse", "unknown"),
                                          ("nope", "unknown")])
 def test_spmm_names_what_it_refuses(method, word):
     g = banded_graph(600, 64, 8.0, seed=7)
@@ -122,6 +124,6 @@ def test_prepare_refuses_a_device_that_differs_from_the_csr():
 
     g = GRAPHS["rmat500"]()
     dev = DeviceCSR.from_graph(g, "cpu")
-    for method in ("xla", "bcoo", "gespmm", "band"):
+    for method in ("xla", "bcoo", "gespmm", "band", "panel"):
         with pytest.raises(ValueError, match="dev lies on"):
             prepare_fn(method)(g, dev=dev, device="cuda")

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
 forward, g_A, g_B, transposed forward, the two band kernels, the row-unit
-kernel of GE-SpMM and the ELL residue) against their plain twins, the unit
+kernel of GE-SpMM, the ELL residue, the dynamic-value SpMM and the panel
+plan's hub rows) against their plain twins, the unit
 kernels (g_A too) on the edges of their work units and the ranged band kernels on
 empty, one-half and full ranges, whole plans on the card against SciPy,
 repeat calls of whole plans and of g_B bit for bit, gradients against
@@ -859,10 +860,70 @@ def test_gespmm_kernel_refuses_what_it_cannot_take(cuda):
         gespmm_rows(dataclasses.replace(t, units=off), B)
 
 
-@pytest.mark.parametrize("method", ["xla", "bcoo", "ell", "gespmm"])
+@pytest.mark.parametrize("method", ["xla", "bcoo", "ell", "gespmm", "panel"])
 def test_spmm_methods_run_on_the_card_by_default(cuda, method):
     g = rmat_graph(2048, 32768, seed=3)
     B = make_features(g, 32)
     C = spmm(g, B, method=method)
     assert C.device.type == "cuda"
     assert res_check(spmm_scipy(g, B), C.cpu().numpy(), g.degrees).err_frac == 0
+
+
+@pytest.mark.parametrize("k", [16, 41, 128])
+def test_dyn_spmm_forward_and_gB_match_plain(cuda, k):
+    """The dynamic-value SpMM on the row-unit kernel: the forward over the
+    CSR and g_B over the transposed pattern against the kernel's plain
+    version on the same tables, each launched once; g_vals against SciPy;
+    a second forward gives the same bits."""
+    from flex_tpu_torch.ops.dyn_ell import prepare_dyn_ell
+
+    g = _hub_and_empty()
+    plan = prepare_dyn_ell(g, device=cuda)
+    rng = np.random.default_rng(k)
+    vals = torch.from_numpy((2 * rng.random(g.nnz) - 1).astype(
+        np.float32)).to(cuda).requires_grad_()
+    B = torch.from_numpy(rng.standard_normal((g.n, k)).astype(
+        np.float32)).to(cuda).requires_grad_()
+    co = torch.rand((g.m, k), device=cuda) * 2 - 1
+    before = gespmm_rows.launches
+    out = plan(vals, B)
+    assert gespmm_rows.launches == before + 1
+    assert torch.equal(out, plan(vals, B))
+    (out * co).sum().backward()
+    assert gespmm_rows.launches == before + 3
+    fwd = dataclasses.replace(plan.fwd, vals=vals.detach())
+    bwd = dataclasses.replace(plan.bwd, vals=vals.detach()[plan.perm])
+    _assert_rows_close(out, gespmm_rows_plain(fwd, B.detach()),
+                       _rows_tol(fwd, B.detach()))
+    _assert_rows_close(B.grad, gespmm_rows_plain(bwd, co), _rows_tol(bwd, co))
+    rows = np.repeat(np.arange(g.m), g.degrees)
+    want = (co.cpu().numpy()[rows] * B.detach().cpu().numpy()[g.col]).sum(1)
+    np.testing.assert_allclose(vals.grad.cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [32, 128])
+def test_panel_hub_rows_match_plain_and_scipy(cuda, k):
+    """The panel plan with hub rows: the hub tables through the row-unit
+    kernel against its plain version, the whole plan against SciPy; tail
+    panels only without hubs."""
+    from flex_tpu_torch.io.synth import hub_graph
+    from flex_tpu_torch.ops.panel_spmm import prepare_panel
+
+    g = reorder(hub_graph(20_000, 400_000, n_hub_cols=128, seed=1), "deg")
+    B = make_features(g, k)
+    B_dev = torch.from_numpy(B).to(cuda)
+    for kw in (dict(), dict(hub_threshold=int(np.percentile(g.degrees, 99)),
+                            hub_width=8)):
+        plan = prepare_panel(g, device=cuda, **kw)
+        before = gespmm_rows.launches
+        out = plan(B_dev)
+        assert gespmm_rows.launches == before + (plan.n_hub_rows > 0)
+        assert res_check(spmm_scipy(g, B), out.cpu().numpy(),
+                         g.degrees).err_frac == 0
+        assert torch.equal(out, plan(B_dev))
+        if plan.n_hub_rows:
+            t = plan.hub_rows
+            _assert_rows_close(out[:plan.n_hub_rows],
+                               gespmm_rows_plain(t, B_dev),
+                               _rows_tol(t, B_dev))
