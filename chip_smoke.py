@@ -91,19 +91,41 @@ Phases:
      without hub rows and with hub_threshold=100 (the hub prefix on kernel
      7, held to its plain version), beside cuSPARSE on the same CSR; the
      plans' stats and host seconds.
+ 11c. [autotune] the autotuner's rates on the main path's graph: seconds
+     per padded ELL nonzero on kernel 7 at k = 128 and 41, per kept window
+     on kernel 1 (k = 128) and kernel 4 (k = 41), the FP32 torch.bmm and
+     row-gather rates, the fixed cost of one call; then suggest's choice
+     and model beside autotune's measured ranking at k = 128 and 41.
+ 11d. [gcn_bench] bench_gcn_layer(g, 128, 41, method="ell"): both
+     associations timed, cross and SciPy err_frac 0.
+ 14. [cli] ``python -m flex_tpu_torch`` in a child process on the main
+     path's graph as a CSV (written by save_csv before ordering; load_csv
+     gives back its row_ptr and col exactly), --order=rbdeg with the
+     ordering file: --method=auto at k = 128 and 41, --method=windowed
+     --min_count=64 at k = 128 (phase 4's selection, tElap within 3 % of
+     phase 4's); each exits 0 with err_frac <= 1e-4 in its CSV row, the
+     method it printed, its kernels' launch counts and their names in
+     its trace.
+ 15. [sweep] ``python -m flex_tpu_torch <flickr_posts csv> 128
+     --method=sweep`` on flickr_posts(seed=0) (Flickr's size): exit 0,
+     every row checked or refused by its format.
 Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
-set to 0 just before it and read just after.
-Then one JSON line {"kernels": [...]}, the card's name and power limit, and
-last {"ok": true, "device": {...}}.  Any failure raises and
-exits non-zero; without a CUDA card the script exits 2 and prints no
-result.  The ordered graph is cached under flex_tpu_torch/_build/.
+set to 0 just before it and read just after (the command-line phases
+count in their own process, from 0, and print the counts last).
+Then one JSON line {"kernels": [...]} (each row also counts its kernel's
+launches in the phases autotune, gcn_bench, cli_* and sweep), the card's
+name and power limit, and last {"ok": true, "device": {...}}.  Any
+failure raises and exits non-zero; without a CUDA card the script exits 2
+and prints no result.  The ordered graph is cached under
+flex_tpu_torch/_build/.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -115,31 +137,18 @@ EXPECT_M, EXPECT_NNZ = 232_965, 23_446_803
 K = 128
 EPS32 = float(np.finfo(np.float32).eps)
 
-# Published dense peaks (NVIDIA data sheets): FP32 outside the tensor
-# cores, and device-memory rate.  Keyed by a substring of the card name.
-PEAKS = {
-    "H100 PCIe": {"fp32": 51e12, "bytes": 2.0e12},
-    "H100 NVL": {"fp32": 60e12, "bytes": 3.9e12},
-    "H100": {"fp32": 67e12, "bytes": 3.35e12},  # SXM5 80GB HBM3
-}
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def peaks_for(name: str) -> dict:
-    for key, p in PEAKS.items():
-        if key in name:
-            return p
-    raise RuntimeError(f"no published peak rates for card {name!r}")
-
-
 def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    """The card's name and power limit as nvidia-smi gives them."""
+    from flex_tpu_torch.utils.device_info import smi_query
+
+    line = smi_query(0)
+    if line is None:
+        raise RuntimeError("nvidia-smi did not answer")
+    return line
 
 
 def bound(n_bytes: float, n_flops: float, peaks: dict) -> tuple[float, str]:
@@ -738,28 +747,59 @@ def phase_kernels_vs_plain(torch, dev="cuda"):
 # phase 4: main path
 # ---------------------------------------------------------------------------
 
+# the graph's name is the CSV's basename up to its first dot
+MAIN_CSV = "reddit_posts.csv"
+MAIN_PERM = f"reddit_posts_rbdeg_perm_v{CACHE_VERSION}.npy"
+
+
 def load_graph():
+    """The main path's graph, reddit_posts(seed=0) ordered by rbdeg, cached
+    under the build directory with what the command-line phase reads: the
+    graph before ordering as a 3-line CSV (written by ``save_csv`` and read
+    back by ``load_csv``, whose row_ptr and col must equal the generated
+    ones) and the rbdeg ordering as an ordering file."""
+    from flex_tpu_torch.io import load_csv, save_csv
     from flex_tpu_torch.kernels import BUILD_DIR
+    from flex_tpu_torch.reorder import ORDER_ABBR, compute_order
+    from flex_tpu_torch.reorder.inout import save_order
     from flex_tpu_torch.sparse.csr import CSRGraph
+    from flex_tpu_torch.sparse.perm import apply_vertex_order
 
     path = os.path.join(BUILD_DIR, f"reddit_posts_rbdeg_v{CACHE_VERSION}.npz")
-    if os.path.exists(path):
+    csv = os.path.join(BUILD_DIR, MAIN_CSV)
+    perm_path = os.path.join(BUILD_DIR, MAIN_PERM)
+    if all(map(os.path.exists, (path, csv, perm_path))):
         d = np.load(path)
         g = CSRGraph.from_arrays(d["row_ptr"], d["col"], d["vals"],
                                  name="reddit_posts", order="RBD")
         log(f"[graph] loaded {path}")
     else:
         from flex_tpu_torch.io.synth import reddit_posts
-        from flex_tpu_torch.reorder import reorder
 
         t0 = time.perf_counter()
-        g = reddit_posts(seed=0)
+        g0 = reddit_posts(seed=0)
         t1 = time.perf_counter()
-        g = reorder(g, "rbdeg", check=False)
+        perm = compute_order(g0, "rbdeg")
+        g = apply_vertex_order(g0, perm, ORDER_ABBR["rbdeg"], check=False)
         t2 = time.perf_counter()
         log(f"[graph] host: reddit_posts {t1 - t0:.1f}s, rbdeg {t2 - t1:.1f}s")
         os.makedirs(BUILD_DIR, exist_ok=True)
         np.savez(path, row_ptr=g.row_ptr, col=g.col, vals=g.vals)
+        save_order(perm, perm_path)
+        save_csv(g0, csv)
+        t3 = time.perf_counter()
+        back = load_csv(csv)
+        t4 = time.perf_counter()
+        if not (np.array_equal(back.row_ptr, g0.row_ptr)
+                and np.array_equal(back.col, g0.col)):
+            raise AssertionError("load_csv(save_csv(g)) changed row_ptr or "
+                                 "col")
+        log(f"[graph] save_csv {t3 - t2:.1f}s "
+            f"({os.path.getsize(csv) / 1e9:.3f} GB), load_csv {t4 - t3:.1f}s: "
+            f"row_ptr and col equal the generated graph's; values within "
+            f"{float(np.abs(back.vals - g0.vals).max()):.2e} ({{:g}} keeps "
+            f"six digits)")
+        del g0, back
     if (g.m, g.nnz) != (EXPECT_M, EXPECT_NNZ):
         raise AssertionError(f"graph is {g.m} x {g.nnz} nnz, expected "
                              f"{EXPECT_M} x {EXPECT_NNZ}")
@@ -947,18 +987,6 @@ def check_gB_against_scipy(g, gB, gold, col_deg, label):
     return chk.err_frac
 
 
-def kernel_wrappers() -> list:
-    """The seven kernel wrappers, in the order of the kernels line."""
-    from flex_tpu_torch.ops.gespmm import gespmm_rows
-    from flex_tpu_torch.ops.pallas_band import band_spmm_v1, band_spmm_v2
-    from flex_tpu_torch.ops.window_spmm import (
-        window_bwd_gA, window_bwd_gB, window_spmm_fwd, window_spmm_t_fwd,
-    )
-
-    return [window_spmm_fwd, window_bwd_gA, window_bwd_gB, window_spmm_t_fwd,
-            band_spmm_v2, band_spmm_v1, gespmm_rows]
-
-
 def kernel_usage(source: str, name: str) -> list:
     """Registers and spill bytes that ptxas reported for the entries of
     ``csrc/<source>.cu`` whose mangled name holds ``name`` (empty when the
@@ -983,12 +1011,15 @@ def kernel_usage(source: str, name: str) -> list:
 
 
 def reset_launches():
-    for fn in kernel_wrappers():
-        fn.launches = 0
+    from flex_tpu_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def read_launches() -> dict:
-    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
+    from flex_tpu_torch.kernels import launch_counts
+
+    return launch_counts()
 
 
 def expect_launches(launches: dict, what: str, **counts):
@@ -1461,9 +1492,31 @@ def csr_tensor(torch, g):
         torch.from_numpy(g.vals).cuda(), size=g.shape)
 
 
+def bench_plan(bench_spmm, g, k, method, **kw):
+    """``bench_spmm`` with the plan kept (``prepare=`` keeps it), without
+    the serial chain and the traced call, whose calls would add launches
+    to the counts.  Returns (the result's numbers, the plan)."""
+    from types import SimpleNamespace
+
+    from flex_tpu_torch.ops import prepare_fn
+
+    kept = []
+
+    def prepare(g_, **prep_kwargs):
+        kept.append(prepare_fn(method)(g_, **prep_kwargs))
+        return kept[-1]
+
+    r = bench_spmm(g, k, method, prepare=prepare, chain=False, trace=False,
+                   **kw)
+    return SimpleNamespace(
+        t_pre_s=r.t_pre, t_elap_ms=r.t_elap * 1e3, gflops=r.gflops,
+        pre_elap_ratio=r.pre_ratio,
+        err_frac=r.check.err_frac if r.check else None), kept[-1]
+
+
 def bench_checked(bench_spmm, g, k, method, label, **kw):
     """``bench_spmm`` with err_frac held to 1e-4.  Returns (result, plan)."""
-    r, plan = bench_spmm(g, k, method, **kw)
+    r, plan = bench_plan(bench_spmm, g, k, method, **kw)
     if r.err_frac is None or r.err_frac > 1e-4:
         raise AssertionError(f"{label}: err_frac={r.err_frac} > 1e-4")
     log(f"[{label}] " + json.dumps({
@@ -2315,6 +2368,295 @@ def phase_panel(torch, peaks, bench_spmm, time_cuda_ms, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the autotuner's rates, the GCN layer bench, the command line, the sweep
+# ---------------------------------------------------------------------------
+
+# the phases whose launch counts join every row of the kernels line
+NEW_PHASES = ("autotune", "gcn_bench", "cli_auto_k128", "cli_auto_k41",
+              "cli_windowed_k128", "sweep")
+
+
+def phase_autotune(torch, g, dev, B_dev, sel, kernel1_ms, kernel4_ms41,
+                   time_cuda_ms):
+    """The autotuner's rates, measured on the main path's graph: seconds
+    per padded ELL nonzero on kernel 7 (the ELL plan at k = 128 and 41),
+    seconds per kept window of the main path's selection on kernel 1 at
+    k = 128 (phase 5's time) and on kernel 4 at k = 41 (phase 9's), the
+    FP32 ``torch.bmm`` rate at panel-tail shapes, the bytes rate of the
+    row gather that feeds it, and the fixed cost of one call.  Then
+    ``suggest``'s choice and model beside ``autotune``'s measured ranking
+    at k = 128 and 41 (the transposed plan too at 41).  A choice slower
+    than the fastest candidate is reported, not failed.  Returns (rates,
+    launch counts)."""
+    from flex_tpu_torch.bench.autotune import autotune, suggest
+    from flex_tpu_torch.bench.harness import bench_spmm
+    from flex_tpu_torch.io.synth import rmat_graph
+    from flex_tpu_torch.ops.ell_spmm import ell_padded_nnz, prepare_ell
+
+    reset_launches()
+    ell = prepare_ell(g, dev=dev)
+    pad = ell_padded_nnz(g.degrees)
+    if pad != ell.padded_nnz:
+        raise AssertionError(f"ell_padded_nnz {pad} != plan {ell.padded_nnz}")
+    B41 = B_dev[:, :41].contiguous()
+    ell_ms = time_cuda_ms(ell, B_dev, iters=20)
+    ell_ms41 = time_cuda_ms(ell, B41, iters=20)
+    del ell
+    n_win = sel["total_steps"] * sel["G"]
+    # panel's tail: (panels, tm, u) x (panels, u, k) batched products
+    Ab = torch.rand((1024, 128, 512), device="cuda")
+    Bb = torch.rand((1024, 512, K), device="cuda")
+    bmm_ms = time_cuda_ms(torch.bmm, Ab, Bb, iters=20)
+    bmm_flops = 2 * 1024 * 128 * 512 * K
+    del Ab, Bb
+    idx = torch.randint(0, g.n, (4_000_000,), device="cuda")
+    gather_ms = time_cuda_ms(torch.index_select, B_dev, 0, idx, iters=20)
+    gather_bytes = 2 * idx.numel() * K * 4 + idx.numel() * 8
+    del idx
+    # one call of a plan whose kernels take no time: the host's launch
+    # cost or the card's, whichever is larger
+    tiny = rmat_graph(1024, 8192, seed=0)
+    tp = prepare_ell(tiny, device="cuda")
+    Bt = torch.rand((tiny.n, K), device="cuda")
+    tp_ms = time_cuda_ms(tp, Bt, iters=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        tp(Bt)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    rates = {
+        "ell_s_per_pad": ell_ms * 1e-3 / pad,
+        "ell_k41_ratio": ell_ms41 / ell_ms,
+        "ell_ns_per_pad_k128": ell_ms * 1e6 / pad,
+        "ell_ns_per_pad_k41": ell_ms41 * 1e6 / pad,
+        "ell_ms": ell_ms, "ell_ms_k41": ell_ms41, "ell_padded_nnz": pad,
+        "win_s_per_window": kernel1_ms * 1e-3 / n_win,
+        "win_k41_ratio": kernel4_ms41 / kernel1_ms,
+        "win_us_per_window_kernel1_k128": kernel1_ms * 1e3 / n_win,
+        "win_us_per_window_kernel4_k41": kernel4_ms41 * 1e3 / n_win,
+        "kept_windows": n_win,
+        "bmm_flops": bmm_flops / (bmm_ms * 1e-3), "bmm_ms": bmm_ms,
+        "gather_bytes": gather_bytes / (gather_ms * 1e-3),
+        "gather_ms": gather_ms,
+        "fixed_overhead_s": max(tp_ms, host_ms) * 1e-3,
+        "tiny_call_event_ms": tp_ms, "tiny_call_host_ms": host_ms,
+    }
+    log("[autotune] rates " + json.dumps(rates))
+    del tp, Bt
+    for k in (K, 41):
+        t0 = time.perf_counter()
+        s = suggest(g, k)
+        t_sug = time.perf_counter() - t0
+        res = autotune(g, k, methods=("ell", "windowed", "bcoo", "xla"))
+        ranking = [(r.method, r.t_elap * 1e3) for r in res]
+        if k == 41:
+            r = bench_spmm(g, k, "windowed", check=False, iters=3, dev=dev,
+                           transposed=True)
+            ranking.append(("windowed transposed", r.t_elap * 1e3))
+        ranking.sort(key=lambda x: x[1])
+        choice = s.method + (" transposed" if s.prep_kwargs.get(
+            "transposed") else "")
+        got = dict(ranking).get(choice)
+        log(f"[autotune] k={k}: suggest -> {choice} ({s.reason}; host "
+            f"{t_sug:.1f}s); model ms "
+            + json.dumps({m: t * 1e3 for m, t in s.model.items()})
+            + "; measured ms, fastest first " + json.dumps(ranking))
+        if got is None or got > ranking[0][1]:
+            log(f"[autotune] k={k}: suggest's choice {choice} "
+                f"({got} ms) is not the fastest measured candidate "
+                f"{ranking[0][0]} ({ranking[0][1]:.3f} ms)")
+    return rates, read_launches()
+
+
+def phase_gcn_bench(g):
+    """``bench_gcn_layer(g, 128, 41, method="ell")``: both associations of
+    the GCN layer on kernel 7; the two must agree, and agree with SciPy,
+    with err_frac 0 (``res_check2``, tol 0.01)."""
+    from flex_tpu_torch.bench.gcn_bench import bench_gcn_layer
+
+    reset_launches()
+    r = bench_gcn_layer(g, K, 41, method="ell")
+    launches = read_launches()
+    # per association 3 warm-up + 5 timed + 1 checked call
+    expect_launches(launches, "gcn_bench", gespmm_rows=18)
+    gf = r.gflops(g.nnz, g.m)
+    log("[gcn_bench] " + json.dumps({
+        "t_axw_ms": r.t_axw * 1e3, "t_ax_w_ms": r.t_ax_w * 1e3,
+        "gflops_axw": gf["axw"], "gflops_ax_w": gf["ax_w"],
+        "auto_choice": r.auto_choice, "cross_err_frac": r.cross_err_frac,
+        "scipy_err_frac": r.scipy_err_frac}))
+    if r.cross_err_frac != 0 or r.scipy_err_frac != 0:
+        raise AssertionError(f"gcn_bench: cross {r.cross_err_frac}, scipy "
+                             f"{r.scipy_err_frac}")
+    return launches
+
+
+CLI_TIMEOUT_S = 600
+
+
+def run_cli(args, label):
+    """``python -m flex_tpu_torch`` with ``args`` in a child process, from
+    the checkout's root; every line it prints is logged.  Returns (its
+    output, the launch counts it printed last, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "flex_tpu_torch", *args],
+                       cwd=root, capture_output=True, text=True,
+                       timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in p.stdout.splitlines():
+        log(f"[{label}] | {line}")
+    if p.returncode != 0:
+        log(p.stderr[-6000:])
+        raise AssertionError(f"[{label}] exited {p.returncode}")
+    m = re.search(r"^kernel launches: (\{.*\})$", p.stdout, re.M)
+    if m is None:
+        raise AssertionError(f"[{label}] printed no launch counts")
+    return p.stdout, json.loads(m.group(1)), secs
+
+
+def read_csv_rows(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+# the hand kernels each method's plan launches, by device-function name
+CLI_KERNELS = {"ell": ("rows_kernel",),
+               "windowed": ("window_spmm_kernel", "rows_kernel"),
+               "windowed transposed": ("window_spmm_t_kernel", "rows_kernel")}
+CLI_WRAPPERS = {"ell": ("gespmm_rows",),
+                "windowed": ("window_spmm_fwd", "gespmm_rows"),
+                "windowed transposed": ("window_spmm_t_fwd", "gespmm_rows")}
+
+
+def phase_cli(main_ms, main_stats):
+    """The main path's graph through ``python -m flex_tpu_torch``: the CSV
+    that ``load_graph`` wrote (the graph before ordering), ``--order=rbdeg``
+    with the ordering file, ``--method=auto`` at k = 128 and 41, then
+    ``--method=windowed --min_count=64`` at k = 128, each with ``--csv``
+    and ``--trace``.  Each run exits 0, reloads the ordering, writes one
+    row with err_frac <= 1e-4 and the method it printed, launches the
+    hand kernels of that method (15 calls: 3 warm-up, 10 timed, the traced
+    and the checked one) and names them in its trace.  The windowed run
+    selects what phase 4 selected (its 8 GiB budget and phase 4's 6 GiB
+    both hold the 6.4 GB array) and its tElap is within 3 % of phase
+    4's.  Returns {run: summary}."""
+    from flex_tpu_torch.kernels import BUILD_DIR
+    from flex_tpu_torch.utils.trace import classify_op, trace_table
+
+    csv_path = os.path.join(BUILD_DIR, MAIN_CSV)
+    perm = os.path.join(BUILD_DIR, MAIN_PERM)
+    out = {}
+    for tag, k, flags in (
+            ("cli_auto_k128", K, ["--method=auto"]),
+            ("cli_auto_k41", 41, ["--method=auto"]),
+            ("cli_windowed_k128", K, ["--method=windowed", "--min_count=64"])):
+        row_csv = os.path.join(BUILD_DIR, f"{tag}.csv")
+        tdir = os.path.join(BUILD_DIR, f"{tag}_trace")
+        shutil.rmtree(tdir, ignore_errors=True)
+        stdout, launches, secs = run_cli(
+            [csv_path, str(k), "--order=rbdeg", f"--order-file={perm}",
+             *flags, f"--csv={row_csv}", f"--trace={tdir}"], tag)
+        if f"loading ordering from {perm}" not in stdout:
+            raise AssertionError(f"[{tag}] did not reload the ordering file")
+        m = re.search(r"^auto-selected method: (\w+) \(", stdout, re.M)
+        printed = m.group(1) if m else flags[0].split("=")[1]
+        if re.search(r"refused \(.*\); falling back to ell", stdout):
+            printed = "ell"
+        rows = read_csv_rows(row_csv)
+        if len(rows) != 1 or rows[0]["method"] != printed:
+            raise AssertionError(f"[{tag}] csv rows {rows} do not name the "
+                                 f"printed method {printed}")
+        row = rows[0]
+        err = float(row["err_frac"])
+        if not err <= 1e-4:
+            raise AssertionError(f"[{tag}] err_frac={err} > 1e-4")
+        plan = printed + (" transposed" if row.get("fmt_transposed") == "True"
+                          else "")
+        expect_launches(launches, f"[{tag}]", **{
+            w: 15 for w in CLI_WRAPPERS[plan]})
+        trows = trace_table(tdir)
+        for name in CLI_KERNELS[plan]:
+            hits = [r for r in trows if name in r["op"]]
+            if not hits or any(classify_op(r["op"]) != "dot" for r in hits):
+                raise AssertionError(f"[{tag}] trace does not show {name} "
+                                     f"as a dot op: {trows[:8]}")
+        out[tag] = {
+            "k": k, "method": plan, "t_elap_ms": float(row["t_elap_ms"]),
+            "t_pre_s": float(row["t_pre_s"]), "gflops": float(row["gflops"]),
+            "err_frac": err,
+            "trace_device_ms": float(row["trace_device_ms"])
+            if row.get("trace_device_ms") else None,
+            "trace_dot_ms": float(row["trace_dot_ms"])
+            if row.get("trace_dot_ms") else None,
+            "fmt_n_steps": row.get("fmt_n_steps"),
+            "fmt_n_res": row.get("fmt_n_res"),
+            "seconds": secs, "launches": launches,
+            "trace_top": [(r["op"][:100], r["count"], r["total_ms"])
+                          for r in trows[:6]]}
+        log(f"[{tag}] " + json.dumps(out[tag]))
+    w = out["cli_windowed_k128"]
+    if (int(w["fmt_n_steps"]), int(w["fmt_n_res"])) != (
+            main_stats["n_steps"], main_stats["n_res"]):
+        raise AssertionError(f"[cli] windowed selection {w['fmt_n_steps']} "
+                             f"steps, {w['fmt_n_res']} residue nnz; phase 4 "
+                             f"{main_stats['n_steps']}, {main_stats['n_res']}")
+    rel = w["t_elap_ms"] / main_ms - 1
+    log(f"[cli] windowed tElap {w['t_elap_ms']:.3f} ms against phase 4's "
+        f"{main_ms:.3f} ms ({rel:+.2%})")
+    if abs(rel) > 0.03:
+        raise AssertionError(f"[cli] windowed tElap differs by {rel:+.2%} "
+                             f"from phase 4's")
+    return out
+
+
+def phase_sweep():
+    """``python -m flex_tpu_torch <flickr_posts csv> 128 --method=sweep``
+    on flickr_posts(seed=0) (89,250 nodes, 989,006 nnz): 6 orderings x
+    xla, bcoo, ell, panel, band, windowed (the last three at tm 128 and
+    256).  It exits 0, and every row passes its check or records a
+    ValueError / NotImplementedError refusal.  Returns (summary, launch
+    counts)."""
+    from flex_tpu_torch.io import flickr_posts, save_csv
+    from flex_tpu_torch.kernels import BUILD_DIR
+
+    t0 = time.perf_counter()
+    csv_path = os.path.join(BUILD_DIR, "flickr_posts.csv")
+    g = flickr_posts(seed=0)
+    save_csv(g, csv_path)
+    log(f"[sweep] host: {g}, written in {time.perf_counter() - t0:.1f}s")
+    rows_csv = os.path.join(BUILD_DIR, "sweep.csv")
+    _, launches, secs = run_cli([csv_path, str(K), "--method=sweep",
+                                 f"--csv={rows_csv}"], "sweep")
+    rows = read_csv_rows(rows_csv)
+    refused, checked = [], []
+    for r in rows:
+        if r.get("err_frac"):
+            if float(r["err_frac"]) != 0.0:
+                raise AssertionError(f"[sweep] row failed its check: {r}")
+            checked.append(r)
+        elif r.get("error", "").startswith(("ValueError",
+                                            "NotImplementedError")):
+            refused.append(r)
+        else:
+            raise AssertionError(f"[sweep] row neither checked nor refused: "
+                                 f"{r}")
+    best = min(checked, key=lambda r: float(r["t_elap_ms"]))
+    out = {"rows": len(rows), "checked": len(checked),
+           "refused": len(refused), "seconds": secs,
+           "refused_by_method": {m: sum(r["method"] == m for r in refused)
+                                 for m in sorted({r["method"] for r in rows})},
+           "fastest": {f: best[f] for f in ("order", "method", "t_elap_ms",
+                                            "gflops")},
+           "launches": launches}
+    log("[sweep] " + json.dumps(out))
+    return out, launches
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     import torch
@@ -2325,6 +2667,7 @@ def main() -> int:
     import flex_tpu_torch  # noqa: F401  (fails outside a checkout)
     from flex_tpu_torch import kernels
     from flex_tpu_torch.bench.harness import bench_spmm, time_cuda_ms
+    from flex_tpu_torch.utils.device_info import peaks_for
     from flex_tpu_torch.ops.window_spmm import (
         FWD_CHUNK_STEPS, device_units, window_select, window_spmm_fwd,
         window_spmm_fwd_plain,
@@ -2389,8 +2732,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
-    r, plan = bench_spmm(g, K, "windowed", dev=dev, B=B, gold=gold, iters=10,
-                         tm=256, W=128, min_count=64, sel=sel)
+    r, plan = bench_plan(bench_spmm, g, K, "windowed", dev=dev, B=B,
+                         gold=gold, iters=10, tm=256, W=128, min_count=64,
+                         sel=sel)
     launches = read_launches()
     # 3 warm-up + 10 timed + 1 checked call: the dense half and the
     # residue, and no other kernel
@@ -2426,6 +2770,8 @@ def main() -> int:
         "library_gflops": 2 * g.nnz * K / (library_ms * 1e-3) / 1e9,
         "card": smi}))
     del A_csr
+    main_ms = r.t_elap_ms
+    main_stats = {"n_steps": st["n_steps"], "n_res": st["n_res"]}
 
     # 5. kernels on the main path's tensors
     args = (plan.first, plan.out_panel, plan.win_step, plan.A, B_dev)
@@ -2534,12 +2880,23 @@ def main() -> int:
     # 11b. GAT on the main path's graph
     gat = phase_gat(torch, g, dev, B_dev, peaks, time_cuda_ms, smi,
                     profile="--profile" in sys.argv[1:])
+    torch.cuda.empty_cache()
+    # the autotuner's rates and the GCN layer bench on the main path's graph
+    kernel4_ms41 = next(r["ms"] for r in rows
+                        if r["name"] == "window_spmm_t_fwd")
+    rates, launches_autotune = phase_autotune(
+        torch, g, dev, B_dev, sel, dense_ms, kernel4_ms41, time_cuda_ms)
+    launches_gcn = phase_gcn_bench(g)
     del dev, B_dev
     torch.cuda.empty_cache()
     # 12. band, on its own graph
     rows += phase_band(torch, peaks, bench_spmm, time_cuda_ms)
     # 13. panel, on its own graph
     panel = phase_panel(torch, peaks, bench_spmm, time_cuda_ms, smi)
+    torch.cuda.empty_cache()
+    # the command line on the main path's graph, then its sweep on Flickr's
+    cli = phase_cli(main_ms, main_stats)
+    sweep, launches_sweep = phase_sweep()
     # kernel 7 also runs the main path's residue: its launches there, and
     # the residue's own numbers
     gespmm_row.update({
@@ -2571,6 +2928,12 @@ def main() -> int:
             "bwd_with_pads_ms", "bwd_plain_ms", "bwd_library_ms",
             "bwd_bound_ms", "bwd_err")})
     rows.append(gespmm_row)
+    new_launches = {"autotune": launches_autotune, "gcn_bench": launches_gcn,
+                    "sweep": launches_sweep,
+                    **{tag: c["launches"] for tag, c in cli.items()}}
+    for r in rows:
+        r.update({f"launches_{ph}": new_launches[ph][r["name"]]
+                  for ph in NEW_PHASES})
     if len(rows) != 7 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")

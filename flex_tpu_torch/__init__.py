@@ -27,7 +27,10 @@ unless the caller passes ``device="cpu"``.
   the 2-layer GCN and its train step.
 - :mod:`flex_tpu_torch.kernels` — nvcc build + ctypes loader.
 - :mod:`flex_tpu_torch.convert` — JAX plan arrays → port plans.
-- :mod:`flex_tpu_torch.bench.harness` — tPre / tElap / GF/s on the card.
+- :mod:`flex_tpu_torch.bench` — the harness (tPre / tElap / GF/s on the
+  card, sweep, CSV), the autotuner on the card's measured rates, the GCN
+  layer bench.
+- :mod:`flex_tpu_torch.cli` — ``python -m flex_tpu_torch <graph.csv> <k>``.
 """
 
 from flex_tpu_torch.ops import spmm  # noqa: F401

@@ -11,6 +11,9 @@ the JAX package.
   panel strategy's case).
 - :func:`community_graph`, :func:`bipartite_projection_graph`,
   :func:`reddit_posts` — community graphs (the windowed strategy's case).
+- the named stand-ins of the benchmark datasets, sized as the datasets:
+  ``*_like`` R-MAT, ``*_comm`` community (SBM) and ``*_posts``
+  bipartite-projection graphs of Reddit, Amazon, Yelp, Flickr and PPI.
 """
 from __future__ import annotations
 
@@ -290,6 +293,20 @@ def bipartite_projection_graph(
     return _sym_from_pairs(pair, m, rng, shuffle, name)
 
 
+def reddit_like(seed: int = 0) -> CSRGraph:
+    """Reddit-scale R-MAT stand-in: 232,965 rows, ~23.4M nnz."""
+    return rmat_graph(232_965, 23_446_803, seed=seed, name="reddit_like")
+
+
+def reddit_comm(seed: int = 0) -> CSRGraph:
+    """Reddit stand-in with community structure (SBM) at the dataset's
+    exact size (232,965 nodes, 23,446,803 nnz incl. self-loops)."""
+    return community_graph(
+        232_965, 23_446_803, n_comm=41, intra_frac=0.76,
+        deg_sigma=1.3, max_degree=21_657, seed=seed, name="reddit_comm",
+    )
+
+
 def reddit_posts(seed: int = 0) -> CSRGraph:
     """Reddit stand-in: bipartite user→post projection with the dataset's
     exact size (232,965 nodes, 23,446,803 nnz = 11,606,919 undirected
@@ -300,3 +317,59 @@ def reddit_posts(seed: int = 0) -> CSRGraph:
         act_mean=6.0, act_sigma=0.9, act_max=256, pop_sigma=1.5,
         seed=seed, name="reddit_posts",
     )
+
+
+def amazon_posts(seed: int = 0) -> CSRGraph:
+    """Amazon stand-in: co-purchase projection (products linked when bought
+    together) at the dataset's size (1,569,960 nodes, 264,339,468 nnz), 47
+    communities, (1-cross)^2 ≈ 0.81 edge homophily."""
+    return bipartite_projection_graph(
+        1_569_960, 264_339_468, n_comm=47, cross=0.1,
+        act_mean=7.0, act_sigma=0.9, act_max=256, pop_sigma=1.5,
+        seed=seed, name="amazon_posts",
+    )
+
+
+def yelp_like(seed: int = 0) -> CSRGraph:
+    return rmat_graph(716_847, 13_954_819, seed=seed, name="yelp_like")
+
+
+def yelp_comm(seed: int = 0) -> CSRGraph:
+    """Yelp stand-in: a friendship network (716,847 users, avg degree
+    ~19.5) as an SBM of 100 Zipf-sized communities, intra_frac 0.7."""
+    return community_graph(
+        716_847, 13_954_819, n_comm=100, intra_frac=0.7,
+        deg_sigma=1.2, seed=seed, name="yelp_comm",
+    )
+
+
+def flickr_like(seed: int = 0) -> CSRGraph:
+    return rmat_graph(89_250, 989_006, seed=seed, name="flickr_like")
+
+
+def flickr_posts(seed: int = 0) -> CSRGraph:
+    """Flickr stand-in: images linked by shared tags or groups, a
+    bipartite projection at the dataset's size (89,250 nodes, 989,006
+    nnz), 7 communities (its 7 classes), cross 0.25."""
+    return bipartite_projection_graph(
+        89_250, 989_006, n_comm=7, cross=0.25,
+        act_mean=3.5, act_sigma=0.8, act_max=64, pop_sigma=1.4,
+        seed=seed, name="flickr_posts",
+    )
+
+
+def ppi_like(seed: int = 0) -> CSRGraph:
+    return rmat_graph(14_755, 458_973, seed=seed, name="ppi_like")
+
+
+def ppi_comm(seed: int = 0) -> CSRGraph:
+    """PPI stand-in (14,755 nodes, 458,973 nnz): 24 disjoint tissue
+    graphs, so intra_frac=1.0 over 24 communities."""
+    return community_graph(
+        14_755, 458_973, n_comm=24, intra_frac=1.0, comm_zipf=0.3,
+        seed=seed, name="ppi_comm",
+    )
+
+
+def amazon_like(seed: int = 0) -> CSRGraph:
+    return rmat_graph(1_569_960, 264_339_468, seed=seed, name="amazon_like")

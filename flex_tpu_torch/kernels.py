@@ -77,6 +77,31 @@ def build_all(names=SOURCES) -> dict[str, str]:
     return paths
 
 
+def build_host_lib(src: str, stem: str, flags=()) -> str:
+    """The g++ build of the host C++ source ``src``: ``lib<stem>-<hash of
+    the source>.so`` in the build directory, compiled at first use
+    (-mtune, not -march: ISA-portable) to a temporary file that is renamed
+    into place, so processes building at once never load a partial file.
+    Without a toolchain this raises OSError or CalledProcessError."""
+    with open(src, "rb") as f:
+        h = hashlib.sha256(f.read()).hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"lib{stem}-{h}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(["g++", "-O3", "-mtune=native", "-std=c++17",
+                        "-shared", "-fPIC", *flags, src, "-o", tmp],
+                       check=True, capture_output=True, text=True)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
     with _lock:
@@ -99,6 +124,29 @@ def launch(name: str, symbol: str, device, *args) -> None:
         err = fn(*args, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
+
+
+def wrappers() -> list:
+    """The seven kernel wrappers, one per hand kernel.  Each counts its
+    own launches in its ``launches`` attribute."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows
+    from flex_tpu_torch.ops.pallas_band import band_spmm_v1, band_spmm_v2
+    from flex_tpu_torch.ops.window_spmm import (
+        window_bwd_gA, window_bwd_gB, window_spmm_fwd, window_spmm_t_fwd,
+    )
+
+    return [window_spmm_fwd, window_bwd_gA, window_bwd_gB, window_spmm_t_fwd,
+            band_spmm_v2, band_spmm_v1, gespmm_rows]
+
+
+def launch_counts() -> dict[str, int]:
+    """Wrapper name -> kernel launches in this process so far."""
+    return {fn.__name__: fn.launches for fn in wrappers()}
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers():
+        fn.launches = 0
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:

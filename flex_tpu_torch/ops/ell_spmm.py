@@ -47,6 +47,30 @@ DEFAULT_WIDTHS = (
 )
 
 
+def ell_padded_nnz(degrees: np.ndarray,
+                   widths: tuple[int, ...] = DEFAULT_WIDTHS) -> int:
+    """Padded nnz of the width-bucketed layout, from the degrees alone:
+    the static input to the autotuner's ELL time model."""
+    w_arr = np.asarray(widths, dtype=np.int64)
+    deg = degrees[degrees > 0].astype(np.int64)
+    if not len(deg):
+        return 0
+    wor = w_arr[np.minimum(np.searchsorted(w_arr, deg), len(w_arr) - 1)]
+    full = deg > w_arr[-1]
+    pad = np.where(full, -(-deg // w_arr[-1]) * w_arr[-1], wor)
+    return int(pad.sum())
+
+
+def check_b_dtype(b_dtype: str) -> None:
+    """Only float32 B is ported.  The JAX package's bfloat16 gather mode is
+    refused, never run in float32 under its name."""
+    if b_dtype == "bfloat16":
+        raise NotImplementedError(
+            "b_dtype='bfloat16' is not ported yet (ROADMAP.md §1 item 5)")
+    if b_dtype != "float32":
+        raise ValueError(f"unknown b_dtype {b_dtype!r}")
+
+
 def host_bucket_sizes(deg: np.ndarray, widths: tuple[int, ...]):
     """Static bucket sizes from a host degree array: returns
     (chunks_by_width dict, n_rows_last, padded_nnz)."""
@@ -405,8 +429,13 @@ def with_bwd_plan(plan: EllPlan, n: int) -> EllPlan:
 
 
 def prepare_ell(g: CSRGraph, dev: DeviceCSR | None = None,
-                device=None) -> EllPlan:
-    """Host: O(m) static bucket sizes.  Device: every bucket array."""
+                widths: tuple[int, ...] = DEFAULT_WIDTHS,
+                b_dtype: str = "float32", device=None) -> EllPlan:
+    """Host: O(m) static bucket sizes for the width ladder ``widths``.
+    Device: every bucket array.  ``b_dtype`` must be ``"float32"``
+    (:func:`check_b_dtype`)."""
+    check_b_dtype(b_dtype)
     dev = resident_csr(g, dev, device)
     return prepare_ell_device(dev.row_ptr, dev.col, dev.vals, m=g.m,
-                              nnz=g.nnz, res_row_ptr_host=g.row_ptr)
+                              nnz=g.nnz, res_row_ptr_host=g.row_ptr,
+                              widths=tuple(widths))

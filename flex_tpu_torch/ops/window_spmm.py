@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.ell_spmm import (
-    EllPlan, _gather_assembly_tables, ell_buckets_core, ell_meta,
+    EllPlan, _gather_assembly_tables, check_b_dtype, ell_buckets_core,
+    ell_meta,
 )
 from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
 from flex_tpu_torch.ops.units import work_units
@@ -953,6 +954,7 @@ def prepare_windowed(
     min_count: int = 128,
     min_coverage: float = MIN_COVERAGE,
     max_dense_bytes: int = MAX_DENSE_BYTES,
+    b_dtype: str = "float32",
     sel: dict | None = None,
     transposed: bool = False,
 ) -> WindowedPlan:
@@ -963,7 +965,9 @@ def prepare_windowed(
     (see :func:`window_select`).  A ``sel`` from :func:`window_select`
     is reused, with its device tables.  ``transposed`` builds the Aᵀ
     step layout for the narrow-k kernel; such a plan carries no backward
-    tables (its gradients are plain tensor ops)."""
+    tables (its gradients are plain tensor ops).  ``b_dtype`` must be
+    ``"float32"`` (:func:`.ell_spmm.check_b_dtype`)."""
+    check_b_dtype(b_dtype)
     if transposed and W % 128 != 0:
         # kept from the JAX package, so the same calls are refused
         raise ValueError(

@@ -2,22 +2,22 @@
 gorder, rabbit).
 
 ``_native/reorder.cc`` (a copy of the JAX package's source) is compiled
-with g++ into the port's build directory.  The library name carries a hash
-of the source, so a stale build is never loaded.  Without a toolchain
-:func:`available` is False and the pure-Python orderings run instead.
+with g++ into the port's build directory by
+:func:`..kernels.build_host_lib`: the library name carries a hash of the
+source, so a stale build is never loaded, and the build is atomic.
+Without a toolchain :func:`available` is False and the pure-Python
+orderings run instead.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
-from flex_tpu_torch.kernels import BUILD_DIR
+from flex_tpu_torch.kernels import build_host_lib
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native",
                     "reorder.cc")
@@ -27,38 +27,13 @@ _lib = None
 _build_error: str | None = None
 
 
-def _lib_path() -> str:
-    with open(_SRC, "rb") as f:
-        h = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libflexreorder-{h}.so")
-
-
-def _build(lib_path: str) -> None:
-    # -mtune (not -march): ISA-portable.  Built to a temporary name and
-    # renamed, so processes building at once never load a partial file.
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run(["g++", "-O3", "-mtune=native", "-std=c++17",
-                        "-shared", "-fPIC", _SRC, "-o", tmp],
-                       check=True, capture_output=True, text=True)
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-
-
 def _load():
     global _lib, _build_error
     with _lock:
         if _lib is not None or _build_error is not None:
             return _lib
         try:
-            lib_path = _lib_path()
-            if not os.path.exists(lib_path):
-                _build(lib_path)
-            lib = ctypes.CDLL(lib_path)
+            lib = ctypes.CDLL(build_host_lib(_SRC, "flexreorder"))
         except (OSError, subprocess.CalledProcessError) as e:
             _build_error = str(e)  # no toolchain: pure-Python fallback
             return None

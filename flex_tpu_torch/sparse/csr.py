@@ -1,9 +1,9 @@
-"""CSR sparse-matrix container (host side, NumPy).
+"""CSR sparse-matrix container and graph statistics (host side, NumPy).
 
-Copy of ``flex_tpu.sparse.csr`` reduced to what the windowed-hybrid path
-uses: :class:`CSRGraph` is an immutable host container that the reordering
-and format-selection passes consume; tensors are made only when a format is
-built on a device.
+Copy of ``flex_tpu.sparse.csr``: :class:`CSRGraph` is an immutable host
+container that the loaders, the reordering and format-selection passes and
+the command line consume; tensors are made only when a format is built on
+a device.
 """
 from __future__ import annotations
 
@@ -11,6 +11,20 @@ import dataclasses
 from functools import cached_property
 
 import numpy as np
+
+# Per-dataset GCN label widths (the GCN output width ``c``).
+DATASET_LABEL_WIDTH = {
+    "polblogs": 2,
+    "cora": 7,
+    "citeseer": 6,
+    "pubmed": 3,
+    "ppi": 121,
+    "reddit": 41,
+    "flickr": 7,
+    "yelp": 100,
+    "amazon": 107,
+}
+DEFAULT_LABEL_WIDTH = 100
 
 
 def indicator_cumsum(starts, total: int, dtype=np.int64) -> np.ndarray:
@@ -47,6 +61,22 @@ def repeat_values(values, counts, total: int | None = None) -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
+class GraphStats:
+    """Directedness and degree statistics."""
+
+    n_edges_one_way: int
+    n_edges_asymmetric: int
+    n_nodes_zero_out: int
+    n_nodes_zero_in: int
+    n_nodes_zero_deg: int
+    n_unit_rows: int  # rows with exactly one nonzero
+
+    @property
+    def is_directed(self) -> bool:
+        return self.n_edges_one_way > 0
+
+
+@dataclasses.dataclass(frozen=True)
 class CSRGraph:
     """A square sparse matrix in CSR, treated as a graph adjacency.
 
@@ -55,7 +85,7 @@ class CSRGraph:
       col:     int32[nnz] column indices (sorted ascending within each row
                after any reordering pass).
       vals:    float32[nnz] edge weights.
-      name:    dataset name.
+      name:    dataset name (sets the GCN label width ``c``).
       order:   vertex-order abbreviation, "OVO" = original vertex order.
     """
 
@@ -89,9 +119,18 @@ class CSRGraph:
     def shape(self) -> tuple[int, int]:
         return (self.m, self.n)
 
+    @property
+    def label_width(self) -> int:
+        """GCN output width ``c`` for this dataset."""
+        return DATASET_LABEL_WIDTH.get(self.name, DEFAULT_LABEL_WIDTH)
+
     @cached_property
     def degrees(self) -> np.ndarray:
         return np.diff(self.row_ptr).astype(np.int64)
+
+    @property
+    def avg_degree(self) -> float:
+        return self.nnz / max(self.m, 1)
 
     @staticmethod
     def from_arrays(row_ptr, col, vals, name="unnamed", order="OVO") -> "CSRGraph":
@@ -150,8 +189,52 @@ class CSRGraph:
         rev.sort()
         return bool(np.array_equal(fwd, rev))
 
+    @cached_property
+    def stats(self) -> GraphStats:
+        """One-way edges, asymmetric weights and zero-degree nodes, by
+        looking up each edge's reverse among the sorted edge keys.  The
+        queries go in the reverse keys' sorted order: sorted queries
+        advance through the table sequentially."""
+        m, nnz = self.m, self.nnz
+        if nnz:
+            fwd_keys, rev_keys = self._edge_keys()
+            if np.all(fwd_keys[:-1] <= fwd_keys[1:]):
+                sorted_keys, sorted_vals = fwd_keys, self.vals
+            else:
+                sort_idx = np.argsort(fwd_keys, kind="stable")
+                sorted_keys = fwd_keys[sort_idx]
+                sorted_vals = self.vals[sort_idx]
+            qi = np.argsort(rev_keys, kind="stable")
+            rev_q = rev_keys[qi]
+            pos_c = np.minimum(np.searchsorted(sorted_keys, rev_q), nnz - 1)
+            has_rev = sorted_keys[pos_c] == rev_q
+            n_one_way = int(nnz - has_rev.sum())
+            n_asym = int((has_rev
+                          & (sorted_vals[pos_c] != self.vals[qi])).sum())
+        else:
+            n_one_way = n_asym = 0
+
+        z_out = self.degrees == 0
+        z_in = np.bincount(self.col, minlength=m) == 0
+        return GraphStats(
+            n_edges_one_way=n_one_way,
+            n_edges_asymmetric=n_asym,
+            n_nodes_zero_out=int(z_out.sum()),
+            n_nodes_zero_in=int(z_in.sum()),
+            n_nodes_zero_deg=int((z_out & z_in).sum()),
+            n_unit_rows=int((self.degrees == 1).sum()),
+        )
+
+    def degree_histogram(self, bounds=(2, 4, 8, 16)) -> np.ndarray:
+        """Rows per degree bucket [0, b0), [b0, b1), ..., [b_last, inf)."""
+        d = self.degrees
+        edges = [0, *bounds, np.iinfo(np.int64).max]
+        return np.array(
+            [int(((d >= lo) & (d < hi)).sum()) for lo, hi in zip(edges, edges[1:])]
+        )
+
     def __repr__(self):
         return (
             f"CSRGraph({self.name!r}, order={self.order}, m={self.m}, "
-            f"nnz={self.nnz}, avg_deg={self.nnz / max(self.m, 1):.2f})"
+            f"nnz={self.nnz}, avg_deg={self.avg_degree:.2f})"
         )

@@ -15,14 +15,13 @@ from flex_tpu_torch.sparse.csr import CSRGraph
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
-    another.  With no card and no explicit device this raises; it never
-    falls back to the CPU on its own."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    another.  Without a card, a CUDA device (named or by default) raises;
+    it never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
 
 
 @dataclasses.dataclass(frozen=True)

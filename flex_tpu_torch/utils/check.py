@@ -1,8 +1,9 @@
 """Result verification with the per-row tolerance model (host, NumPy).
 
-Copy of ``flex_tpu.utils.check.res_check``: the tolerance for row r is
-``eps_f32 · row_nnz(r) · 4``, relative when |gold| ≥ 1 and absolute
-otherwise; a gold output that is mostly zeros is refused.
+Copy of ``flex_tpu.utils.check``: in :func:`res_check` the tolerance for
+row r is ``eps_f32 · row_nnz(r) · 4``, relative when |gold| ≥ 1 and
+absolute otherwise; a gold output that is mostly zeros is refused.
+:func:`res_check2` is the plain |diff| > tol variant.
 """
 from __future__ import annotations
 
@@ -51,4 +52,16 @@ def res_check(
         n_total=gold.size,
         max_err=float(err.max()) if gold.size else 0.0,
         err_frac=n_bad / max(gold.size, 1),
+    )
+
+
+def res_check2(gold: np.ndarray, res: np.ndarray, tol: float = 0.01) -> CheckResult:
+    """Plain absolute-difference check."""
+    diff = np.abs(np.asarray(gold, np.float64) - np.asarray(res, np.float64))
+    bad = diff > tol
+    return CheckResult(
+        n_bad=int(bad.sum()),
+        n_total=diff.size,
+        max_err=float(diff.max()) if diff.size else 0.0,
+        err_frac=float(bad.mean()) if diff.size else 0.0,
     )

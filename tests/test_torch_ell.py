@@ -21,6 +21,7 @@ from flex_tpu.io.synth import hub_graph as j_hub_graph
 from flex_tpu.ops.ell_spmm import _ell_spmm as j_ell_spmm
 from flex_tpu.ops.ell_spmm import prepare_ell as j_prepare_ell
 from flex_tpu.ops.ell_spmm import with_bwd_plan as j_with_bwd_plan
+from flex_tpu.ops import spmm as j_spmm
 from flex_tpu.ops.window_spmm import prepare_windowed as j_prepare_windowed
 from flex_tpu.sparse.csr import CSRGraph as JCSRGraph
 
@@ -28,8 +29,8 @@ from flex_tpu_torch import spmm
 from flex_tpu_torch.convert import ell_plan_from_numpy
 from flex_tpu_torch.io import community_graph, make_features
 from flex_tpu_torch.ops.ell_spmm import (
-    _EllApply, ell_spmm_plain, prepare_ell, prepare_ell_transpose,
-    with_bwd_plan,
+    DEFAULT_WIDTHS, _EllApply, ell_spmm_plain, prepare_ell,
+    prepare_ell_transpose, with_bwd_plan,
 )
 from flex_tpu_torch.ops.gespmm import ROW_UNIT_ENTRIES, gespmm_rows
 from flex_tpu_torch.ops.window_spmm import prepare_windowed
@@ -481,3 +482,53 @@ def test_ell_stats_and_traffic_model_match_jax(name):
     assert port.stats == ref.stats
     for k in (16, 128):
         assert port.traffic_model(k) == ref.traffic_model(k)
+
+
+# -- the width ladder and b_dtype of the JAX signature ------------------------
+
+LADDERS = {"4-8-16": (4, 8, 16), "2-3-5-64": (2, 3, 5, 64),
+           "default": DEFAULT_WIDTHS}
+
+
+@pytest.mark.parametrize("ladder", sorted(LADDERS))
+@pytest.mark.parametrize("name", ["hub", "dups"])
+def test_prepare_ell_honours_widths_as_jax(name, ladder):
+    """``prepare_ell(g, dev, widths)``: the bucket tables, the plain CPU
+    path and the row-unit kernel's tables for the given ladder equal or
+    agree with the JAX plan's (widths once raised a TypeError)."""
+    widths = LADDERS[ladder]
+    g = GRAPHS[name]()
+    port = prepare_ell(g, None, widths, device="cpu")
+    assert_same_ell(port, jax_ell_dict(j_prepare_ell(jax_graph(g),
+                                                     widths=widths)))
+    B = make_features(g, 16)
+    C = spmm(g, B, "ell", widths=widths, device="cpu").numpy()
+    C_jax = np.asarray(j_spmm(jax_graph(g), jnp.asarray(B), "ell",
+                              widths=widths))
+    np.testing.assert_allclose(C, C_jax, rtol=1e-5, atol=1e-5)
+    t = port.row_tables()
+    check_row_tables(t, g.row_ptr, g.col, g.vals)
+    absprod = np.abs(g.to_scipy()) @ np.abs(B)
+    assert_sums_close(emulate_row_units(t, B), C_jax, g.degrees, absprod)
+
+
+def test_b_dtype_float32_only():
+    """``b_dtype`` is accepted as in the JAX signature; bfloat16 (ROADMAP.md
+    §1 item 5) is refused, never run in float32 under its name."""
+    g = GRAPHS["dups"]()
+    B = make_features(g, 8)
+    np.testing.assert_array_equal(
+        prepare_ell(g, b_dtype="float32", device="cpu")(
+            torch.from_numpy(B)).numpy(),
+        prepare_ell(g, device="cpu")(torch.from_numpy(B)).numpy())
+    for prep in (prepare_ell, prepare_windowed):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 5"):
+            prep(g, b_dtype="bfloat16", device="cpu")
+        with pytest.raises(ValueError, match="b_dtype"):
+            prep(g, b_dtype="float16", device="cpu")
+    with pytest.raises(NotImplementedError):
+        spmm(g, B, "windowed", b_dtype="bfloat16", device="cpu")
+    cg = GRAPHS["community_rbdeg"]()
+    plan = prepare_windowed(cg, b_dtype="float32", min_count=16,
+                            device="cpu")
+    assert plan.stats["n_steps"] > 0
