@@ -109,12 +109,36 @@ Phases:
  15. [sweep] ``python -m flex_tpu_torch <flickr_posts csv> 128
      --method=sweep`` on flickr_posts(seed=0) (Flickr's size): exit 0,
      every row checked or refused by its format.
+ 3b. (with phase 3) kernel 7's bf16 instance against its plain version on
+     B rounded to bf16, at the f32 instance's shapes (GE-SpMM plans with
+     pad chunks, empty and split rows, k = 128, 41, 200; ELL plans and
+     their transposed plans added into an accumulator): launched twice,
+     the same bits; the f32 instance on B widened, the same bits; a
+     misaligned B (scalar loads), the same bits.
+ 11e. [bf16] on the main path's graph: prepare_ell(b_dtype="bfloat16")
+     at k = 128 and 41 through bench_spmm (res_check at the bf16 scale,
+     eps_scale 4 * 2^16), the bf16 instance against plain on the plan's
+     tables, its time beside the f32 plan's, its bytes bound (2 bytes a B
+     element), cuSPARSE on the CSR, whether torch takes a bf16 CSR; the
+     windowed plan with a bf16 residue at k = 128.
+ 11f. [options] at k = 128: every fused name (one build, each
+     bit-equal to the default plan), step_order="lex" and impl="xla" (the
+     plain product) through bench_spmm.
+ 11g. [sharded] on make_mesh(4) (four entries of cuda:0 on one card):
+     prepare_ell_sharded in both B layouts, prepare_windowed_sharded, each
+     against SciPy with its launches of one call (one or more a shard),
+     then g_B through the sharded windowed plan with its training
+     backward (kernels 3 and 7 on every shard) against SciPy's A^T.co.
+ 11h. [parallel_2d] GCN(128 -> 128 -> 41) through make_train_step_2d on
+     a (2, 2) mesh: the first loss against the one-device step's, 2 + 5
+     steps, a finite and falling loss, ms/step.
 Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after (the command-line phases
 count in their own process, from 0, and print the counts last).
-Then one JSON line {"kernels": [...]} (each row also counts its kernel's
-launches in the phases autotune, gcn_bench, cli_* and sweep), the card's
+Then one JSON line {"kernels": [...]} (eight rows: kernel 7's bf16
+instance is its own; each row also counts its kernel's launches in the
+phases autotune, gcn_bench, cli_*, sweep and those of 11e-11h), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA card the script exits 2
 and prints no result.  The ordered graph is cached under
@@ -2657,6 +2681,433 @@ def phase_sweep():
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# kernel 7's bf16 instance, the build options, the sharded plans and the
+# 2-D GCN step
+# ---------------------------------------------------------------------------
+
+# the phases of the bf16 mode, the build options and the sharded plans,
+# whose launch counts join every row too
+SHARD_PHASES = ("bf16", "bf16_windowed", "options", "sharded_ell",
+                "sharded_windowed", "sharded_grad", "parallel_2d")
+# the f32 ELL plan's tElap through the command line at k = 128 and 41, on
+# an NVIDIA H100 80GB HBM3 at 700 W, before the bf16 mode existed: printed
+# beside this run's f32 and bf16 plans
+ELL_CLI_RECORD_MS = {128: 1.3905, 41: 0.9889}
+ONE_CARD = "four shards on one card, not a scaling figure"
+BF16_SCALE = 4.0 * 2 ** 16   # res_check's eps_scale for a bf16 gather
+
+
+def check_gespmm_bf16_kernel(torch, t, B, label, into=None):
+    """Kernel 7's bf16 instance on B rounded to bf16: launched twice, the
+    same bits; the f32 instance on that B widened, the same bits (the
+    instances sum in one order); B misaligned by one element (scalar
+    loads), the same bits; and its plain version (``gespmm_rows_plain`` on
+    the bf16 B) within the rounding bound of two f32 sums.  Returns
+    max_abs_err."""
+    from flex_tpu_torch.ops.gespmm import (
+        gespmm_rows, gespmm_rows_bf16, gespmm_rows_plain,
+    )
+
+    Bb = B.bfloat16()
+
+    def call(fn, BB):
+        return fn(t, BB, into=None if into is None else into.clone())
+
+    out = call(gespmm_rows_bf16, Bb)
+    if out.dtype != torch.float32:
+        raise AssertionError(f"gespmm_rows_bf16 on {label}: {out.dtype} out")
+    require_same_bits(torch, "gespmm_rows_bf16", label, out,
+                      call(gespmm_rows_bf16, Bb))
+    require_same_bits(torch, "gespmm_rows_bf16 vs the f32 instance on B "
+                      "widened", label, out, call(gespmm_rows, Bb.float()))
+    mis = torch.empty(Bb.numel() + 1, dtype=torch.bfloat16,
+                      device=B.device)[1:].view(Bb.shape)
+    mis.copy_(Bb)
+    require_same_bits(torch, "gespmm_rows_bf16 on a misaligned B", label, out,
+                      call(gespmm_rows_bf16, mis))
+    torch.cuda.synchronize()
+    absprod, L = rows_absprod_and_len(torch, t, Bb.float())
+    if into is not None:
+        absprod = absprod + into.abs() / L
+    return hold_to_plain(torch, "gespmm_rows_bf16", label, out,
+                         call(gespmm_rows_plain, Bb), absprod, L)
+
+
+def phase_bf16_kernel_vs_plain(torch, dev="cuda"):
+    """Kernel 7's bf16 instance at the shapes its f32 instance is held at
+    in phase 3: GE-SpMM plans with pad chunks, empty and split rows (w = 32
+    and 7; k = 128, 41, 200), the ELL plan and its transposed plan added
+    into an accumulator (k = 128, 41)."""
+    from flex_tpu_torch.ops.ell_spmm import prepare_ell, with_bwd_plan
+    from flex_tpu_torch.ops.gespmm import prepare_gespmm
+
+    rng = np.random.default_rng(12)
+    gh = hub_and_empty_graph(rng)
+    for w in (32, 7):
+        plan = prepare_gespmm(gh, w=w, device=dev)
+        for k in (K, 41, 200):
+            B = torch.rand((gh.n, k), device=dev) * 2 - 1
+            check_gespmm_bf16_kernel(
+                torch, plan.rows, B, f"hub+empty N={plan.cols.shape[0]} "
+                f"w={w} k={k} split rows={plan.rows.splits.shape[0]}")
+    ell = with_bwd_plan(prepare_ell(gh, device=dev), gh.n)
+    for e, what in ((ell, "ell"), (ell.bwd_plan, "transposed ell")):
+        for k in (K, 41):
+            B = torch.rand((gh.n, k), device=dev) * 2 - 1
+            into = torch.rand((e.m, k), device=dev) * 2 - 1
+            check_gespmm_bf16_kernel(torch, e.rows, B, f"{what} into= k={k}",
+                                     into=into)
+
+
+def res_check_logged(g, C, gold, label, eps_scale=4.0, row_nnz=None):
+    """res_check of a card result against SciPy, err_frac <= 1e-4."""
+    from flex_tpu_torch.utils.check import res_check
+
+    if tuple(C.shape) != gold.shape or not bool(C.isfinite().all()):
+        raise AssertionError(f"{label}: output {tuple(C.shape)} is not a "
+                             f"finite {gold.shape} tensor")
+    chk = res_check(gold, C.detach().cpu().numpy(),
+                    g.degrees if row_nnz is None else row_nnz,
+                    eps_scale=eps_scale)
+    if chk.err_frac > 1e-4:
+        raise AssertionError(f"{label}: err_frac={chk.err_frac} > 1e-4")
+    log(f"[check] {label}: err_frac={chk.err_frac} max_err={chk.max_err:.3e}"
+        f" (eps_scale {eps_scale:g}) ok")
+    return chk.err_frac
+
+
+def phase_bf16(torch, g, dev, B, gold, sel, peaks, bench_spmm, time_cuda_ms,
+               smi):
+    """[bf16] on the main path's graph: ``prepare_ell(b_dtype="bfloat16")``
+    through ``bench_spmm`` at k = 128 and 41 (its check at the bf16
+    scale), kernel 7's bf16 instance against its plain version on the
+    plan's tables, its time beside the f32 plan's, its bytes bound (2
+    bytes a B element), cuSPARSE on its CSR; then the windowed plan with a
+    bf16 residue at k = 128.  Returns (kernel row, launches by path)."""
+    from flex_tpu_torch.ops.ell_spmm import ell_spmm_plain, prepare_ell
+    from flex_tpu_torch.ops.gespmm import gespmm_rows_bf16, gespmm_rows_plain
+
+    reset_launches()
+    res, plan = {}, None
+    for k in (K, 41):
+        r, p = bench_plan(bench_spmm, g, k, "ell", dev=dev,
+                          B=np.ascontiguousarray(B[:, :k]),
+                          gold=np.ascontiguousarray(gold[:, :k]), iters=10,
+                          b_dtype="bfloat16")
+        if r.err_frac is None or r.err_frac > 1e-4:
+            raise AssertionError(f"bf16 ell k={k}: err_frac={r.err_frac} at "
+                                 f"the bf16 scale")
+        res[k] = r
+        plan = plan or p
+        del p
+    launches = {"bf16": read_launches()}
+    expect_launches(launches["bf16"], "the bf16 ELL path",
+                    gespmm_rows_bf16=28)
+    if plan.b_dtype != "bfloat16":
+        raise AssertionError("the bf16 ELL plan is not bf16")
+    t = plan.rows
+    row = {"name": "gespmm_rows_bf16", "route": "cuda",
+           "source": "flex_tpu_torch/csrc/gespmm.cu",
+           "replaces": "flex_tpu/ops/ell_spmm.py:171",
+           "launches": launches["bf16"]["gespmm_rows_bf16"]}
+    f32 = prepare_ell(g, dev=dev)
+    A_csr = csr_tensor(torch, g)
+    b_rows = distinct_cols(torch, t)
+    for k in (K, 41):
+        Bk = torch.from_numpy(np.ascontiguousarray(B[:, :k])).cuda()
+        Bb = Bk.bfloat16()
+        out = plan(Bk)
+        absprod, L = rows_absprod_and_len(torch, t, Bb.float())
+        err = hold_to_plain(torch, "gespmm_rows_bf16", f"bf16 ELL plan k={k}",
+                            out, ell_spmm_plain(plan, Bk), absprod, L)
+        ms = time_cuda_ms(gespmm_rows_bf16, t, Bb, iters=20)
+        plan_ms = time_cuda_ms(plan, Bk, iters=20)
+        f32_ms = time_cuda_ms(f32, Bk, iters=20)
+        plain_ms = time_cuda_ms(lambda: gespmm_rows_plain(t, Bb), iters=3)
+        lib_ms = time_cuda_ms(torch.sparse.mm, A_csr, Bb.float(), iters=20)
+        try:
+            A_bf = A_csr.to(torch.bfloat16)
+            bf16_csr = f"{time_cuda_ms(torch.sparse.mm, A_bf, Bb, iters=20):.4f} ms"
+            del A_bf
+        except (RuntimeError, NotImplementedError) as e:   # a library refusal
+            bf16_csr = f"refused ({str(e).splitlines()[0][:120]})"
+        nbytes = (g.nnz * 8 + 4 * (t.row_start.numel() + t.units.numel()
+                                   + t.splits.numel())
+                  + 2 * b_rows * k + 4 * g.m * k)
+        bms, bby = bound(nbytes, 2 * g.nnz * k, peaks)
+        sfx = "" if k == K else f"_k{k}"
+        row.update({f"max_abs_err{sfx}": err, f"ms{sfx}": ms,
+                    f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bms,
+                    f"bound_by{sfx}": bby, f"library_ms{sfx}": lib_ms,
+                    f"plan_ms{sfx}": plan_ms, f"f32_plan_ms{sfx}": f32_ms,
+                    f"t_elap_ms{sfx}": res[k].t_elap_ms,
+                    f"err_frac{sfx}": res[k].err_frac})
+        log("[bf16] " + json.dumps({
+            "k": k, "t_pre_s": res[k].t_pre_s, "t_elap_ms": res[k].t_elap_ms,
+            "err_frac_bf16_scale": res[k].err_frac, "kernel_ms": ms,
+            "plan_ms": plan_ms, "f32_plan_ms_same_run": f32_ms,
+            "f32_plan_ms_cli_record": ELL_CLI_RECORD_MS[k],
+            "bytes_bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes,
+            "b_rows_named": b_rows, "plain_ms": plain_ms,
+            "cusparse_f32_csr_on_widened_b_ms": lib_ms,
+            "bf16_csr_call": bf16_csr, "card": smi}))
+        del Bk, Bb, out, absprod, L
+    del plan, f32, A_csr, t
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    r, wplan = bench_plan(bench_spmm, g, K, "windowed", dev=dev, B=B,
+                          gold=gold, iters=10, tm=256, W=128, min_count=64,
+                          sel=sel, b_dtype="bfloat16")
+    launches["bf16_windowed"] = read_launches()
+    expect_launches(launches["bf16_windowed"], "the bf16 windowed path",
+                    window_spmm_fwd=14, gespmm_rows_bf16=14)
+    if r.err_frac is None or r.err_frac > 1e-4:
+        raise AssertionError(f"bf16 windowed: err_frac={r.err_frac}")
+    log("[bf16] windowed with a bf16 residue " + json.dumps({
+        "k": K, "t_pre_s": r.t_pre_s, "t_elap_ms": r.t_elap_ms,
+        "err_frac_bf16_scale": r.err_frac, "b_dtype": wplan.b_dtype,
+        "launches": launches["bf16_windowed"], "card": smi}))
+    row["windowed_t_elap_ms"] = r.t_elap_ms
+    del wplan
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_options(torch, g, dev, B, gold, sel, bench_spmm, smi):
+    """[options] on the main path's graph at k = 128: the default build
+    through ``bench_spmm`` (err_frac <= 1e-4), then each ``fused`` name
+    (True, False, "scatter", "scatter2": one build for every name, so
+    each must give the default's bits), ``step_order="lex"`` (its own
+    selection) and ``impl="xla"`` (the dense half as the plain product),
+    each through ``bench_spmm``.  Returns the launch counts."""
+    from flex_tpu_torch.ops.window_spmm import prepare_windowed, window_select
+
+    kw = dict(dev=dev, B=B, gold=gold, iters=10, tm=256, W=128,
+              min_count=64)
+    B_dev = torch.from_numpy(B).cuda()
+    reset_launches()
+    r, plan = bench_plan(bench_spmm, g, K, "windowed", sel=sel, **kw)
+    C0 = plan(B_dev)
+    del plan
+    out = {"default": {"t_pre_s": r.t_pre_s, "t_elap_ms": r.t_elap_ms}}
+    for fused in (True, False, "scatter", "scatter2"):
+        torch.cuda.empty_cache()
+        plan = prepare_windowed(g, dev=dev, sel=sel, tm=256, W=128,
+                                min_count=64, fused=fused)
+        require_same_bits(torch, f"fused={fused}", "the default build", C0,
+                          plan(B_dev))
+        out[f"fused={fused}"] = {"same_bits_as_default": True}
+        del plan
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sel_lex = window_select(g, tm=256, W=128, min_count=64,
+                            max_dense_bytes=6 << 30, step_order="lex")
+    lex_host_s = time.perf_counter() - t0
+    r, plan = bench_checked(bench_spmm, g, K, "windowed", "options lex",
+                            sel=sel_lex, **kw)
+    out["step_order=lex"] = {"t_pre_s": r.t_pre_s, "t_elap_ms": r.t_elap_ms,
+                             "select_host_s": lex_host_s,
+                             "steps": sel_lex["total_steps"]}
+    del plan, sel_lex
+    torch.cuda.empty_cache()
+    r, plan = bench_checked(bench_spmm, g, K, "windowed",
+                            "options impl=xla (the plain product)", sel=sel,
+                            impl="xla", **kw)
+    out["impl=xla (plain product)"] = {"t_pre_s": r.t_pre_s,
+                                       "t_elap_ms": r.t_elap_ms}
+    del plan, C0, B_dev
+    torch.cuda.empty_cache()
+    launches = read_launches()
+    # 14 calls a benched plan (3 on the residue kernel, 2 on kernel 1),
+    # and one more call of the default build and of each fused name
+    expect_launches(launches, "the options", window_spmm_fwd=14 * 2 + 5,
+                    gespmm_rows=14 * 3 + 5)
+    log("[options] " + json.dumps({"k": K, "runs": out, "launches": launches,
+                                   "card": smi}))
+    return launches
+
+
+def phase_sharded(torch, g, dev, B, gold, time_cuda_ms, smi):
+    """[sharded] on ``make_mesh(4)`` (on a one-card machine four entries of
+    cuda:0): ``prepare_ell_sharded`` in both B layouts and
+    ``prepare_windowed_sharded`` on the main path's graph at k = 128, each
+    against SciPy, with its tPre, tElap, the nnz of each shard, the
+    launches of one call (one or more a shard), then g_B through the
+    sharded windowed plan with its training backward.  These are four
+    shards on one card, not a scaling figure.  Returns (summary, launch
+    counts by path)."""
+    from flex_tpu_torch.parallel import (
+        make_mesh, prepare_ell_sharded, prepare_windowed_sharded,
+    )
+
+    mesh = make_mesh(4)
+    log(f"[sharded] mesh {mesh}: four shards on "
+        f"{torch.cuda.device_count()} card(s), not a scaling figure")
+    B_dev = torch.from_numpy(B).cuda()
+    out, launches = {}, {}
+    for layout in ("replicated", "gathered"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = prepare_ell_sharded(g, mesh, b_layout=layout, dev=dev)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        reset_launches()
+        C = plan(B_dev)
+        launches["sharded_ell"] = one = read_launches()
+        expect_launches(one, f"sharded ELL {layout}, one call",
+                        gespmm_rows=4)
+        err = res_check_logged(g, C, gold, f"sharded ell {layout}")
+        del C
+        ms = time_cuda_ms(plan, B_dev, iters=10)
+        out[f"ell_{layout}"] = {
+            "t_pre_s": t_pre, "t_elap_ms": ms, "err_frac": err,
+            "shard_nnz": [p.nnz for p in plan.plans],
+            "ici_bytes_per_call": plan.ici_bytes_per_call(g.n, K),
+            "stats": {k: v for k, v in plan.stats.items()
+                      if k != "bucket_shapes"},
+            "launches_one_call": one["gespmm_rows"], "note": ONE_CARD}
+        log(f"[sharded] ell {layout} " + json.dumps(out[f"ell_{layout}"]))
+        del plan
+        torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan = prepare_windowed_sharded(g, mesh, tm=256, W=128, min_count=64,
+                                    dev=dev)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    reset_launches()
+    C = plan(B_dev)
+    launches["sharded_windowed"] = one = read_launches()
+    expect_launches(one, "sharded windowed, one call", window_spmm_fwd=4,
+                    gespmm_rows=4)
+    err = res_check_logged(g, C, gold, "sharded windowed")
+    require_same_bits(torch, "the sharded windowed plan", "a second call", C,
+                      plan(B_dev))
+    del C
+    ms = time_cuda_ms(plan, B_dev, iters=10)
+    out["windowed"] = {
+        "t_pre_s": t_pre, "t_elap_ms": ms, "err_frac": err,
+        "shard_nnz": [int(g.row_ptr[r1] - g.row_ptr[r0])
+                      for r0, r1 in plan.row_bounds],
+        "shard_res_nnz": list(plan.res_shard_nnz),
+        "shard_sel": [list(s) for s in plan.shard_sel],
+        "stats": plan.stats, "launches_one_call": {
+            k: v for k, v in one.items() if v}, "note": ONE_CARD}
+    log("[sharded] windowed " + json.dumps(out["windowed"]))
+
+    # g_B through the sharded windowed plan: kernel 3 and kernel 7 on the
+    # residues' transposed plans, on every shard
+    rng = np.random.default_rng(1)
+    co_h = rng.random((g.m, K), dtype=np.float32)
+    gold_t = np.asarray(g.to_scipy().T @ co_h, dtype=np.float32)
+    tplan = plan.for_training()
+    del plan
+    co = torch.from_numpy(co_h).cuda()
+    Bg = B_dev.clone().requires_grad_()
+    reset_launches()
+    (tplan(Bg) * co).sum().backward()
+    launches["sharded_grad"] = one = read_launches()
+    expect_launches(one, "sharded windowed gradient", window_spmm_fwd=4,
+                    window_bwd_gB=4, gespmm_rows=8)
+    err_g = res_check_logged(g, Bg.grad, gold_t, "sharded windowed g_B",
+                             row_nnz=np.bincount(g.col, minlength=g.n))
+
+    def grad_call():
+        b = B_dev.clone().requires_grad_()
+        (tplan(b) * co).sum().backward()
+
+    grad_ms = time_cuda_ms(grad_call, iters=5)
+    out["windowed_grad"] = {"err_frac": err_g, "ms": grad_ms,
+                            "launches": {k: v for k, v in one.items() if v}}
+    log("[sharded] windowed g_B " + json.dumps(out["windowed_grad"])
+        + f" ({smi}; {ONE_CARD})")
+    del tplan, Bg, co, B_dev
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_parallel_2d(torch, g, dev, smi):
+    """[parallel_2d] GCN(128 -> 128 -> 41) through ``make_train_step_2d`` on
+    a (2, 2) mesh (rows over "x" in a sharded ELL plan, the weights'
+    column blocks over "y"), Adam 1e-2: the first step's loss against the
+    one-device ``make_train_step``'s from the same initial parameters
+    (rtol 1e-4), 2 warm-up and 5 timed steps, a finite and falling loss,
+    ms/step.  Four mesh entries on one card: not a scaling figure.
+    Returns the launch counts of the 7 steps."""
+    from flex_tpu_torch.io.csv_loader import make_features
+    from flex_tpu_torch.models import GCN, make_train_step
+    from flex_tpu_torch.ops.ell_spmm import prepare_ell
+    from flex_tpu_torch.parallel import (
+        Mesh, make_mesh, make_train_step_2d, prepare_ell_sharded,
+    )
+
+    mesh = Mesh(np.asarray(make_mesh(4).devices).reshape(2, 2), ("x", "y"))
+    d_in, d_hid, n_cls = 128, 128, 41
+    X = torch.from_numpy(make_features(g, d_in)).cuda()
+    y, mask = node_labels(torch, g.m, n_cls)
+
+    def model():
+        return GCN(d_in, d_hid, n_cls, nnz=g.nnz,
+                   generator=torch.Generator().manual_seed(0)).cuda()
+
+    local = model()
+    lstep = make_train_step(local, prepare_ell(g, dev=dev), torch.optim.Adam(
+        local.parameters(), lr=1e-2))
+    loss_1 = float(lstep(X, y, mask))
+    del local, lstep
+    torch.cuda.empty_cache()
+
+    net = model()
+    plan = prepare_ell_sharded(g, mesh, axis="x", dev=dev)
+    step = make_train_step_2d(net, plan, torch.optim.Adam(
+        net.parameters(), lr=1e-2), mesh)
+    reset_launches()
+    losses = [step(X, y, mask) for _ in range(2)]            # warm-up
+    timed, step_ms, host_ms = timed_steps(torch, step, (X, y, mask), 5)
+    launches = read_launches()
+    losses = [float(x) for x in losses + timed]
+    # a step: 2 shards x (2 forwards + 2 g_B through the transposed plans)
+    expect_launches(launches, "7 steps of the 2-D GCN", gespmm_rows=56)
+    if abs(losses[0] - loss_1) > 1e-4 * abs(loss_1):
+        raise AssertionError(f"2-D first loss {losses[0]} != one-device "
+                             f"{loss_1}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"2-D loss {losses}: not finite and falling")
+    ms = float(np.median(step_ms))
+    log("[parallel_2d] " + json.dumps({
+        "mesh": str(mesh), "first_loss": losses[0],
+        "one_device_first_loss": loss_1, "losses": losses,
+        "ms_per_step": ms, "ms_per_step_host": host_ms, "step_ms": step_ms,
+        "launches_7_steps": launches,
+        "note": ONE_CARD,
+        "card": smi}))
+    del plan, step, net, X
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_shard_phases(torch, g, dev, B, gold, sel, peaks, bench_spmm,
+                     time_cuda_ms, smi):
+    """[bf16], [options], [sharded], [parallel_2d], each with the counts
+    set to 0 just before its path and read just after.  Returns (kernel
+    7's bf16 row, launch counts by phase)."""
+    t0 = time.perf_counter()
+    row, launches = phase_bf16(torch, g, dev, B, gold, sel, peaks,
+                               bench_spmm, time_cuda_ms, smi)
+    launches["options"] = phase_options(torch, g, dev, B, gold, sel,
+                                        bench_spmm, smi)
+    sharded, by_path = phase_sharded(torch, g, dev, B, gold, time_cuda_ms,
+                                     smi)
+    launches.update(by_path)
+    launches["parallel_2d"] = phase_parallel_2d(torch, g, dev, smi)
+    row["sharded_ell_replicated_ms"] = sharded["ell_replicated"]["t_elap_ms"]
+    log(f"[bf16..parallel_2d] phases took {time.perf_counter() - t0:.1f}s")
+    return row, launches
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     import torch
@@ -2700,6 +3151,7 @@ def main() -> int:
     # 3. kernel vs plain
     phase_kernels_vs_plain(torch)
     phase_new_kernels_vs_plain(torch)
+    phase_bf16_kernel_vs_plain(torch)
     if quick:
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -2875,7 +3327,6 @@ def main() -> int:
                               bench_spmm, time_cuda_ms)
     del A_csr
     phase_baselines(torch, g, dev, B, gold, bench_spmm)
-    del gold
     torch.cuda.empty_cache()
     # 11b. GAT on the main path's graph
     gat = phase_gat(torch, g, dev, B_dev, peaks, time_cuda_ms, smi,
@@ -2887,7 +3338,12 @@ def main() -> int:
     rates, launches_autotune = phase_autotune(
         torch, g, dev, B_dev, sel, dense_ms, kernel4_ms41, time_cuda_ms)
     launches_gcn = phase_gcn_bench(g)
-    del dev, B_dev
+    del B_dev
+    torch.cuda.empty_cache()
+    # [bf16], [options], [sharded], [parallel_2d]
+    bf16_row, launches_shard = run_shard_phases(
+        torch, g, dev, B, gold, sel, peaks, bench_spmm, time_cuda_ms, smi)
+    del dev, gold
     torch.cuda.empty_cache()
     # 12. band, on its own graph
     rows += phase_band(torch, peaks, bench_spmm, time_cuda_ms)
@@ -2928,13 +3384,14 @@ def main() -> int:
             "bwd_with_pads_ms", "bwd_plain_ms", "bwd_library_ms",
             "bwd_bound_ms", "bwd_err")})
     rows.append(gespmm_row)
+    rows.append(bf16_row)
     new_launches = {"autotune": launches_autotune, "gcn_bench": launches_gcn,
-                    "sweep": launches_sweep,
+                    "sweep": launches_sweep, **launches_shard,
                     **{tag: c["launches"] for tag, c in cli.items()}}
     for r in rows:
         r.update({f"launches_{ph}": new_launches[ph][r["name"]]
-                  for ph in NEW_PHASES})
-    if len(rows) != 7 or any(r["launches"] < 1 for r in rows):
+                  for ph in NEW_PHASES + SHARD_PHASES})
+    if len(rows) != 8 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")
     log(json.dumps({"kernels": rows}))

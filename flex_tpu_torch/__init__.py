@@ -30,18 +30,28 @@ unless the caller passes ``device="cpu"``.
 - :mod:`flex_tpu_torch.bench` — the harness (tPre / tElap / GF/s on the
   card, sweep, CSV), the autotuner on the card's measured rates, the GCN
   layer bench.
+- :mod:`flex_tpu_torch.parallel` — row-sharded plans (ELL and windowed)
+  over a mesh of torch devices in one process, and the 2-D GCN step.
 - :mod:`flex_tpu_torch.cli` — ``python -m flex_tpu_torch <graph.csv> <k>``.
 """
 
-from flex_tpu_torch.ops import spmm  # noqa: F401
-from flex_tpu_torch.ops.bcoo_spmm import prepare_bcoo  # noqa: F401
-from flex_tpu_torch.ops.ell_spmm import prepare_ell, with_bwd_plan  # noqa: F401
-from flex_tpu_torch.ops.gcn import gcn_layer, pick_association  # noqa: F401
-from flex_tpu_torch.ops.gespmm import prepare_gespmm  # noqa: F401
-from flex_tpu_torch.ops.pallas_band import prepare_band  # noqa: F401
-from flex_tpu_torch.ops.xla_spmm import prepare_xla  # noqa: F401
-from flex_tpu_torch.ops.window_spmm import (  # noqa: F401
+from flex_tpu_torch.utils.hostmem import tune_host_malloc
+
+# keep large NumPy temporaries on the heap (fault once, reuse after), as
+# the JAX package does at import (utils/hostmem.py)
+tune_host_malloc()
+
+from flex_tpu_torch.ops import spmm  # noqa: F401,E402
+from flex_tpu_torch.ops.bcoo_spmm import prepare_bcoo  # noqa: F401,E402
+from flex_tpu_torch.ops.ell_spmm import (  # noqa: F401,E402
+    prepare_ell, with_bwd_plan,
+)
+from flex_tpu_torch.ops.gcn import gcn_layer, pick_association  # noqa: F401,E402
+from flex_tpu_torch.ops.gespmm import prepare_gespmm  # noqa: F401,E402
+from flex_tpu_torch.ops.pallas_band import prepare_band  # noqa: F401,E402
+from flex_tpu_torch.ops.xla_spmm import prepare_xla  # noqa: F401,E402
+from flex_tpu_torch.ops.window_spmm import (  # noqa: F401,E402
     prepare_windowed, with_training_bwd,
 )
-from flex_tpu_torch.sparse.csr import CSRGraph  # noqa: F401
-from flex_tpu_torch.sparse.device import DeviceCSR  # noqa: F401
+from flex_tpu_torch.sparse.csr import CSRGraph  # noqa: F401,E402
+from flex_tpu_torch.sparse.device import DeviceCSR  # noqa: F401,E402

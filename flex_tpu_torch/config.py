@@ -20,7 +20,7 @@ class FlexConfig:
 
     # ell params; None = ops.ell_spmm.DEFAULT_WIDTHS
     widths: tuple[int, ...] | None = None
-    b_dtype: str = "float32"          # "bfloat16" is not ported yet
+    b_dtype: str = "float32"          # "bfloat16": bf16 gathers of B
 
     # panel params
     tm: int = 128

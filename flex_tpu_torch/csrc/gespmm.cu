@@ -39,6 +39,16 @@
 // columns lane, lane + 32, ... with masks; k > 128 takes more slices along
 // grid y.
 //
+// B in bf16 (flex_gespmm_rows_bf16): the JAX package's b_dtype="bfloat16"
+// gather mode (flex_tpu/ops/ell_spmm.py:_ell_spmm, XLA there) casts B once
+// and gathers bf16 rows; the products with the f32 values are summed in
+// f32.  The kernels are templated on B's element type: the bf16 instance
+// reads four bf16 a lane (one 8-byte load per B row when k % 4 == 0 and B
+// is 8-byte aligned, else scalars), widens each with __bfloat162float and
+// runs the f32 instance's fmaf chain in the same order, so on B rounded to
+// bf16 and widened it gives the f32 instance's bits.  Its output, scratch
+// and accumulator stay f32.  It halves the bytes of every gathered row.
+//
 // Bound: 2 operations per 4 bytes of B row read, far below the FP32 ridge
 // (20 flop/byte), so bytes bound it; what this run's data needs once is
 // cols, vals, B and C.  What the kernel moves is more: every nonzero reads
@@ -50,6 +60,7 @@
 // through shared memory across the rows of a tile is not done here.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -87,12 +98,32 @@ __device__ __forceinline__ void store4(float* row, int col0, int k, int lane,
   }
 }
 
-// out[row] (+)= sum of the unit's entries, or scratch[part] = that sum
-template <bool VEC, bool ACC>
+// four bf16 of a B row, widened to f32: one 8-byte load (VEC) or scalars
+template <bool VEC>
+__device__ __forceinline__ void load4(const __nv_bfloat16* row, int col0,
+                                      int k, int lane, float (&v)[4]) {
+  if (VEC) {
+    if (col0 + lane * 4 < k) {
+      const uint2 raw = *reinterpret_cast<const uint2*>(row + lane * 4);
+      const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v[t] = __bfloat162float(b[t]);
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (col0 + lane + 32 * t < k)
+        v[t] = __bfloat162float(row[lane + 32 * t]);
+  }
+}
+
+// out[row] (+)= sum of the unit's entries, or scratch[part] = that sum;
+// T is B's element type (float or __nv_bfloat16)
+template <typename T, bool VEC, bool ACC>
 __global__ void __launch_bounds__(WARPS * 32)
 rows_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
             const int32_t* __restrict__ row_start,
-            const int4* __restrict__ units, const float* __restrict__ B,
+            const int4* __restrict__ units, const T* __restrict__ B,
             float* __restrict__ out, float* __restrict__ scratch, int n_units,
             int k) {
   const int u = blockIdx.x * WARPS + threadIdx.x / 32;
@@ -180,15 +211,15 @@ rows_reduce_kernel(const float* __restrict__ scratch,
   store4<VEC>(orow, col0, k, lane, acc);
 }
 
-template <bool VEC, bool ACC>
+template <typename T, bool VEC, bool ACC>
 int launch(const int32_t* cols, const float* vals, const int32_t* row_start,
-           const int32_t* units, const int32_t* splits, const float* B,
+           const int32_t* units, const int32_t* splits, const T* B,
            float* out, float* scratch, int n_units, int n_splits, int k,
            cudaStream_t st) {
   const int slices = (k + SLICE - 1) / SLICE;
   if (n_units) {
     const dim3 grid((n_units + WARPS - 1) / WARPS, slices);
-    rows_kernel<VEC, ACC><<<grid, WARPS * 32, 0, st>>>(
+    rows_kernel<T, VEC, ACC><<<grid, WARPS * 32, 0, st>>>(
         cols, vals, row_start, reinterpret_cast<const int4*>(units), B, out,
         scratch, n_units, k);
     const cudaError_t e = cudaGetLastError();
@@ -200,6 +231,28 @@ int launch(const int32_t* cols, const float* vals, const int32_t* row_start,
                                                                out, k);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the vector path moves 4 elements of B a lane (16 bytes in f32, 8 in
+// bf16) and float4 rows of out and scratch
+template <typename T>
+int launch_any(const int32_t* cols, const float* vals,
+               const int32_t* row_start, const int32_t* units,
+               const int32_t* splits, const T* B, float* out, float* scratch,
+               int n_units, int n_splits, int k, int accumulate,
+               void* stream) {
+  if (k == 0 || (n_units == 0 && n_splits == 0)) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = k % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(B) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+#define FLEX_ROWS(VEC, ACC)                                                  \
+  launch<T, VEC, ACC>(cols, vals, row_start, units, splits, B, out, scratch, \
+                      n_units, n_splits, k, st)
+  if (accumulate) return vec ? FLEX_ROWS(true, true) : FLEX_ROWS(false, true);
+  return vec ? FLEX_ROWS(true, false) : FLEX_ROWS(false, false);
+#undef FLEX_ROWS
 }
 
 }  // namespace
@@ -214,15 +267,20 @@ extern "C" int flex_gespmm_rows(const int32_t* cols, const float* vals,
                                 float* out, float* scratch, int n_units,
                                 int n_splits, int k, int accumulate,
                                 void* stream) {
-  if (k == 0 || (n_units == 0 && n_splits == 0)) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
-#define FLEX_ROWS(VEC, ACC)                                                  \
-  launch<VEC, ACC>(cols, vals, row_start, units, splits, B, out, scratch,   \
-                   n_units, n_splits, k, st)
-  if (accumulate) return vec ? FLEX_ROWS(true, true) : FLEX_ROWS(false, true);
-  return vec ? FLEX_ROWS(true, false) : FLEX_ROWS(false, false);
-#undef FLEX_ROWS
+  return launch_any<float>(cols, vals, row_start, units, splits, B, out,
+                           scratch, n_units, n_splits, k, accumulate, stream);
+}
+
+// the same with B in bf16 (out, scratch and the sums f32)
+extern "C" int flex_gespmm_rows_bf16(const int32_t* cols, const float* vals,
+                                     const int32_t* row_start,
+                                     const int32_t* units,
+                                     const int32_t* splits,
+                                     const __nv_bfloat16* B, float* out,
+                                     float* scratch, int n_units,
+                                     int n_splits, int k, int accumulate,
+                                     void* stream) {
+  return launch_any<__nv_bfloat16>(cols, vals, row_start, units, splits, B,
+                                   out, scratch, n_units, n_splits, k,
+                                   accumulate, stream);
 }

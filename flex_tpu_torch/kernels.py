@@ -127,16 +127,17 @@ def launch(name: str, symbol: str, device, *args) -> None:
 
 
 def wrappers() -> list:
-    """The seven kernel wrappers, one per hand kernel.  Each counts its
-    own launches in its ``launches`` attribute."""
-    from flex_tpu_torch.ops.gespmm import gespmm_rows
+    """The kernel wrappers: one per hand kernel, and kernel 7's bf16
+    instance.  Each counts its own launches in its ``launches``
+    attribute."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_bf16
     from flex_tpu_torch.ops.pallas_band import band_spmm_v1, band_spmm_v2
     from flex_tpu_torch.ops.window_spmm import (
         window_bwd_gA, window_bwd_gB, window_spmm_fwd, window_spmm_t_fwd,
     )
 
     return [window_spmm_fwd, window_bwd_gA, window_bwd_gB, window_spmm_t_fwd,
-            band_spmm_v2, band_spmm_v1, gespmm_rows]
+            band_spmm_v2, band_spmm_v1, gespmm_rows, gespmm_rows_bf16]
 
 
 def launch_counts() -> dict[str, int]:
@@ -193,8 +194,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "gespmm":
         # (cols, vals, row_start, units, splits, B, out, scratch,
         #  n_units, n_splits, k, accumulate, stream)
-        lib.flex_gespmm_rows.argtypes = [p, p, p, p, p, p, p, p,
-                                         i, i, i, i, p]
-        lib.flex_gespmm_rows.restype = i
+        for fn in (lib.flex_gespmm_rows, lib.flex_gespmm_rows_bf16):
+            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+            fn.restype = i
     else:
         raise ValueError(f"no CUDA source named {name!r}")

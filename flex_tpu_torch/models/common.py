@@ -24,17 +24,15 @@ def glorot_uniform(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def training_plan(plan):
-    """The plan a train step differentiates through: a windowed plan
-    without a transposed residue backward gets one (``with_training_bwd``;
+    """The plan a train step differentiates through: the plan's own
+    ``for_training()`` where it has one (a windowed plan, sharded or not,
+    and a sharded ELL plan attach their transposed residue backward plans;
     training differentiates only the parameters, and the adjacency is a
-    constant).  Any other plan is returned as it is; a bare EllPlan does
-    not record B's row count (n != m on rectangular graphs), so callers use
+    constant), else the plan as it is.  A bare EllPlan does not record B's
+    row count (n != m on rectangular graphs), so callers use
     ``ell_spmm.with_bwd_plan`` with the right n."""
-    from flex_tpu_torch.ops.window_spmm import WindowedPlan, with_training_bwd
-
-    if isinstance(plan, WindowedPlan) and plan.ell.bwd_plan is None:
-        return with_training_bwd(plan)
-    return plan
+    for_training = getattr(plan, "for_training", None)
+    return plan if for_training is None else for_training()
 
 
 def masked_xent(logits, y, mask) -> torch.Tensor:

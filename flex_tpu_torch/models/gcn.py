@@ -35,11 +35,12 @@ class GCN(nn.Module):
                                                generator))
         self.b2 = nn.Parameter(torch.zeros(n_classes))
 
-    def forward(self, plan: Callable, X) -> torch.Tensor:
+    def forward(self, plan: Callable, X,
+                matmul: Callable = torch.matmul) -> torch.Tensor:
         h = gcn_layer(plan, X, self.W1, self.b1, activation=torch.relu,
-                      association="auto", nnz=self.nnz)
+                      association="auto", nnz=self.nnz, matmul=matmul)
         return gcn_layer(plan, h, self.W2, self.b2, activation=None,
-                         association="auto", nnz=self.nnz)
+                         association="auto", nnz=self.nnz, matmul=matmul)
 
 
 def gcn_loss(model: GCN, plan, X, y, mask) -> torch.Tensor:

@@ -18,6 +18,12 @@ bucket as the JAX package does); CUDA tensors run the row-unit kernel of
 ``csrc/gespmm.cu`` (:func:`.gespmm.gespmm_rows`), all buckets and split
 rows in one call, added into ``into`` in place, in a fixed order.
 
+``b_dtype="bfloat16"`` is the JAX package's fast gather mode: B is cast to
+bf16 once per call, its rows are gathered in bf16 and their products with
+the f32 values are summed in f32 (on the card, kernel 7's bf16 instance);
+the output, and ``into``, stay f32.  A plan's transposed backward plan
+inherits it.
+
 Training: on the CPU autograd differentiates the plain ops as they
 stand.  A plan that carries a ``bwd_plan`` (:func:`with_bwd_plan`, the
 transposed pattern without the forward's pad entries) computes g_B = Aᵀ·g
@@ -61,13 +67,14 @@ def ell_padded_nnz(degrees: np.ndarray,
     return int(pad.sum())
 
 
+B_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def check_b_dtype(b_dtype: str) -> None:
-    """Only float32 B is ported.  The JAX package's bfloat16 gather mode is
-    refused, never run in float32 under its name."""
-    if b_dtype == "bfloat16":
-        raise NotImplementedError(
-            "b_dtype='bfloat16' is not ported yet (ROADMAP.md §1 item 5)")
-    if b_dtype != "float32":
+    """The gather dtypes of the JAX package: ``"float32"``, and
+    ``"bfloat16"``, which casts B once per call, gathers bf16 rows and
+    sums their products in f32.  Anything else raises."""
+    if b_dtype not in B_DTYPES:
         raise ValueError(f"unknown b_dtype {b_dtype!r}")
 
 
@@ -93,12 +100,78 @@ def host_bucket_sizes(deg: np.ndarray, widths: tuple[int, ...]):
     return by_w, n_rows_last, padded
 
 
-def ell_meta(deg: np.ndarray, widths: tuple[int, ...] = DEFAULT_WIDTHS):
-    """Static layout of the buckets: (wmax, widths, ((w, n_chunks), ...),
-    n_rows_last), plus the padded nnz."""
+def ell_meta(deg: np.ndarray, widths: tuple[int, ...] = DEFAULT_WIDTHS,
+             bucket_alloc: dict | None = None):
+    """Static layout of the buckets: (wmax, widths, ((w, n_alloc, n_real),
+    ...), n_rows_last), plus the padded nnz.  ``bucket_alloc`` (width →
+    allocated chunk count ≥ the real count) pads every live width of it to
+    that count, so the shards of a sharded plan share bucket shapes; pad
+    chunks hold no entry and point at row 0."""
     by_w, n_rows_last, padded = host_bucket_sizes(
         np.asarray(deg, dtype=np.int64), widths)
-    return (widths[-1], tuple(widths), tuple(by_w.items()), n_rows_last), padded
+    if bucket_alloc is None:
+        bucket_meta = tuple((w, nc, nc) for w, nc in by_w.items())
+    else:
+        bucket_meta = tuple(
+            (int(w), int(bucket_alloc[int(w)]), by_w.get(int(w), 0))
+            for w in widths if bucket_alloc.get(int(w), 0) > 0)
+        padded = sum(a * w for w, a, _ in bucket_meta)
+    return (widths[-1], tuple(widths), bucket_meta, n_rows_last), padded
+
+
+def ell_scatter_layout(deg: np.ndarray, widths: tuple[int, ...],
+                       bucket_alloc: dict | None = None):
+    """Host O(m) layout of the scatter-assembled ELL: returns (bucket_meta,
+    H, chunk_row, padded_total) where
+
+    - bucket_meta: (w, n_alloc, n_real) per live width, ascending, in
+      the enumeration of :func:`host_bucket_sizes` / :func:`_chunk_order`
+      (stable by width bucket, row-ascending within one, split rows on
+      consecutive chunks);
+    - H[r] (int32[m]): row r's first slot in the bucket-major padded flat
+      array MINUS its exclusive residue-count prefix, so residue entry i
+      lands at ``H[row(i)] + miss_rank(i)`` (a row's chunks are
+      w-contiguous, so base + t falls in chunk t//w at offset t%w);
+    - chunk_row (int32[total_chunks]): output row per chunk.
+    Copy of the JAX package's ``ell_scatter_layout``.  ``bucket_alloc``
+    (width → allocated chunk count ≥ the real count, as in
+    :func:`ell_meta`) adds pad chunks after each bucket's real ones, which
+    point at row 0; every width it names is live."""
+    deg = np.asarray(deg, dtype=np.int64)
+    m = len(deg)
+    wmax = widths[-1]
+    w_arr = np.asarray(widths, dtype=np.int64)
+    wor = w_arr[np.minimum(np.searchsorted(w_arr, np.maximum(deg, 1)),
+                           len(w_arr) - 1)]
+    wor = np.where(deg > wmax, wmax, wor)
+    live = deg > 0
+    bucket_meta = []
+    H = np.zeros(m, dtype=np.int64)
+    chunk_rows = []
+    excl = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(deg, out=excl[1:])  # exclusive residue-count prefix per row
+    off = 0
+    for w in widths:
+        mask = live & (wor == w)
+        rows_b = np.nonzero(mask)[0]
+        n_chunks_per = -(-deg[rows_b] // w) if w == wmax \
+            else np.ones(len(rows_b), dtype=np.int64)
+        nc = int(n_chunks_per.sum())
+        n_alloc = nc if bucket_alloc is None \
+            else int(bucket_alloc.get(int(w), 0))
+        if n_alloc < nc:
+            raise ValueError(f"bucket_alloc[{w}] = {n_alloc} < {nc} chunks")
+        if not n_alloc:
+            continue
+        bucket_meta.append((int(w), n_alloc, nc))
+        base = off + (np.cumsum(n_chunks_per) - n_chunks_per) * w
+        H[rows_b] = base - excl[rows_b]
+        chunk_rows.append(np.repeat(rows_b, n_chunks_per))
+        chunk_rows.append(np.zeros(n_alloc - nc, np.int64))
+        off += n_alloc * w
+    chunk_row = (np.concatenate(chunk_rows) if chunk_rows
+                 else np.zeros(0, np.int64)).astype(np.int32)
+    return tuple(bucket_meta), H.astype(np.int32), chunk_row, off
 
 
 def _chunk_order(deg: torch.Tensor, widths) -> torch.Tensor:
@@ -110,13 +183,15 @@ def _chunk_order(deg: torch.Tensor, widths) -> torch.Tensor:
     return torch.sort(wi, stable=True).indices
 
 
-def _bucket_layouts(row_ptr, deg, order, meta):
-    """Per width bucket: (w, rows_b, starts, lengths).  Rows longer than
-    the widest bucket expand to consecutive chunks."""
+def _bucket_layouts(row_ptr, deg, order, nnz: int, meta):
+    """Per width bucket: (w, rows_b, starts, lengths), ``n_alloc`` chunks
+    each.  Rows longer than the widest bucket expand to consecutive chunks;
+    the ``n_alloc - N`` pad chunks after the real ones start at ``nnz``,
+    hold nothing and point at row 0."""
     wmax, _, bucket_meta, n_rows_last = meta
     dev = row_ptr.device
     off = 0
-    for w, N in bucket_meta:
+    for w, n_alloc, N in bucket_meta:
         if w == wmax and n_rows_last != N:
             # split bucket: N chunks come from n_rows_last distinct rows
             rl = order[off:off + n_rows_last]
@@ -134,6 +209,11 @@ def _bucket_layouts(row_ptr, deg, order, meta):
             starts = row_ptr[rows_b]
             lengths = deg[rows_b].clamp_max(w)
             off += N
+        if n_alloc > N:
+            pad = n_alloc - N
+            rows_b = torch.cat([rows_b, rows_b.new_zeros(pad)])
+            starts = torch.cat([starts, starts.new_full((pad,), nnz)])
+            lengths = torch.cat([lengths, lengths.new_zeros(pad)])
         yield w, rows_b, starts, lengths
 
 
@@ -166,12 +246,12 @@ def ell_buckets_core(row_ptr, col, vals, *, meta):
     col_pad = torch.cat([col, col.new_zeros(wmax)])
     val_pad = torch.cat([vals, vals.new_zeros(wmax)])
 
-    total = sum(w * N for w, N in bucket_meta)
+    total = sum(w * n_alloc for w, n_alloc, _ in bucket_meta)
     flat_c = torch.empty(total, dtype=torch.int32, device=dev)
     flat_v = torch.empty(total, dtype=torch.float32, device=dev)
     buckets, rows_parts, offs, lens, base = [], [], [], [], 0
-    for w, rows_b, starts, lengths in _bucket_layouts(row_ptr, deg, order,
-                                                      meta):
+    for w, rows_b, starts, lengths in _bucket_layouts(
+            row_ptr, deg, order, col.shape[0], meta):
         N = rows_b.shape[0]
         c, v = flat_c[base:base + N * w].view(N, w), \
             flat_v[base:base + N * w].view(N, w)
@@ -209,19 +289,24 @@ def _gather_assembly_tables(chunk_row: torch.Tensor, *, m: int,
 
 
 def _ell_spmm(buckets, chunk_row, B, *, m, max_gather_rows, into=None,
-              chunk1=None, extras=None):
+              chunk1=None, extras=None, b_dtype="float32"):
     """buckets: tuple of (cols [N,w] i32, vals [N,w] f32), one per width.
     chunk_row: i32[total_chunks] output row per chunk (bucket-major).
     into: optional (m, k) f32 accumulator; it is updated IN PLACE and
       returned (the windowed call passes its own dense half, which saves
       an (m, k) temporary).
+    b_dtype: the gather dtype; ``"bfloat16"`` casts B once and gathers bf16
+      rows, whose products with the f32 values are summed in f32.  The
+      output is f32 either way.
     ``max_gather_rows`` bounds the (N, w, k) gather temporary by splitting
     each bucket into sub-batches of ~max_gather_rows gathered rows."""
     k = B.shape[1]
     if into is not None and tuple(into.shape) != (m, k):
         raise ValueError(f"into shape {tuple(into.shape)} != ({m}, {k})")
     if not buckets:  # zero-nnz residue
-        return into if into is not None else B.new_zeros((m, k))
+        return into if into is not None else torch.zeros(
+            (m, k), dtype=torch.float32, device=B.device)
+    B = B.to(B_DTYPES[b_dtype])
     parts = []
     for cols, vals in buckets:
         N, w = cols.shape
@@ -230,12 +315,12 @@ def _ell_spmm(buckets, chunk_row, B, *, m, max_gather_rows, into=None,
             c = cols[s:s + step]
             v = vals[s:s + step]
             Bg = B.index_select(0, c.reshape(-1)).view(c.shape[0], w, k)
-            parts.append((v[:, :, None] * Bg).sum(dim=1))
+            parts.append((v[:, :, None] * Bg.float()).sum(dim=1))
     partial = torch.cat(parts)
     if chunk1 is None:
-        if into is not None:
-            return into.index_add_(0, chunk_row, partial)
-        return B.new_zeros((m, k)).index_add_(0, chunk_row, partial)
+        if into is None:
+            into = partial.new_zeros((m, k))
+        return into.index_add_(0, chunk_row, partial)
     if extras is not None:
         ei, ef = extras
         partial.index_add_(0, ef, partial.index_select(0, ei))
@@ -261,6 +346,7 @@ class EllPlan:
     # the row-unit kernel's tables over the buckets' flat store; None =
     # derive them at each call on the card
     rows: RowTables | None = None
+    b_dtype: str = "float32"  # gather dtype (:func:`check_b_dtype`)
 
     def __call__(self, B: torch.Tensor, into: torch.Tensor | None = None
                  ) -> torch.Tensor:
@@ -281,9 +367,11 @@ class EllPlan:
         take→materialise→reduce chain reads B rows, writes the gather
         output, re-reads it for the multiply-reduce, writes chunk partials,
         and scatter-adds them into C.  The row-unit kernel moves none of
-        the gather output or partials (PERF.md has its own bound)."""
+        the gather output or partials (PERF.md has its own bound).  A B
+        element is 2 bytes under ``b_dtype="bfloat16"``."""
+        bb = 2 if self.b_dtype == "bfloat16" else 4
         n_chunks = int(self.chunk_row.shape[0])
-        by = (3 * self.padded_nnz * k * 4
+        by = (3 * self.padded_nnz * k * bb
               + 2 * n_chunks * k * 4
               + self.m * k * 4)
         return {"bytes": int(by), "gathered_rows": self.padded_nnz}
@@ -307,13 +395,17 @@ def ell_spmm_plain(plan: EllPlan, B, into=None):
     take): :func:`_ell_spmm` on the plan's buckets, on any device."""
     return _ell_spmm(plan.buckets, plan.chunk_row, B, m=plan.m,
                      max_gather_rows=plan.max_gather_rows, into=into,
-                     chunk1=plan.chunk1, extras=plan.extras)
+                     chunk1=plan.chunk1, extras=plan.extras,
+                     b_dtype=plan.b_dtype)
 
 
 def _ell_raw_call(plan: EllPlan, B, into):
     if B.device.type == "cpu" or not plan.buckets:
         return ell_spmm_plain(plan, B, into)
-    return gespmm_rows(plan.row_tables(), B, into=into)
+    # a bf16 plan casts B once; gespmm_rows then launches kernel 7's bf16
+    # instance, whose output is f32
+    return gespmm_rows(plan.row_tables(), B.to(B_DTYPES[plan.b_dtype]),
+                       into=into)
 
 
 def _ell_transpose_scatter(plan: EllPlan, g, n: int):
@@ -365,21 +457,28 @@ class _EllApply(torch.autograd.Function):
 
 def prepare_ell_device(row_ptr_dev, col_dev, vals_dev, *, m: int, nnz: int,
                        res_row_ptr_host: np.ndarray,
-                       widths: tuple[int, ...] = DEFAULT_WIDTHS) -> EllPlan:
+                       widths: tuple[int, ...] = DEFAULT_WIDTHS,
+                       b_dtype: str = "float32",
+                       bucket_alloc: dict | None = None) -> EllPlan:
     """An :class:`EllPlan` from device CSR tensors: the host computes only
-    the static bucket sizes from its copy of the row_ptr."""
+    the static bucket sizes from its copy of the row_ptr.  ``bucket_alloc``
+    (width → allocated chunk count ≥ the real count) pads the buckets to
+    common shapes, as the sharded plans do (:func:`ell_meta`); the pad
+    chunks point at row 0, so such a plan has no gather assembly
+    (``chunk1``), as in the JAX package."""
+    check_b_dtype(b_dtype)
     deg = np.diff(np.asarray(res_row_ptr_host, dtype=np.int64))
-    meta, padded = ell_meta(deg, widths)
+    meta, padded = ell_meta(deg, widths, bucket_alloc)
     buckets, chunk_row, rows = ell_buckets_core(row_ptr_dev, col_dev,
                                                 vals_dev, meta=meta)
     chunk1 = extras = None
-    if buckets:
+    if buckets and bucket_alloc is None:
         n_extras = int(chunk_row.shape[0]) - int((deg > 0).sum())
         chunk1, extras = _gather_assembly_tables(chunk_row, m=m,
                                                  n_extras=n_extras)
     return EllPlan(m=m, buckets=buckets, chunk_row=chunk_row,
                    padded_nnz=padded, nnz=nnz, chunk1=chunk1, extras=extras,
-                   rows=rows)
+                   rows=rows, b_dtype=b_dtype)
 
 
 def prepare_ell_transpose(plan: EllPlan, n: int,
@@ -392,10 +491,12 @@ def prepare_ell_transpose(plan: EllPlan, n: int,
     val 0) and count into transposed row 0's degree, as in the JAX
     package; ``keep_pads=False`` drops them (the same g_B, other tables).
     One O(n) device-to-host copy (the transposed row_ptr) is the only
-    transfer besides the row tables' own."""
+    transfer besides the row tables' own.  The plan inherits ``b_dtype``,
+    so a bf16 plan's g_B gathers the cotangent in bf16."""
     if not plan.buckets:
         return EllPlan(m=n, buckets=(), padded_nnz=0, nnz=0,
-                       chunk_row=plan.chunk_row.new_zeros(0))
+                       chunk_row=plan.chunk_row.new_zeros(0),
+                       b_dtype=plan.b_dtype)
     cols = torch.cat([c.reshape(-1) for c, _ in plan.buckets])
     vals = torch.cat([v.reshape(-1) for _, v in plan.buckets])
     offs, rows_parts = 0, []
@@ -412,7 +513,7 @@ def prepare_ell_transpose(plan: EllPlan, n: int,
     order = torch.sort(cols, stable=True).indices
     return prepare_ell_device(
         t_row_ptr, rows[order], vals[order], m=n, nnz=int(cols.shape[0]),
-        res_row_ptr_host=t_row_ptr.cpu().numpy())
+        res_row_ptr_host=t_row_ptr.cpu().numpy(), b_dtype=plan.b_dtype)
 
 
 def with_bwd_plan(plan: EllPlan, n: int) -> EllPlan:
@@ -432,10 +533,10 @@ def prepare_ell(g: CSRGraph, dev: DeviceCSR | None = None,
                 widths: tuple[int, ...] = DEFAULT_WIDTHS,
                 b_dtype: str = "float32", device=None) -> EllPlan:
     """Host: O(m) static bucket sizes for the width ladder ``widths``.
-    Device: every bucket array.  ``b_dtype`` must be ``"float32"``
+    Device: every bucket array.  ``b_dtype`` is the gather dtype
     (:func:`check_b_dtype`)."""
     check_b_dtype(b_dtype)
     dev = resident_csr(g, dev, device)
     return prepare_ell_device(dev.row_ptr, dev.col, dev.vals, m=g.m,
                               nnz=g.nnz, res_row_ptr_host=g.row_ptr,
-                              widths=tuple(widths))
+                              widths=tuple(widths), b_dtype=b_dtype)

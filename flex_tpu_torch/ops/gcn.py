@@ -24,22 +24,24 @@ def pick_association(m: int, nnz: int, d: int, c: int) -> str:
 
 
 def gcn_layer(plan, X, W, b=None, activation: Callable | None = torch.relu,
-              association: str = "auto", nnz: int | None = None):
+              association: str = "auto", nnz: int | None = None,
+              matmul: Callable = torch.matmul):
     """One GCN layer using a prepared SpMM plan for A.
 
     plan: any callable B ↦ A·B for the adjacency.
     X: [n, d] features.  W: [d, c] weights.  b: optional [c] bias.
     association: 'axw', 'ax_w', or 'auto' (the operation count, which
-    needs ``nnz``)."""
+    needs ``nnz``).  matmul: the dense product (the 2-D sharded step passes
+    one that runs W's column blocks on several devices)."""
     d, c = W.shape
     if association == "auto":
         if nnz is None:
             raise ValueError("association='auto' needs nnz")
         association = pick_association(X.shape[0], nnz, d, c)
     if association == "axw":
-        H = plan(torch.matmul(X, W))
+        H = plan(matmul(X, W))
     elif association == "ax_w":
-        H = torch.matmul(plan(X), W)
+        H = matmul(plan(X), W)
     else:
         raise ValueError(association)
     if b is not None:

@@ -150,29 +150,25 @@ def gespmm_rows_plain(t: RowTables, B, into=None,
     """Plain PyTorch version of :func:`gespmm_rows`: every covered nonzero's
     vals · B[cols] scatter-added into its row (in sub-batches of about
     ``max_gather_rows`` gathered rows), then added into ``into`` when
-    given.  Returns f32 [m, k]."""
+    given.  A bf16 B is widened to f32 row by row as it is gathered.
+    Returns f32 [m, k]."""
     rows, idx = unit_entries(t)
-    out = B.new_zeros((t.m, B.shape[1]))
+    out = torch.zeros((t.m, B.shape[1]), dtype=torch.float32,
+                      device=B.device)
     for s in range(0, len(idx), max_gather_rows):
         e = idx[s:s + max_gather_rows]
-        out.index_add_(0, rows[s:s + max_gather_rows],
-                       t.vals[e, None] * B.index_select(0, t.cols[e].long()))
+        out.index_add_(0, rows[s:s + max_gather_rows], t.vals[e, None]
+                       * B.index_select(0, t.cols[e].long()).float())
     return into.add_(out) if into is not None else out
 
 
-def gespmm_rows(t: RowTables, B, into=None):
-    """C[r, :] = Σ over row r's nonzeros of vals · B[cols, :] for every row
-    of ``t`` (f32 [m, k]); with ``into`` (f32 [m, k]) the sums are added to
-    it IN PLACE and it is returned.
-
-    CUDA tensors launch ``csrc/gespmm.cu`` (and count the launch in
-    ``gespmm_rows.launches``): the units, then the pass that adds the split
-    rows' partial rows, both in a fixed order.  CPU tensors take
-    :func:`gespmm_rows_plain`.  Anything else raises."""
+def _rows_call(t: RowTables, B, into, symbol: str):
+    """Checks, then the plain version on the CPU or ``symbol`` of
+    ``csrc/gespmm.cu`` on the card; returns (out, launched)."""
     if B.dim() != 2:
         raise ValueError(f"B must be 2-D, got {tuple(B.shape)}")
     m, k = t.m, B.shape[1]
-    floats = {"vals": t.vals, "B": B}
+    floats = {"vals": t.vals}
     if into is not None:
         if tuple(into.shape) != (m, k):
             raise ValueError(f"into shape {tuple(into.shape)} != ({m}, {k})")
@@ -180,12 +176,15 @@ def gespmm_rows(t: RowTables, B, into=None):
     check_operands({"cols": (t.cols, t.vals.shape[0]), "row_start": (
         t.row_start, m), "units": (t.units, (t.units.shape[0], 4)),
         "splits": (t.splits, (t.splits.shape[0], 3))}, floats)
+    if B.device != t.vals.device:
+        raise ValueError(f"arguments lie on several devices: "
+                         f"{ {B.device, t.vals.device} }")
     if B.device.type == "cpu":
-        return gespmm_rows_plain(t, B, into)
+        return gespmm_rows_plain(t, B, into), False
     if B.device.type != "cuda":
         raise ValueError(f"no gespmm kernel for device {B.device}")
     check_kernel_operands(("units",), cols=t.cols, row_start=t.row_start,
-                          units=t.units, splits=t.splits, **floats)
+                          units=t.units, splits=t.splits, B=B, **floats)
     if t.cols.numel() and B.shape[0] == 0:
         raise ValueError("B has no rows for cols to point at")
     from flex_tpu_torch import kernels
@@ -194,17 +193,52 @@ def gespmm_rows(t: RowTables, B, into=None):
         (m, k), dtype=torch.float32, device=B.device)
     scratch = torch.empty((t.n_parts, k), dtype=torch.float32,
                           device=B.device)
-    kernels.launch("gespmm", "flex_gespmm_rows", B.device,
+    kernels.launch("gespmm", symbol, B.device,
                    t.cols.data_ptr(), t.vals.data_ptr(),
                    t.row_start.data_ptr(), t.units.data_ptr(),
                    t.splits.data_ptr(), B.data_ptr(), out.data_ptr(),
                    scratch.data_ptr(), t.units.shape[0], t.splits.shape[0], k,
                    int(into is not None))
-    gespmm_rows.launches += 1
+    return out, True
+
+
+def gespmm_rows(t: RowTables, B, into=None):
+    """C[r, :] = Σ over row r's nonzeros of vals · B[cols, :] for every row
+    of ``t`` (f32 [m, k]); with ``into`` (f32 [m, k]) the sums are added to
+    it IN PLACE and it is returned.
+
+    B is f32, or bf16, which goes to :func:`gespmm_rows_bf16`; any other
+    dtype raises.  CUDA tensors launch ``csrc/gespmm.cu`` (and count the
+    launch in ``gespmm_rows.launches``): the units, then the pass that adds
+    the split rows' partial rows, both in a fixed order.  CPU tensors take
+    :func:`gespmm_rows_plain`.  Anything else raises."""
+    if B.dtype == torch.bfloat16:
+        return gespmm_rows_bf16(t, B, into)
+    if B.dtype != torch.float32:
+        raise ValueError(f"B must be float32 or bfloat16, got {B.dtype}")
+    out, launched = _rows_call(t, B, into, "flex_gespmm_rows")
+    gespmm_rows.launches += launched
     return out
 
 
 gespmm_rows.launches = 0
+
+
+def gespmm_rows_bf16(t: RowTables, B, into=None):
+    """:func:`gespmm_rows` with B in bf16 (the JAX package's
+    ``b_dtype="bfloat16"`` gather): bf16 rows of B, widened to f32, times
+    the f32 values, summed in f32; out and ``into`` are f32.  CUDA tensors
+    launch kernel 7's bf16 instance (``flex_gespmm_rows_bf16``, counted in
+    ``gespmm_rows_bf16.launches``), whose sums run in the f32 instance's
+    order; CPU tensors take :func:`gespmm_rows_plain`."""
+    if B.dtype != torch.bfloat16:
+        raise ValueError(f"B must be bfloat16, got {B.dtype}")
+    out, launched = _rows_call(t, B, into, "flex_gespmm_rows_bf16")
+    gespmm_rows_bf16.launches += launched
+    return out
+
+
+gespmm_rows_bf16.launches = 0
 
 
 @dataclasses.dataclass

@@ -1,8 +1,10 @@
 """Windowed-panel hybrid SpMM: dense window tiles + ELL residue, forward
 and backward.
 
-Counterpart of ``flex_tpu.ops.window_spmm`` (row-major layout, row step
-order, fused build).  After a clustering ordering (rbdeg), each row
+Counterpart of ``flex_tpu.ops.window_spmm``, with its options (step
+order, G, ``fused``, ``impl``, ``b_dtype``; every ``fused`` name runs the
+one build).
+After a clustering ordering (rbdeg), each row
 panel's nonzeros concentrate in a few W-aligned column blocks.  Blocks
 with at least ``min_count`` nonzeros become dense (TM, W) tiles of A,
 packed G to a step; a step is one (TM, G·W)x(G·W, k) product, and the
@@ -13,7 +15,7 @@ add.
 - :func:`window_select` (host, NumPy) picks the windows and lays out the
   steps; it is a copy of the JAX package's host selection.
 - :func:`_build_windowed_ell` builds A, and the residue's ELL buckets, on
-  the device from the resident CSR.
+  the device from the resident CSR, in one value scatter.
 - :func:`window_spmm_fwd` runs the dense half: the hand-written CUDA kernel
   ``csrc/window_spmm.cu`` for CUDA tensors, :func:`window_spmm_fwd_plain`
   for CPU tensors.
@@ -42,9 +44,10 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.ell_spmm import (
-    EllPlan, _gather_assembly_tables, check_b_dtype, ell_buckets_core,
-    ell_meta,
+    DEFAULT_WIDTHS, EllPlan, _gather_assembly_tables, check_b_dtype,
+    ell_scatter_layout,
 )
+from flex_tpu_torch.ops.gespmm import row_tables
 from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
 from flex_tpu_torch.ops.units import work_units
 from flex_tpu_torch.sparse.csr import (
@@ -83,16 +86,18 @@ def _host_panel_key(g, tm: int, W: int, P: int, nblk: int) -> np.ndarray:
 def window_select(
     g: CSRGraph, tm: int = 256, W: int = 128, J: int = 1024,
     min_count: int = 128, g_step: int = G,
-    max_dense_bytes: int | None = None,
+    max_dense_bytes: int | None = None, step_order: str = "row",
 ) -> dict:
     """Window selection + step layout.
 
     Per panel: every W-aligned column block with ≥ ``min_count`` nnz is a
     window; a panel with more than ``J`` keeps the top ones by count.  Kept
     windows are sorted ascending by block id and packed into G-window
-    steps, panels in row order.  With ``max_dense_bytes`` the count gate
-    rises to the smallest value whose dense array fits the budget (the
-    realized gate is ``min_count_eff``).
+    steps, panels in row order, or with ``step_order="lex"`` in the
+    lexicographic order of their first step's block ids (the JAX package's
+    panel lexsort; the output permutation absorbs it).  With
+    ``max_dense_bytes`` the count gate rises to the smallest value whose
+    dense array fits the budget (the realized gate is ``min_count_eff``).
 
     Returns dict with:
       win_step   int32[total_steps*G] block ids (sentinel = nblk pads)
@@ -144,6 +149,19 @@ def window_select(
     nb_per = np.minimum(nb_per, J)
 
     used = np.where(nb_per > 0)[0]
+    if step_order not in ("row", "lex"):
+        raise ValueError(f"unknown step_order {step_order!r}")
+    if step_order == "lex" and len(used):
+        # panels ordered by their first step's block ids (sentinel nblk
+        # past a panel's last window); np.nonzero walks `valid` row-major
+        pw0, bw0 = np.nonzero(valid)
+        seg_start = np.flatnonzero(np.r_[True, np.diff(pw0) != 0])
+        keys = np.full((len(used), g_step), nblk, dtype=np.int64)
+        for j in range(g_step):
+            has = nb_per[used] > j
+            keys[has, j] = bw0[seg_start[has] + j]
+        used = used[np.lexsort(tuple(keys[:, j]
+                                     for j in range(g_step - 1, -1, -1)))]
     S_per = -(-nb_per[used] // g_step)
     total_steps = int(S_per.sum())
     step_of = repeat_arange(S_per, total=total_steps)
@@ -340,22 +358,75 @@ def _device_tables(sel: dict, device: torch.device) -> dict:
 # device build
 # ---------------------------------------------------------------------------
 
-def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, *, layout,
-                        ell_meta_):
-    """Dense A + residue compaction + residue ELL buckets on the device.
+def _chunk_tables(res_deg: np.ndarray, bucket_meta, chunk_row):
+    """Host (offset, length) of every chunk of the layout of
+    :func:`.ell_spmm.ell_scatter_layout`: chunk i of a bucket of width w at
+    base b starts at b + i·w; a row's t-th chunk holds min(w, deg - t·w)
+    entries, a pad chunk none."""
+    offs, ws, real, base = [], [], [], 0
+    for w, n, n_real in bucket_meta:
+        offs.append(base + np.arange(n, dtype=np.int64) * w)
+        ws.append(np.full(n, w, dtype=np.int64))
+        real.append(np.arange(n) < n_real)
+        base += n * w
+    if not offs:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    offs, ws, real = (np.concatenate(x) for x in (offs, ws, real))
+    row = np.asarray(chunk_row, dtype=np.int64)[real]
+    run0 = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+    local = np.arange(len(row)) - np.repeat(run0, np.diff(np.r_[run0,
+                                                               len(row)]))
+    ln = np.zeros(len(offs), np.int64)
+    ln[real] = np.minimum(ws[real], np.asarray(res_deg, np.int64)[row]
+                          - local * ws[real])
+    return offs, ln
+
+
+def residue_layout(sel: dict, device, widths=DEFAULT_WIDTHS,
+                   bucket_alloc: dict | None = None) -> dict:
+    """The residue's padded ELL layout (:func:`.ell_spmm.ell_scatter_layout`
+    of the selection's residue degrees, with each chunk's offset and
+    length) on ``device``, made once and kept beside the selection's other
+    device tables.  ``bucket_alloc`` pads the buckets to the common shapes
+    of a sharded plan's shards."""
+    tabs = _device_tables(sel, device)
+    key = ("residue", tuple(widths),
+           None if bucket_alloc is None else tuple(sorted(
+               bucket_alloc.items())))
+    if key not in tabs:
+        bucket_meta, H, chunk_row, padded = ell_scatter_layout(
+            sel["res_deg"], tuple(widths), bucket_alloc)
+        off, ln = _chunk_tables(sel["res_deg"], bucket_meta, chunk_row)
+        tabs[key] = {
+            "h": torch.from_numpy(H).to(device),
+            "chunk_row": torch.from_numpy(chunk_row).to(device),
+            "off": torch.from_numpy(off).to(device),
+            "len": torch.from_numpy(ln).to(device),
+            "bucket_meta": bucket_meta, "padded": padded}
+    return tabs[key]
+
+
+def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, res, *,
+                        layout):
+    """Dense A and the residue's ELL buckets from the device CSR, in one
+    value scatter into one f32 buffer: an entry inside a kept window goes
+    to A, the others (the residue) to their slots of the padded flat store
+    of ``res`` (:func:`residue_layout`), entry i of row r at
+    ``h[r] + miss_rank(i)``.  A and the residue's values are views of the
+    buffer.  Returns (A, buckets, chunk_row, rows), ``rows`` the residue's
+    row-unit tables.
 
     A is step-major: window j of panel p lives in step pstep0[p] + j//G at
     in-step slot j%G, i.e. flat element
     (pstep0[p] + j//G)·(TM·G·W) + (row%TM)·(G·W) + (j%G)·W + col%W.
-    One scatter of the hits into a flat f32 buffer, then a ``view`` to
-    (S, TM, G·W), which copies nothing.  Duplicate (row, col) entries must
-    sum, so the scatter accumulates unless the selection proved the
-    pattern duplicate-free (``unique_rc``).  Residue entries keep CSR
-    order.  With ``transposed`` (last of ``layout``) each step's tile is
-    laid out (G·W, TM) instead: the same scatter with the in-step index
-    terms swapped.  Returns (A, buckets, chunk_row, rows), ``rows`` the
-    residue's row-unit tables."""
+    With ``transposed`` (last of ``layout``) each step's tile is laid out
+    (G·W, TM) instead: the same scatter with the in-step index terms
+    swapped.  Duplicate (row, col) entries must sum in A, so the scatter
+    accumulates unless the selection proved the pattern duplicate-free
+    (``unique_rc``); in the residue they take distinct slots."""
     nnz, m, TM, W, nblk, total_steps, g_step, unique_rc, transposed = layout
+    a_elems = total_steps * TM * g_step * W
+    padded = res["padded"]
     rows = rows_from_row_ptr(row_ptr, nnz, m)
     col64 = col.long()
     p = rows // TM
@@ -367,21 +438,26 @@ def _build_windowed_ell(row_ptr, col, vals, slot_tab, pstep0, *, layout,
         flat += ((j % g_step) * W + col64 % W) * TM + rows % TM
     else:
         flat += (rows % TM) * (g_step * W) + (j % g_step) * W + col64 % W
-    A = torch.zeros(total_steps * TM * g_step * W, dtype=torch.float32,
-                    device=col.device)
-    A.index_put_((flat[hit],), vals[hit], accumulate=not unique_rc)
-    A = A.view((total_steps, g_step * W, TM) if transposed
-               else (total_steps, TM, g_step * W))
-    del rows, p, j1, j, flat
-
     miss = ~hit
-    res_src = torch.nonzero(miss).squeeze(1)  # ascending: CSR order
-    miss_cum0 = torch.cat([miss.new_zeros(1, dtype=torch.int64),
-                           torch.cumsum(miss, 0)])
-    res_row_ptr = miss_cum0[row_ptr.long()]
-    buckets, chunk_row, res_rows = ell_buckets_core(
-        res_row_ptr, col[res_src], vals[res_src], meta=ell_meta_)
-    return A, buckets, chunk_row, res_rows
+    ell_dest = res["h"].long()[rows] + torch.cumsum(miss, 0) - 1
+    del rows, p, j1, j
+    buf = torch.zeros(a_elems + padded, dtype=torch.float32,
+                      device=col.device)
+    buf.index_put_((torch.where(hit, flat, a_elems + ell_dest),), vals,
+                   accumulate=not unique_rc)
+    flat_c = torch.zeros(padded, dtype=torch.int32, device=col.device)
+    flat_c[ell_dest[miss]] = col[miss]
+    flat_v = buf[a_elems:]
+    A = buf[:a_elems].view((total_steps, g_step * W, TM) if transposed
+                           else (total_steps, TM, g_step * W))
+    buckets, o = [], 0
+    for w, n, _ in res["bucket_meta"]:
+        buckets.append((flat_c[o:o + n * w].view(n, w),
+                        flat_v[o:o + n * w].view(n, w)))
+        o += n * w
+    rows = row_tables(flat_c, flat_v, res["chunk_row"], res["off"],
+                      res["len"], m)
+    return A, tuple(buckets), res["chunk_row"], rows
 
 
 # ---------------------------------------------------------------------------
@@ -872,16 +948,30 @@ class WindowedPlan:
     slot_units: tuple | None = None
     n_windows: int = 0       # real (non-sentinel) window slots
     covered_nnz: int = 0     # nnz inside kept windows
+    # the dense half: "pallas" = kernel 1 (its port), "xla" = the plain
+    # product window_spmm_fwd_plain (the counterpart of _window_xla)
+    impl: str = "pallas"
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
         return _windowed_call(self, B)
 
+    @property
+    def b_dtype(self) -> str:
+        """The residue's gather dtype; the dense half is f32."""
+        return self.ell.b_dtype
+
     def dense_half(self, B: torch.Tensor) -> torch.Tensor:
         """The windowed product alone, f32 [n_used_panels·TM, k];
         differentiable in B and in ``self.A``.  A transposed plan makes
-        Bᵀ once per call, runs its kernel for Cᵀ and transposes back."""
+        Bᵀ once per call, runs its kernel for Cᵀ and transposes back.
+        ``impl="xla"`` (row-major only, as in the JAX package) takes the
+        plain product on any device, differentiated by autograd."""
         if self.transposed:
             return _WindowSpmmT.apply(self, self.A, B.t().contiguous()).t()
+        if self.impl == "xla":
+            return window_spmm_fwd_plain(
+                self.first, self.out_panel, self.win_step, self.A, B,
+                n_panels=self.n_used_panels, W=self.W)
         return _WindowSpmm.apply(self, self.A, B)
 
     @property
@@ -889,8 +979,7 @@ class WindowedPlan:
         """The JAX plan's format-inflation counters: ``pad_ratio`` = residue
         gathered rows / real residue nnz, ``step_fill`` = real window slots
         / (steps·G), ``dense_occ`` = covered nnz / dense elements; plus the
-        longest panel's step count.  ``impl`` names the JAX package's
-        implementation this plan's kernels port (the port has no other)."""
+        longest panel's step count."""
         a_elems = int(np.prod(self.A.shape))
         s = {
             "coverage": round(self.coverage, 4),
@@ -898,7 +987,7 @@ class WindowedPlan:
             "n_steps": int(self.A.shape[0]),
             "n_res": self.ell.nnz,
             "W": self.W,
-            "impl": "pallas",
+            "impl": self.impl,
             "min_count_eff": self.min_count_eff,
             "transposed": self.transposed,
             "pad_ratio": round(self.ell.padded_nnz / self.ell.nnz, 4)
@@ -914,6 +1003,15 @@ class WindowedPlan:
         if self.covered_nnz:
             s["dense_occ"] = round(self.covered_nnz / max(a_elems, 1), 6)
         return s
+
+    def for_training(self) -> "WindowedPlan":
+        """The plan a train step differentiates through
+        (:func:`.models.common.training_plan`): this one with a transposed
+        residue backward (:func:`with_training_bwd`; training
+        differentiates only the parameters, and the adjacency is a
+        constant)."""
+        return self if self.ell.bwd_plan is not None \
+            else with_training_bwd(self)
 
     def _g_step(self) -> int:
         return int(self.A.shape[1 if self.transposed else 2]) // self.W
@@ -955,19 +1053,43 @@ def prepare_windowed(
     min_coverage: float = MIN_COVERAGE,
     max_dense_bytes: int = MAX_DENSE_BYTES,
     b_dtype: str = "float32",
+    interpret: bool | None = None,
+    impl: str = "pallas",
     sel: dict | None = None,
+    g_step: int = G,
+    step_order: str = "row",
+    fused: bool | str = True,
     transposed: bool = False,
 ) -> WindowedPlan:
     """Build the hybrid plan on ``dev``'s device (or ``device``; CUDA when
     neither is given).  Refuses (ValueError) when windows would cover less
     than ``min_coverage`` of nnz.  When the dense array at ``min_count``
     would exceed ``max_dense_bytes`` the count gate rises until it fits
-    (see :func:`window_select`).  A ``sel`` from :func:`window_select`
-    is reused, with its device tables.  ``transposed`` builds the Aᵀ
-    step layout for the narrow-k kernel; such a plan carries no backward
-    tables (its gradients are plain tensor ops).  ``b_dtype`` must be
-    ``"float32"`` (:func:`.ell_spmm.check_b_dtype`)."""
+    (see :func:`window_select`, which also takes ``g_step`` and
+    ``step_order``).  A ``sel`` from :func:`window_select` is reused, with
+    its device tables.  ``transposed`` builds the Aᵀ step layout for the
+    narrow-k kernel; such a plan carries no backward tables (its gradients
+    are plain tensor ops).
+
+    The JAX package's options: ``b_dtype`` is the residue's gather dtype
+    (:func:`.ell_spmm.check_b_dtype`; the dense half stays f32).
+    ``fused`` names one of the JAX package's builds (``True``, ``False``,
+    ``"scatter"``, ``"scatter2"``); the port has one build for every name
+    (:func:`_build_windowed_ell`, scatter2's: A and the residue in one
+    value scatter), since on the JAX package's own tables the names differ
+    only in how they are assembled.  ``fused="scatter2"`` keeps the JAX
+    package's refusal of a combined buffer past int32 indexing, so the
+    same calls are refused.  ``impl="xla"`` runs the dense half as the
+    plain product.  ``interpret`` is accepted and ignored: the card has no
+    interpret mode."""
     check_b_dtype(b_dtype)
+    if impl not in ("pallas", "xla"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if fused not in (True, False, "scatter", "scatter2"):
+        raise ValueError(f"unknown fused {fused!r}")
+    if interpret not in (None, True, False):
+        raise ValueError(f"interpret must be a bool or None, got "
+                         f"{interpret!r}")
     if transposed and W % 128 != 0:
         # kept from the JAX package, so the same calls are refused
         raise ValueError(
@@ -978,6 +1100,7 @@ def prepare_windowed(
     cap = min(max_dense_bytes, (2**31 - 2) * 4)
     if sel is None:
         sel = window_select(g, tm=tm, W=W, J=J, min_count=min_count,
+                            g_step=g_step, step_order=step_order,
                             max_dense_bytes=cap)
     if sel["dense_bytes"] > cap:
         raise ValueError(
@@ -988,21 +1111,37 @@ def prepare_windowed(
             f"use 'ell' (or apply a clustering ordering like rbdeg first)")
 
     tabs = _device_tables(sel, device)
-    res_deg = np.asarray(sel["res_deg"], dtype=np.int64)
-    meta, padded = ell_meta(res_deg)
+    res = residue_layout(sel, device)
+    if fused == "scatter2" and sel["a_elems"] + res["padded"] >= 2**31:
+        raise ValueError("scatter2 combined buffer exceeds int32 indexing")
     layout = (g.nnz, g.m, tm, W, sel["nblk"], sel["total_steps"], sel["G"],
               bool(sel["unique_rc"]), bool(transposed))
     A, buckets, chunk_row, res_rows = _build_windowed_ell(
-        dev.row_ptr, dev.col, dev.vals, tabs["slot"], tabs["pstep0"],
-        layout=layout, ell_meta_=meta)
-    n_extras = int(chunk_row.shape[0]) - int((res_deg > 0).sum())
-    chunk1, extras = _gather_assembly_tables(chunk_row, m=g.m,
-                                             n_extras=n_extras)
+        dev.row_ptr, dev.col, dev.vals, tabs["slot"], tabs["pstep0"], res,
+        layout=layout)
+    # the gather assembly, attached even to an empty residue, as the JAX
+    # package's fused builds do
+    res_deg = np.asarray(sel["res_deg"], dtype=np.int64)
+    chunk1, extras = _gather_assembly_tables(
+        chunk_row, m=g.m,
+        n_extras=int(chunk_row.shape[0]) - int((res_deg > 0).sum()))
     ell = EllPlan(m=g.m, buckets=buckets, chunk_row=chunk_row,
-                  padded_nnz=padded, nnz=int(sel["n_res"]), chunk1=chunk1,
-                  extras=extras, rows=res_rows)
+                  padded_nnz=res["padded"], nnz=int(sel["n_res"]),
+                  chunk1=chunk1, extras=extras, rows=res_rows,
+                  b_dtype=b_dtype)
+    return plan_from_selection(sel, tabs, A, ell, m=g.m, n=g.n, nnz=g.nnz,
+                               tm=tm, W=W, transposed=transposed, impl=impl)
+
+
+def plan_from_selection(sel: dict, tabs: dict, A, ell: EllPlan, *, m: int,
+                        n: int, nnz: int, tm: int, W: int,
+                        transposed: bool = False,
+                        impl: str = "pallas") -> WindowedPlan:
+    """The :class:`WindowedPlan` of a selection, its device tables
+    (:func:`_device_tables`), the built A and the residue plan; ``nnz`` is
+    the graph's (the selection's rows)."""
     return WindowedPlan(
-        m=g.m, n=g.n, tm=tm, W=W, n_used_panels=int(sel["n_used_panels"]),
+        m=m, n=n, tm=tm, W=W, n_used_panels=int(sel["n_used_panels"]),
         A=A, first=tabs["first"], out_panel=tabs["out_panel"],
         win_step=tabs["win_step"], row_gather=tabs["row_gather"],
         panel_step_ptr=tabs["panel_step_ptr"], ell=ell,
@@ -1015,7 +1154,7 @@ def prepare_windowed(
         panel_units=tabs["panel_units"],
         slot_units=None if transposed else tabs["slot_units"],
         n_windows=int(np.count_nonzero(sel["win_step"] != sel["nblk"])),
-        covered_nnz=int(g.nnz - sel["n_res"]),
+        covered_nnz=int(nnz - sel["n_res"]), impl=impl,
     )
 
 

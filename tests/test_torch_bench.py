@@ -345,7 +345,8 @@ def test_device_info_on_the_cpu(monkeypatch):
 
 def test_launch_counts_name_every_wrapper():
     counts = kernels.launch_counts()
-    assert len(counts) == 7 and "gespmm_rows" in counts
+    assert len(counts) == 8 and "gespmm_rows" in counts
+    assert "gespmm_rows_bf16" in counts  # kernel 7's bf16 instance
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

@@ -927,3 +927,87 @@ def test_panel_hub_rows_match_plain_and_scipy(cuda, k):
             _assert_rows_close(out[:plan.n_hub_rows],
                                gespmm_rows_plain(t, B_dev),
                                _rows_tol(t, B_dev))
+
+
+# -- kernel 7's bf16 instance and the sharded plans on one card ---------------
+
+@pytest.mark.parametrize("k", [8, 41, 128, 200])
+@pytest.mark.parametrize("w", [7, 32])
+def test_gespmm_bf16_kernel_matches_plain(cuda, w, k):
+    """B in bf16: the bf16 instance (counted apart from the f32 one) gives
+    the f32 instance's bits on B widened (the same fmaf order), its plain
+    version within the rounding bound of two f32 sums, the same bits when
+    launched again and when B is misaligned (scalar loads); f32 out."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows_bf16
+
+    g = _hub_and_empty()
+    plan = prepare_gespmm(g, w=w, device=cuda)
+    Bb = (torch.rand((g.n, k), device=cuda) * 2 - 1).bfloat16()
+    before = (gespmm_rows.launches, gespmm_rows_bf16.launches)
+    out = gespmm_rows(plan.rows, Bb)
+    assert out.dtype == torch.float32
+    assert (gespmm_rows.launches, gespmm_rows_bf16.launches) == (
+        before[0], before[1] + 1)
+    assert torch.equal(out, gespmm_rows(plan.rows, Bb))
+    assert torch.equal(out, gespmm_rows(plan.rows, Bb.float()))
+    _assert_rows_close(out, gespmm_rows_plain(plan.rows, Bb),
+                       _rows_tol(plan.rows, Bb.float()))
+    mis = torch.empty(g.n * k + 1, dtype=torch.bfloat16,
+                      device=cuda)[1:].view(g.n, k)
+    mis.copy_(Bb)
+    assert torch.equal(out, gespmm_rows(plan.rows, mis))
+    base = torch.rand((g.m, k), device=cuda)
+    assert torch.equal(gespmm_rows(plan.rows, Bb, into=base.clone()),
+                       gespmm_rows(plan.rows, Bb.float(), into=base.clone()))
+
+
+def test_bf16_ell_plan_on_the_card(cuda):
+    """``prepare_ell(b_dtype="bfloat16")`` launches the bf16 instance and
+    passes res_check at the bf16 scale; its transposed backward plan
+    gathers the cotangent in bf16 on the same instance."""
+    from flex_tpu_torch.bench.harness import check_eps_scale
+    from flex_tpu_torch.ops.gespmm import gespmm_rows_bf16
+
+    g = CASES["community"][0]()
+    plan = with_bwd_plan(prepare_ell(g, b_dtype="bfloat16", device=cuda),
+                         g.n)
+    B = make_features(g, 41)
+    Bt = torch.from_numpy(B).to(cuda).requires_grad_()
+    before = (gespmm_rows.launches, gespmm_rows_bf16.launches)
+    C = plan(Bt)
+    co = torch.rand_like(C)
+    (C * co).sum().backward()
+    assert (gespmm_rows.launches, gespmm_rows_bf16.launches) == (
+        before[0], before[1] + 2)
+    assert res_check(spmm_scipy(g, B), C.detach().cpu().numpy(), g.degrees,
+                     eps_scale=check_eps_scale(plan)).err_frac == 0
+    col_deg = np.bincount(g.col, minlength=g.n)
+    assert res_check(g.to_scipy().T @ co.cpu().numpy(),
+                     Bt.grad.cpu().numpy(), col_deg,
+                     eps_scale=check_eps_scale(plan)).err_frac == 0
+
+
+@pytest.mark.parametrize("layout", ["replicated", "gathered"])
+def test_sharded_ell_on_one_card(cuda, layout):
+    """``make_mesh(4)`` on a machine with fewer cards repeats them (on one
+    card, 4 × cuda:0): the sharded ELL plan runs kernel 7 once a shard and
+    matches SciPy; g_B through its transposed plans runs it again."""
+    from flex_tpu_torch.parallel import make_mesh, prepare_ell_sharded
+
+    mesh = make_mesh(4)
+    assert mesh.size == 4 and all(d.type == "cuda" for d in mesh.devices)
+    g = rmat_graph(2048, 32768, seed=3)
+    plan = prepare_ell_sharded(g, mesh, b_layout=layout).for_training()
+    B = make_features(g, 32)
+    Bt = torch.from_numpy(B).to(cuda).requires_grad_()
+    before = gespmm_rows.launches
+    C = plan(Bt)
+    assert gespmm_rows.launches == before + 4
+    assert res_check(spmm_scipy(g, B), C.detach().cpu().numpy(),
+                     g.degrees).err_frac == 0
+    co = torch.rand_like(C)
+    (C * co).sum().backward()
+    assert gespmm_rows.launches == before + 8
+    col_deg = np.bincount(g.col, minlength=g.n)
+    assert res_check(g.to_scipy().T @ co.cpu().numpy(),
+                     Bt.grad.cpu().numpy(), col_deg).err_frac == 0

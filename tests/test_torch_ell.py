@@ -513,22 +513,28 @@ def test_prepare_ell_honours_widths_as_jax(name, ladder):
 
 
 def test_b_dtype_float32_only():
-    """``b_dtype`` is accepted as in the JAX signature; bfloat16 (ROADMAP.md
-    §1 item 5) is refused, never run in float32 under its name."""
+    """``b_dtype`` is accepted as in the JAX signature: float32 is the
+    default, bfloat16 (the gather mode ported since ROADMAP.md §1 item 5;
+    its numbers are held to the JAX package's in tests/test_torch_bf16.py)
+    builds a bf16 plan whose output stays float32, and any other dtype is
+    refused."""
     g = GRAPHS["dups"]()
     B = make_features(g, 8)
     np.testing.assert_array_equal(
         prepare_ell(g, b_dtype="float32", device="cpu")(
             torch.from_numpy(B)).numpy(),
         prepare_ell(g, device="cpu")(torch.from_numpy(B)).numpy())
-    for prep in (prepare_ell, prepare_windowed):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 5"):
-            prep(g, b_dtype="bfloat16", device="cpu")
-        with pytest.raises(ValueError, match="b_dtype"):
-            prep(g, b_dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError):
-        spmm(g, B, "windowed", b_dtype="bfloat16", device="cpu")
     cg = GRAPHS["community_rbdeg"]()
+    for prep, gr, kw in ((prepare_ell, g, {}),
+                         (prepare_windowed, cg, {"min_count": 16})):
+        plan = prep(gr, b_dtype="bfloat16", device="cpu", **kw)
+        assert plan.b_dtype == "bfloat16"
+        C = plan(torch.from_numpy(make_features(gr, 8)))
+        assert C.dtype == torch.float32
+        with pytest.raises(ValueError, match="b_dtype"):
+            prep(gr, b_dtype="float16", device="cpu", **kw)
+    assert spmm(cg, make_features(cg, 8), "windowed", b_dtype="bfloat16",
+                min_count=16, device="cpu").dtype == torch.float32
     plan = prepare_windowed(cg, b_dtype="float32", min_count=16,
                             device="cpu")
     assert plan.stats["n_steps"] > 0

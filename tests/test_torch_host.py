@@ -139,3 +139,25 @@ def test_port_imports_no_jax_and_no_reference_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax", "flex_tpu"), \
                 f"{f.relative_to(PORT.parent)} imports {mod}"
+
+
+@pytest.mark.parametrize("opt_out", [False, True])
+def test_tune_host_malloc_matches_jax(monkeypatch, opt_out):
+    """``utils.hostmem.tune_host_malloc`` returns the JAX function's value,
+    is idempotent, and does nothing when ``FLEX_TPU_NO_MALLOC_TUNE`` is
+    set (the package calls it at import, as the JAX package does)."""
+    import flex_tpu.utils.hostmem as jhostmem
+
+    import flex_tpu_torch.utils.hostmem as hostmem
+
+    if opt_out:
+        monkeypatch.setenv("FLEX_TPU_NO_MALLOC_TUNE", "1")
+    else:
+        monkeypatch.delenv("FLEX_TPU_NO_MALLOC_TUNE", raising=False)
+    monkeypatch.setattr(hostmem, "_done", False)
+    monkeypatch.setattr(jhostmem, "_done", False)
+    got = hostmem.tune_host_malloc()
+    assert got == jhostmem.tune_host_malloc()
+    assert got is (not opt_out)
+    assert hostmem._done is got
+    assert hostmem.tune_host_malloc() is got   # idempotent
