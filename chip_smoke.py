@@ -14,8 +14,9 @@ Phases:
      at its path's shapes (k = 128 and k = 41), with the tolerance stated
      there.  The forward and g_B run in work units: their tables hold
      panels and slot chains of a single step, exactly one unit, one unit
-     plus one and many units, and an all-sentinel step; k = 128, 41, 32
-     and 200; each is launched twice and must give the same bits.  The
+     plus one and many units, and an all-sentinel step; k = 128, 41, 32,
+     64, 16 and 200 (every column tile); each is launched twice and must
+     give the same bits.  The
      transposed forward runs in units too: panels of 1, 8, 9 and 17 steps
      with all-sentinel steps, TM 256 and 128, k = 16, 32, 41, 64, 100, a
      misaligned Bᵀ.  Band v2 and v1 read depth ranges: tiles with empty,
@@ -132,13 +133,31 @@ Phases:
  11h. [parallel_2d] GCN(128 -> 128 -> 41) through make_train_step_2d on
      a (2, 2) mesh: the first loss against the one-device step's, 2 + 5
      steps, a finite and falling loss, ms/step.
+ 16. [headline] ``python3 bench_torch.py`` in a child process on the
+     cached graph: exit 0, one stdout line with the headline's keys,
+     err_frac <= 1e-4, value > 0 and the method that suggest(g, 128,
+     win_min_count=64, max_dense_bytes=6 GiB) chooses in this process;
+     its launch counts (exact for the methods the command line checks)
+     and its tElap beside [cli_auto_k128]'s.
+ 17. [entry] entry()'s forward (GCN 64 -> 32 -> 3 on the ELL plan of the
+     Pubmed-sized R-MAT graph) against the same forward through the plan's
+     plain version (max |diff| <= 1e-4 * max(1, max |plain|)), a second
+     call with the same bits, kernel 7's launches (one a layer); then
+     dryrun_multichip(4) on one card (a 2-D GCN step, the sharded
+     windowed forward and gradient, the gathered B layout, the budgeted
+     selection), which must launch kernels 1, 3 and 7.
+ 18. [examples] the three training examples at their default sizes for
+     a few steps each: a finite loss that falls, ms/step, peak memory and
+     the launch counts (each of the example's kernels at least once);
+     kernels 1 and 3 on the windowed example's own plan at k = 64 and 8
+     against their plain versions.
 Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after (the command-line phases
 count in their own process, from 0, and print the counts last).
 Then one JSON line {"kernels": [...]} (eight rows: kernel 7's bf16
 instance is its own; each row also counts its kernel's launches in the
-phases autotune, gcn_bench, cli_*, sweep and those of 11e-11h), the card's
+phases autotune, gcn_bench, cli_*, sweep, 11e-11h and 16-18), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA card the script exits 2
 and prints no result.  The ordered graph is cached under
@@ -156,8 +175,6 @@ import time
 
 import numpy as np
 
-CACHE_VERSION = 1
-EXPECT_M, EXPECT_NNZ = 232_965, 23_446_803
 K = 128
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -272,7 +289,9 @@ def check_window_kernel(torch, t, n_panels, W, ptr, label, units=None):
     return hold_to_plain(torch, "window_spmm", label, C_k, C_p, absprod, L)
 
 
-KS = (K, 41, 32, 200)   # column tiles of 128, 48 and 32, and two of 128
+# column tiles of 128, 48, 32 and 64, and two of 128; 64 is the windowed
+# example's width, 16 that of dryrun_multichip's windowed plan
+KS = (K, 41, 32, 64, 16, 200)
 
 
 def check_window_kernel_ks(torch, t, n_panels, W, ptr, label, ks=KS):
@@ -770,65 +789,6 @@ def phase_kernels_vs_plain(torch, dev="cuda"):
 # ---------------------------------------------------------------------------
 # phase 4: main path
 # ---------------------------------------------------------------------------
-
-# the graph's name is the CSV's basename up to its first dot
-MAIN_CSV = "reddit_posts.csv"
-MAIN_PERM = f"reddit_posts_rbdeg_perm_v{CACHE_VERSION}.npy"
-
-
-def load_graph():
-    """The main path's graph, reddit_posts(seed=0) ordered by rbdeg, cached
-    under the build directory with what the command-line phase reads: the
-    graph before ordering as a 3-line CSV (written by ``save_csv`` and read
-    back by ``load_csv``, whose row_ptr and col must equal the generated
-    ones) and the rbdeg ordering as an ordering file."""
-    from flex_tpu_torch.io import load_csv, save_csv
-    from flex_tpu_torch.kernels import BUILD_DIR
-    from flex_tpu_torch.reorder import ORDER_ABBR, compute_order
-    from flex_tpu_torch.reorder.inout import save_order
-    from flex_tpu_torch.sparse.csr import CSRGraph
-    from flex_tpu_torch.sparse.perm import apply_vertex_order
-
-    path = os.path.join(BUILD_DIR, f"reddit_posts_rbdeg_v{CACHE_VERSION}.npz")
-    csv = os.path.join(BUILD_DIR, MAIN_CSV)
-    perm_path = os.path.join(BUILD_DIR, MAIN_PERM)
-    if all(map(os.path.exists, (path, csv, perm_path))):
-        d = np.load(path)
-        g = CSRGraph.from_arrays(d["row_ptr"], d["col"], d["vals"],
-                                 name="reddit_posts", order="RBD")
-        log(f"[graph] loaded {path}")
-    else:
-        from flex_tpu_torch.io.synth import reddit_posts
-
-        t0 = time.perf_counter()
-        g0 = reddit_posts(seed=0)
-        t1 = time.perf_counter()
-        perm = compute_order(g0, "rbdeg")
-        g = apply_vertex_order(g0, perm, ORDER_ABBR["rbdeg"], check=False)
-        t2 = time.perf_counter()
-        log(f"[graph] host: reddit_posts {t1 - t0:.1f}s, rbdeg {t2 - t1:.1f}s")
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        np.savez(path, row_ptr=g.row_ptr, col=g.col, vals=g.vals)
-        save_order(perm, perm_path)
-        save_csv(g0, csv)
-        t3 = time.perf_counter()
-        back = load_csv(csv)
-        t4 = time.perf_counter()
-        if not (np.array_equal(back.row_ptr, g0.row_ptr)
-                and np.array_equal(back.col, g0.col)):
-            raise AssertionError("load_csv(save_csv(g)) changed row_ptr or "
-                                 "col")
-        log(f"[graph] save_csv {t3 - t2:.1f}s "
-            f"({os.path.getsize(csv) / 1e9:.3f} GB), load_csv {t4 - t3:.1f}s: "
-            f"row_ptr and col equal the generated graph's; values within "
-            f"{float(np.abs(back.vals - g0.vals).max()):.2e} ({{:g}} keeps "
-            f"six digits)")
-        del g0, back
-    if (g.m, g.nnz) != (EXPECT_M, EXPECT_NNZ):
-        raise AssertionError(f"graph is {g.m} x {g.nnz} nnz, expected "
-                             f"{EXPECT_M} x {EXPECT_NNZ}")
-    return g
-
 
 def window_bytes_flops(plan, k):
     """Bytes the dense half must move (real windows of A, B, tables, the
@@ -2559,8 +2519,9 @@ CLI_WRAPPERS = {"ell": ("gespmm_rows",),
 
 def phase_cli(main_ms, main_stats):
     """The main path's graph through ``python -m flex_tpu_torch``: the CSV
-    that ``load_graph`` wrote (the graph before ordering), ``--order=rbdeg``
-    with the ordering file, ``--method=auto`` at k = 128 and 41, then
+    that ``load_graph(csv=True)`` wrote (the graph before ordering),
+    ``--order=rbdeg`` with the ordering file, ``--method=auto`` at k = 128
+    and 41, then
     ``--method=windowed --min_count=64`` at k = 128, each with ``--csv``
     and ``--trace``.  Each run exits 0, reloads the ordering, writes one
     row with err_frac <= 1e-4 and the method it printed, launches the
@@ -2569,11 +2530,11 @@ def phase_cli(main_ms, main_stats):
     selects what phase 4 selected (its 8 GiB budget and phase 4's 6 GiB
     both hold the 6.4 GB array) and its tElap is within 3 % of phase
     4's.  Returns {run: summary}."""
+    from flex_tpu_torch.bench.headline import GRAPH_CSV, GRAPH_PERM
     from flex_tpu_torch.kernels import BUILD_DIR
     from flex_tpu_torch.utils.trace import classify_op, trace_table
 
-    csv_path = os.path.join(BUILD_DIR, MAIN_CSV)
-    perm = os.path.join(BUILD_DIR, MAIN_PERM)
+    csv_path, perm = GRAPH_CSV, GRAPH_PERM
     out = {}
     for tag, k, flags in (
             ("cli_auto_k128", K, ["--method=auto"]),
@@ -3089,6 +3050,221 @@ def phase_parallel_2d(torch, g, dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the headline, the entry points and the examples
+# ---------------------------------------------------------------------------
+
+# the phases whose launch counts join every row as well
+ENTRY_PHASES = ("headline", "entry", "dryrun_multichip",
+                "example_gcn_windowed", "example_gcn_pubmed",
+                "example_gat_pubmed")
+HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline", "t_pre_s",
+                 "t_elap_ms", "pre_elap_ratio", "method", "err_frac",
+                 "model_elap_ratio", "secondary_ell_gflops",
+                 "secondary_ell_pre_ratio", "device")
+EXAMPLE_STEPS = 5
+# each example's hand kernels, by wrapper
+EXAMPLE_WRAPPERS = {
+    "gcn_windowed": ("window_spmm_fwd", "window_bwd_gB", "gespmm_rows"),
+    "gcn_pubmed": ("gespmm_rows",),
+    "gat_pubmed": ("gespmm_rows",)}
+
+
+def phase_headline(g, cli_auto):
+    """[headline] ``python3 bench_torch.py`` in a child process, on the graph
+    that ``load_graph`` cached: exit 0, exactly one stdout line with the
+    headline's keys, err_frac <= 1e-4, value > 0, and the method that
+    ``suggest`` chooses here.  For a method the command line checks, its
+    kernels launch 15 times (the cold call, 3 warm-up, 10 timed, the checked
+    one) and kernel 7 13 more (the secondary ELL row: warm-up and timed).
+    Returns (the line as a dict, the child's launch counts)."""
+    from flex_tpu_torch.bench.autotune import suggest
+
+    sug = suggest(g, K, win_min_count=64, max_dense_bytes=6 << 30)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "bench_torch.py"], cwd=root,
+                       capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    for line in p.stderr.splitlines():
+        log(f"[headline] | {line}")
+    if p.returncode != 0:
+        raise AssertionError(f"[headline] exited {p.returncode}")
+    lines = p.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"[headline] printed {len(lines)} stdout lines")
+    out = json.loads(lines[0])
+    missing = [key for key in HEADLINE_KEYS if key not in out]
+    if missing:
+        raise AssertionError(f"[headline] line lacks {missing}")
+    if not (out["err_frac"] <= 1e-4 and out["value"] > 0):
+        raise AssertionError(f"[headline] err_frac {out['err_frac']}, value "
+                             f"{out['value']}")
+    if out["method"] != sug.method:
+        raise AssertionError(f"[headline] ran {out['method']}, suggest "
+                             f"chooses {sug.method}")
+    m = re.search(r"kernel launches: (\{.*\})\s*$", p.stderr, re.M)
+    if m is None:
+        raise AssertionError("[headline] printed no launch counts")
+    launches = json.loads(m.group(1))
+    plan = sug.method + (" transposed" if sug.prep_kwargs.get("transposed")
+                         else "")
+    if plan in CLI_WRAPPERS:
+        want = {w: 15 for w in CLI_WRAPPERS[plan]}
+        want["gespmm_rows"] = want.get("gespmm_rows", 0) + 13
+        expect_launches(launches, "[headline]", **want)
+    elif launches["gespmm_rows"] < 13:
+        raise AssertionError(f"[headline] launched {launches}")
+    log(f"[headline] {lines[0]}")
+    log("[headline] " + json.dumps({
+        "t_elap_ms": out["t_elap_ms"],
+        "cli_auto_k128_t_elap_ms": cli_auto["t_elap_ms"],
+        "cli_auto_k128_method": cli_auto["method"], "seconds": secs,
+        "launches": launches}))
+    return out, launches
+
+
+def phase_entry(torch, time_cuda_ms, smi):
+    """[entry] ``entry()``: its forward on the card against the same
+    forward through the plan's plain version (max |diff| <= 1e-4 *
+    max(1, max |plain|)), a second call with the same bits, kernel 7
+    launched once a layer; then ``dryrun_multichip(4)`` on one card, which
+    must launch kernels 1, 3 and 7.  Returns (the launch counts of the two
+    forwards, those of the dry run)."""
+    from flex_tpu_torch.entry import dryrun_multichip, entry
+    from flex_tpu_torch.ops.ell_spmm import ell_spmm_plain
+
+    fn, (model, plan, X) = entry()
+    with torch.no_grad():
+        reset_launches()
+        out = fn(model, plan, X)
+        again = fn(model, plan, X)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        ref = fn(model, lambda B: ell_spmm_plain(plan, B), X)
+        ms = time_cuda_ms(fn, model, plan, X, iters=20)
+        plain_ms = time_cuda_ms(fn, model, lambda B: ell_spmm_plain(plan, B),
+                                X, iters=20)
+    expect_launches(launches, "two entry() forwards", gespmm_rows=4)
+    require_same_bits(torch, "entry()'s forward", "the Pubmed-sized graph",
+                      out, again)
+    err = float((out - ref).abs().max())
+    scale = max(1.0, float(ref.abs().max()))
+    if tuple(out.shape) != (X.shape[0], 3) or not bool(
+            torch.isfinite(out).all()) or err > 1e-4 * scale:
+        raise AssertionError(f"entry(): output {tuple(out.shape)}, max |diff| "
+                             f"{err} against plain (scale {scale})")
+    del fn, model, plan, X, out, again, ref
+    reset_launches()
+    t0 = time.perf_counter()
+    loss = dryrun_multichip(4)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dry = read_launches()
+    if min(dry[w] for w in ("window_spmm_fwd", "window_bwd_gB",
+                            "gespmm_rows")) < 1:
+        raise AssertionError(f"dryrun_multichip(4) launched {dry}")
+    log("[entry] " + json.dumps({
+        "forward_ms": ms, "forward_plain_ms": plain_ms, "max_abs_err": err,
+        "scale": scale, "launches_two_forwards": launches,
+        "dryrun_loss": loss, "dryrun_seconds": secs,
+        "dryrun_launches": dry, "note": ONE_CARD, "card": smi}))
+    torch.cuda.empty_cache()
+    return launches, dry
+
+
+def check_example_plan(torch, g, plan, label):
+    """Kernels 1 and 3 on the windowed example's own plan at the widths
+    its layers give them (64, then 8 after W2), each against its plain
+    version: the forward on the example's features, g_B on a seeded
+    cotangent of plan(B) carried to the dense half.  Returns the worst
+    max_abs_err of each."""
+    from flex_tpu_torch.io import make_features
+
+    rng = np.random.default_rng(3)
+    X = torch.from_numpy(make_features(g, 64)).cuda()
+    t = {"first": plan.first, "out_panel": plan.out_panel,
+         "win_step": plan.win_step, "A": plan.A}
+    ts, tg, _ = plan.bwd_tabs
+    tabs = {"slot_s": ts, "slot_g": tg, "slot_ptr": plan.slot_ptr,
+            "n_blk_used": plan.n_blk_used, "units": plan.slot_units}
+    errs = {"window_spmm_fwd": 0.0, "window_bwd_gB": 0.0}
+    for k in (64, 8):
+        B = X if k == X.shape[1] else X[:, :k].contiguous()
+        e = check_window_kernel(torch, dict(t, B=B), plan.n_used_panels,
+                                plan.W, plan.panel_step_ptr,
+                                f"{label} k={k}", units=plan.panel_units)
+        errs["window_spmm_fwd"] = max(errs["window_spmm_fwd"], e)
+        co = torch.from_numpy(rng.random((plan.m, k), dtype=np.float32))
+        e = check_gB_kernel(torch, tabs, plan.out_panel, plan.A,
+                            dense_cotangent(torch, plan, co.cuda()), plan.W,
+                            f"{label} k={k}")
+        errs["window_bwd_gB"] = max(errs["window_bwd_gB"], e)
+    return errs
+
+
+def phase_examples(torch, smi):
+    """[examples] each training example at its default size for
+    ``EXAMPLE_STEPS`` steps on the card: a finite loss that falls, the
+    median ms/step (host clock, each step ends by reading its loss), its
+    peak memory above what the process held before it, and each of its
+    hand kernels launched.  The windowed example's plan, caught as it is
+    built, then holds kernels 1 and 3 to their plain versions at its
+    widths.  Returns the launch counts by example."""
+    from flex_tpu_torch.examples import (
+        train_gat_pubmed, train_gcn_pubmed, train_gcn_windowed,
+    )
+    from flex_tpu_torch.ops import window_spmm
+
+    built = []
+    prepare = window_spmm.prepare_windowed
+
+    def catch_plan(g, *args, **kw):
+        plan = prepare(g, *args, **kw)
+        built.append((g, plan))
+        return plan
+
+    out = {}
+    for name, mod in (("gcn_windowed", train_gcn_windowed),
+                      ("gcn_pubmed", train_gcn_pubmed),
+                      ("gat_pubmed", train_gat_pubmed)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        window_spmm.prepare_windowed = catch_plan
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            r = mod.main(EXAMPLE_STEPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            window_spmm.prepare_windowed = prepare
+        losses = [r["loss0"]] + r["losses"]
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError(f"[examples] {name}: loss {losses}: not "
+                                 f"finite and falling")
+        if min(launches[w] for w in EXAMPLE_WRAPPERS[name]) < 1:
+            raise AssertionError(f"[examples] {name} launched {launches}")
+        peak = torch.cuda.max_memory_allocated() - held
+        errs = None
+        if name == "gcn_windowed":
+            if len(built) != 1:
+                raise AssertionError(f"[examples] {name} built {len(built)} "
+                                     f"windowed plans")
+            errs = check_example_plan(torch, *built.pop(),
+                                      "the windowed example's plan")
+        log(f"[examples] {name} " + json.dumps({
+            "steps": EXAMPLE_STEPS, "losses": losses,
+            "ms_per_step": r["ms_per_step"], "seconds": secs,
+            "peak_memory_above_held": peak, "held_before": held,
+            "launches": launches, "max_abs_err_vs_plain": errs,
+            "card": smi}))
+        out[f"example_{name}"] = launches
+    return out
+
+
 def run_shard_phases(torch, g, dev, B, gold, sel, peaks, bench_spmm,
                      time_cuda_ms, smi):
     """[bf16], [options], [sharded], [parallel_2d], each with the counts
@@ -3118,6 +3294,7 @@ def main() -> int:
     import flex_tpu_torch  # noqa: F401  (fails outside a checkout)
     from flex_tpu_torch import kernels
     from flex_tpu_torch.bench.harness import bench_spmm, time_cuda_ms
+    from flex_tpu_torch.bench.headline import load_graph
     from flex_tpu_torch.utils.device_info import peaks_for
     from flex_tpu_torch.ops.window_spmm import (
         FWD_CHUNK_STEPS, device_units, window_select, window_spmm_fwd,
@@ -3164,7 +3341,7 @@ def main() -> int:
     from flex_tpu_torch.sparse.device import DeviceCSR
 
     t0 = time.perf_counter()
-    g = load_graph()
+    g = load_graph(csv=True)
     log(f"[graph] {g} ready in {time.perf_counter() - t0:.1f}s (host)")
     t0 = time.perf_counter()
     sel = window_select(g, tm=256, W=128, min_count=64,
@@ -3353,6 +3530,11 @@ def main() -> int:
     # the command line on the main path's graph, then its sweep on Flickr's
     cli = phase_cli(main_ms, main_stats)
     sweep, launches_sweep = phase_sweep()
+    # the headline in its own process, the entry points, the examples
+    torch.cuda.empty_cache()
+    _, launches_headline = phase_headline(g, cli["cli_auto_k128"])
+    launches_entry, launches_dryrun = phase_entry(torch, time_cuda_ms, smi)
+    launches_examples = phase_examples(torch, smi)
     # kernel 7 also runs the main path's residue: its launches there, and
     # the residue's own numbers
     gespmm_row.update({
@@ -3387,10 +3569,12 @@ def main() -> int:
     rows.append(bf16_row)
     new_launches = {"autotune": launches_autotune, "gcn_bench": launches_gcn,
                     "sweep": launches_sweep, **launches_shard,
-                    **{tag: c["launches"] for tag, c in cli.items()}}
+                    **{tag: c["launches"] for tag, c in cli.items()},
+                    "headline": launches_headline, "entry": launches_entry,
+                    "dryrun_multichip": launches_dryrun, **launches_examples}
     for r in rows:
         r.update({f"launches_{ph}": new_launches[ph][r["name"]]
-                  for ph in NEW_PHASES + SHARD_PHASES})
+                  for ph in NEW_PHASES + SHARD_PHASES + ENTRY_PHASES})
     if len(rows) != 8 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")

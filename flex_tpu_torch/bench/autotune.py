@@ -76,12 +76,13 @@ def _t_ell(degrees, k: int = 128) -> float:
 def suggest(
     g: CSRGraph, k: int = 128, tm: int = 128, hub_threshold: int = 512,
     win_tm: int = 256, win_W: int = 128, win_min_count: int = 48,
-    max_dense_bytes: int | None = None,
+    dev=None, max_dense_bytes: int | None = None,
 ) -> Suggestion:
     """Static time-model decision from format statistics.  Candidates: xla
     (tiny graphs), band (contiguous windows), windowed (community blocks
     plus residue), panel (deduplicated-gather dense tail after a
-    hub-prefix ordering), ell (the default)."""
+    hub-prefix ordering), ell (the default).  ``dev`` goes to
+    :func:`..ops.window_spmm.window_select`, which ignores it."""
     if g.nnz < 50_000:
         return Suggestion("xla", "tiny graph: dispatch-bound", {})
 
@@ -110,7 +111,8 @@ def suggest(
 
     if max_dense_bytes is None:
         max_dense_bytes = MAX_DENSE_BYTES
-    sel = window_select(g, max_dense_bytes=max_dense_bytes, **win_kwargs)
+    sel = window_select(g, dev=dev, max_dense_bytes=max_dense_bytes,
+                        **win_kwargs)
     if sel["coverage"] >= MIN_COVERAGE:
         n_win = sel["total_steps"] * sel["G"]
         # residue padded nnz ≈ n_res × the fine ladder's ~1.12 pad ratio

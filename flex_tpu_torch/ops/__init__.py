@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import importlib
 
-import numpy as np
 import torch
 
 from flex_tpu_torch.ops.gcn import gcn_layer, pick_association  # noqa: F401
@@ -52,17 +51,20 @@ def prepare_fn(method: str):
 
 
 def spmm(g, B, method: str = "xla", device=None, **kwargs):
-    """``C = A @ B`` for CSRGraph ``g`` and dense ``B`` (NumPy or tensor).
-    Device methods run on ``device`` (CUDA unless the caller names
-    another) and return a tensor there."""
+    """``C = A @ B`` for CSRGraph ``g`` and dense ``B`` (NumPy or tensor),
+    through the method's ``spmm_<method>`` (prepare, then call), as the JAX
+    dispatcher does.  Device methods run on ``device`` (CUDA unless the
+    caller names another) and return a tensor there."""
     if method == "ref":
         from flex_tpu_torch.ops.ref import spmm_scipy
 
         return spmm_scipy(g, B.cpu().numpy() if torch.is_tensor(B) else B)
-    prepare = prepare_fn(method)
-    from flex_tpu_torch.sparse.device import resolve_device
+    if method not in PREPARE:
+        raise ValueError(f"unknown spmm method {method!r}")
+    from flex_tpu_torch.sparse.device import dense_operand, resolve_device
 
+    module = importlib.import_module(
+        f"flex_tpu_torch.ops.{PREPARE[method][0]}")
     dev = resolve_device(device)
-    Bt = (B if torch.is_tensor(B) else torch.from_numpy(np.asarray(B))).to(
-        device=dev, dtype=torch.float32).contiguous()
-    return prepare(g, device=dev, **kwargs)(Bt)
+    return getattr(module, f"spmm_{method}")(
+        g, dense_operand(B, dev), device=dev, **kwargs)

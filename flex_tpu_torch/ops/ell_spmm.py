@@ -42,7 +42,9 @@ from flex_tpu_torch.ops.gespmm import (
     RowTables, gespmm_rows, row_tables, tables_from_buckets, unit_entries,
 )
 from flex_tpu_torch.sparse.csr import CSRGraph
-from flex_tpu_torch.sparse.device import DeviceCSR, resident_csr
+from flex_tpu_torch.sparse.device import (
+    DeviceCSR, dense_operand, resident_csr,
+)
 
 # Width ladder (~1.2x steps): padding rows are gathered like real ones, so
 # bucket granularity sets the padding overhead.
@@ -540,3 +542,10 @@ def prepare_ell(g: CSRGraph, dev: DeviceCSR | None = None,
     return prepare_ell_device(dev.row_ptr, dev.col, dev.vals, m=g.m,
                               nnz=g.nnz, res_row_ptr_host=g.row_ptr,
                               widths=tuple(widths), b_dtype=b_dtype)
+
+
+def spmm_ell(g: CSRGraph, B, device=None, **kw) -> torch.Tensor:
+    """:func:`prepare_ell` (``kw``), then the call on B (NumPy or a
+    tensor, moved to the plan's device)."""
+    dev = resident_csr(g, kw.pop("dev", None), device)
+    return prepare_ell(g, dev=dev, **kw)(dense_operand(B, dev.device))

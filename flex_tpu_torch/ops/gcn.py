@@ -11,6 +11,7 @@ leaves it to XLA.
 """
 from __future__ import annotations
 
+import enum
 from typing import Callable
 
 import torch
@@ -23,16 +24,28 @@ def pick_association(m: int, nnz: int, d: int, c: int) -> str:
     return "axw" if flops_axw <= flops_ax_w else "ax_w"
 
 
+def _check_precision(precision) -> None:
+    pair = precision if isinstance(precision, tuple) else (precision,)
+    if len(pair) not in (1, 2) or not all(
+            p is None or isinstance(p, (str, enum.Enum)) for p in pair):
+        raise TypeError(f"precision must be None, a name, a Precision "
+                        f"member or a pair of them, got {precision!r}")
+
+
 def gcn_layer(plan, X, W, b=None, activation: Callable | None = torch.relu,
               association: str = "auto", nnz: int | None = None,
-              matmul: Callable = torch.matmul):
+              precision=None, matmul: Callable = torch.matmul):
     """One GCN layer using a prepared SpMM plan for A.
 
     plan: any callable B ↦ A·B for the adjacency.
     X: [n, d] features.  W: [d, c] weights.  b: optional [c] bias.
     association: 'axw', 'ax_w', or 'auto' (the operation count, which
-    needs ``nnz``).  matmul: the dense product (the 2-D sharded step passes
-    one that runs W's column blocks on several devices)."""
+    needs ``nnz``).  precision: the JAX signature's dot precision (None, a
+    name, a ``jax.lax.Precision`` member or a pair of them), accepted and
+    ignored: the dense product is exact f32 here.  matmul: the dense
+    product (the 2-D sharded step passes one that runs W's column blocks on
+    several devices)."""
+    _check_precision(precision)
     d, c = W.shape
     if association == "auto":
         if nnz is None:

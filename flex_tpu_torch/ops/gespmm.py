@@ -31,7 +31,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
+from flex_tpu_torch.ops.operands import (
+    check_interpret, check_kernel_operands, check_operands,
+)
 from flex_tpu_torch.ops.units import row_units
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import DeviceCSR, resident_csr
@@ -275,13 +277,18 @@ class GeSpmmPlan:
 
 
 def prepare_gespmm(g: CSRGraph, w: int = 32, dev: DeviceCSR | None = None,
-                   device=None) -> GeSpmmPlan:
+                   interpret: bool | None = None, device=None,
+                   **_unused) -> GeSpmmPlan:
     """Single fixed chunk width; rows longer than ``w`` split into several
     chunks, the chunk count is padded to a multiple of CH.  The host ships
     only O(chunks) metadata; each chunk is a contiguous CSR run, gathered
-    on the device."""
+    on the device.  As in the JAX signature, ``interpret`` is accepted and
+    ignored (:func:`.operands.check_interpret`), and so is any other
+    keyword (the common ones of the harness and command line, such as
+    ``tm``)."""
     from flex_tpu_torch.ops.ell_spmm import gather_chunks
 
+    check_interpret(interpret)
     if w < 1:
         raise ValueError(f"chunk width must be positive, got w={w}")
     dev = resident_csr(g, dev, device)

@@ -1,8 +1,18 @@
 """Operand checks shared by the kernel wrappers: what a wrapper verifies
-before it hands raw pointers to a CUDA kernel."""
+before it hands raw pointers to a CUDA kernel; and the check of the JAX
+signature's ``interpret`` keyword, which the card has no use for."""
 from __future__ import annotations
 
 import torch
+
+
+def check_interpret(interpret) -> None:
+    """``interpret`` (the JAX package's Pallas interpret mode) must be a
+    bool or None; the port accepts it and ignores it, since the card has no
+    interpret mode."""
+    if interpret not in (None, True, False):
+        raise ValueError(f"interpret must be a bool or None, got "
+                         f"{interpret!r}")
 
 
 def check_operands(ints: dict, floats: dict) -> None:

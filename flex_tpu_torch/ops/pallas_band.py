@@ -33,17 +33,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
+from flex_tpu_torch.ops.operands import (
+    check_interpret, check_kernel_operands, check_operands,
+)
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import (
-    DeviceCSR, resident_csr, rows_from_row_ptr,
+    DeviceCSR, resident_csr, round_up, rows_from_row_ptr,
 )
 
 IMPLS = ("pallas2", "xla", "pallas")
-
-
-def _round_up(x: int, mult: int) -> int:
-    return -(-x // mult) * mult
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +100,7 @@ def _window_product(tiles, starts, Bp):
 
 def _band_spmm_xla(band, ws128, B, *, m: int):
     """Window-band SpMM in plain torch ops (``ws128`` in units of 128)."""
-    Bp = _pad_rows(B, _round_up(B.shape[0], 128) + band.shape[2])
+    Bp = _pad_rows(B, round_up(B.shape[0], 128) + band.shape[2])
     return _window_product(band, ws128.long() * 128, Bp)[:m]
 
 
@@ -327,7 +325,7 @@ def panel_window_stats(g: CSRGraph, tm: int):
         lo[nonempty] = np.minimum.reduceat(g.col, seg_starts[nonempty])
         hi[nonempty] = np.maximum.reduceat(g.col, seg_starts[nonempty])
     ws = (lo // 128) * 128
-    w_pad = max(_round_up(int((hi - ws).max()) + 1, 128), 128)
+    w_pad = max(round_up(int((hi - ws).max()) + 1, 128), 128)
     band_bytes = P * tm * w_pad * 4
     density = g.nnz / max(P * tm * w_pad, 1)
     return ws, w_pad, density, band_bytes
@@ -340,11 +338,14 @@ def prepare_band(
     tm: int = 256,
     min_density: float = 0.02,
     max_band_bytes: int = 4 << 30,
+    interpret: bool | None = None,
     impl: str = "pallas2",
 ) -> BandPlan:
     """Build the band plan on ``dev``'s device (or ``device``; CUDA when
     neither is given).  Refuses (ValueError) when the matrix is not
-    band-friendly."""
+    band-friendly.  ``interpret`` is accepted and ignored
+    (:func:`.operands.check_interpret`)."""
+    check_interpret(interpret)
     if impl not in IMPLS:
         raise ValueError(f"unknown band impl {impl!r}: one of {IMPLS}")
     dev = resident_csr(g, dev, device)

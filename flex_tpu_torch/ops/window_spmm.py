@@ -48,13 +48,15 @@ from flex_tpu_torch.ops.ell_spmm import (
     ell_scatter_layout,
 )
 from flex_tpu_torch.ops.gespmm import row_tables
-from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
+from flex_tpu_torch.ops.operands import (
+    check_interpret, check_kernel_operands, check_operands,
+)
 from flex_tpu_torch.ops.units import work_units
 from flex_tpu_torch.sparse.csr import (
     CSRGraph, indicator_cumsum, repeat_arange, repeat_values,
 )
 from flex_tpu_torch.sparse.device import (
-    DeviceCSR, resident_csr, rows_from_row_ptr,
+    DeviceCSR, dense_operand, resident_csr, rows_from_row_ptr,
 )
 
 G = 4  # default windows per step (per-step product: (TM, G*W) x (G*W, k))
@@ -85,8 +87,8 @@ def _host_panel_key(g, tm: int, W: int, P: int, nblk: int) -> np.ndarray:
 
 def window_select(
     g: CSRGraph, tm: int = 256, W: int = 128, J: int = 1024,
-    min_count: int = 128, g_step: int = G,
-    max_dense_bytes: int | None = None, step_order: str = "row",
+    min_count: int = 128, dev: DeviceCSR | None = None, g_step: int = G,
+    step_order: str = "row", max_dense_bytes: int | None = None,
 ) -> dict:
     """Window selection + step layout.
 
@@ -109,7 +111,14 @@ def window_select(
       res_deg    int64[m] residue degree per row, unique_rc (bool)
       coverage, a_elems, dense_bytes, total_steps, n_used_panels, P,
       nblk, n_res, G, W, min_count_eff
+
+    ``dev`` (a :class:`DeviceCSR` or None) is accepted and ignored: the
+    JAX package counts windows on the device when given one, a TPU
+    workaround; the port's count is the host pass below either way.
     """
+    if dev is not None and not isinstance(dev, DeviceCSR):
+        raise TypeError(f"dev must be a DeviceCSR or None, got "
+                        f"{type(dev).__name__}")
     m, nnz = g.m, g.nnz
     J = min(J, 32000)  # slot table is int16 (values ≤ J+1)
     P = max(-(-m // tm), 1)
@@ -1087,9 +1096,7 @@ def prepare_windowed(
         raise ValueError(f"unknown impl {impl!r}")
     if fused not in (True, False, "scatter", "scatter2"):
         raise ValueError(f"unknown fused {fused!r}")
-    if interpret not in (None, True, False):
-        raise ValueError(f"interpret must be a bool or None, got "
-                         f"{interpret!r}")
+    check_interpret(interpret)
     if transposed and W % 128 != 0:
         # kept from the JAX package, so the same calls are refused
         raise ValueError(
@@ -1156,6 +1163,13 @@ def plan_from_selection(sel: dict, tabs: dict, A, ell: EllPlan, *, m: int,
         n_windows=int(np.count_nonzero(sel["win_step"] != sel["nblk"])),
         covered_nnz=int(nnz - sel["n_res"]), impl=impl,
     )
+
+
+def spmm_windowed(g: CSRGraph, B, device=None, **kw) -> torch.Tensor:
+    """:func:`prepare_windowed` (``kw``), then the call on B (NumPy or a
+    tensor, moved to the plan's device)."""
+    dev = resident_csr(g, kw.pop("dev", None), device)
+    return prepare_windowed(g, dev=dev, **kw)(dense_operand(B, dev.device))
 
 
 def with_training_bwd(plan: WindowedPlan) -> WindowedPlan:

@@ -46,8 +46,16 @@ class XLASpmmPlan:
         return {"bytes": 4 * E * k * 4 + self.m * k * 4, "gathered_rows": E}
 
 
-def prepare_xla(g: CSRGraph, dev: DeviceCSR | None = None,
-                device=None) -> XLASpmmPlan:
+def prepare_xla(g: CSRGraph, pad_multiple: int = 1024,
+                dev: DeviceCSR | None = None, device=None) -> XLASpmmPlan:
+    """Row ids, columns and values of every nonzero on the device.  The
+    JAX package pads the edge arrays to a multiple of ``pad_multiple`` (a
+    TPU layout workaround); the port has no edge padding, so the keyword
+    is checked (a positive int) and ignored."""
+    if isinstance(pad_multiple, bool) or not isinstance(pad_multiple, int) \
+            or pad_multiple < 1:
+        raise ValueError(f"pad_multiple must be a positive int, got "
+                         f"{pad_multiple!r}")
     dev = resident_csr(g, dev, device)
     return XLASpmmPlan(rows=rows_from_row_ptr(dev.row_ptr, g.nnz, g.m),
                        cols=dev.col.long(), vals=dev.vals, m=g.m)

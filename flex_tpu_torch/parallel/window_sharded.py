@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.ell_spmm import EllPlan
+from flex_tpu_torch.ops.operands import check_interpret
 from flex_tpu_torch.ops.window_spmm import (
     WindowedPlan, _build_windowed_ell, _device_tables, pattern_is_unique,
     plan_from_selection, residue_layout, window_select,
@@ -132,6 +133,7 @@ def prepare_windowed_sharded(
     columns, so ``g`` needs its host ``col``; the nnz-sized device data
     comes from the resident ``dev`` (or ``g`` moved to the mesh's first
     device).  ``interpret`` is accepted and ignored."""
+    check_interpret(interpret)
     if impl not in ("pallas", "xla"):
         raise ValueError(f"unknown impl {impl!r}")
     axis = axis or mesh.axis_names[0]

@@ -6,13 +6,14 @@ vertices in degree-ascending order and merge u into the neighbour v that
 maximises ΔQ = w(u,v) − deg(u)·deg(v)/(2m); the order is the dendrogram's
 leaves, clusters emitted in surviving-root index order.  The C++ version
 in :mod:`flex_tpu_torch.reorder.native` runs when it builds; the Python
-loop below is for small graphs without a toolchain.
+loop below is for small graphs without a toolchain.  :func:`modularity`
+is the Newman modularity of a community assignment.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from flex_tpu_torch.sparse.csr import CSRGraph
+from flex_tpu_torch.sparse.csr import CSRGraph, repeat_arange
 
 
 def order_rabbit(
@@ -123,3 +124,27 @@ def order_rabbit(
     if pos != n:
         raise AssertionError(f"rabbit emitted {pos} of {n} vertices")
     return (perm, labels) if want_labels else perm
+
+
+def modularity(g: CSRGraph, communities: np.ndarray) -> float:
+    """Newman modularity of a community assignment on the undirected
+    unit-weight version of g (a diagnostic: the reference prints Q after
+    clustering)."""
+    n = g.m
+    rows = repeat_arange(g.degrees, total=g.nnz)
+    cols = g.col.astype(np.int64)
+    mask = rows != cols
+    rows, cols = rows[mask], cols[mask]
+    if not g.pattern_is_symmetric:
+        rows, cols = np.concatenate([rows, cols]), np.concatenate([cols, rows])
+        keys = np.unique(rows * n + cols)
+        rows, cols = keys // n, keys % n
+    m2 = len(rows)
+    if m2 == 0:
+        return 0.0
+    deg = np.bincount(rows, minlength=n)
+    same = communities[rows] == communities[cols]
+    e_in = same.sum() / m2
+    dc = np.bincount(communities, weights=deg.astype(np.float64))
+    exp = float((dc**2).sum()) / (m2 * m2)
+    return float(e_in - exp)

@@ -50,12 +50,24 @@ class DeviceCSR:
         )
 
 
+def round_up(x: int, mult: int) -> int:
+    """The least multiple of ``mult`` that is at least ``x``."""
+    return -(-x // mult) * mult
+
+
 def rows_from_row_ptr(row_ptr: torch.Tensor, nnz: int, m: int) -> torch.Tensor:
     """Per-nnz row ids (int64) from a row_ptr.  ``output_size`` keeps the
     call free of a device-to-host sync."""
     deg = (row_ptr[1:m + 1] - row_ptr[:m]).long()
     return torch.repeat_interleave(
         torch.arange(m, device=row_ptr.device), deg, output_size=nnz)
+
+
+def dense_operand(B, device) -> torch.Tensor:
+    """``B`` (NumPy or a tensor) as a contiguous float32 tensor on
+    ``device``."""
+    Bt = B if torch.is_tensor(B) else torch.from_numpy(np.asarray(B))
+    return Bt.to(device=device, dtype=torch.float32).contiguous()
 
 
 def resident_csr(g: CSRGraph, dev: "DeviceCSR | None" = None,

@@ -2,7 +2,8 @@
 
 Copy of ``flex_tpu.utils.check``: in :func:`res_check` the tolerance for
 row r is ``eps_f32 · row_nnz(r) · 4``, relative when |gold| ≥ 1 and
-absolute otherwise; a gold output that is mostly zeros is refused.
+absolute otherwise; a gold output that is mostly zeros is refused; with
+``verbose`` it prints up to ``max_report`` mismatches, one line each.
 :func:`res_check2` is the plain |diff| > tol variant.
 """
 from __future__ import annotations
@@ -29,6 +30,8 @@ def res_check(
     res: np.ndarray,
     row_nnz: np.ndarray,
     eps_scale: float = 4.0,
+    max_report: int = 20,
+    verbose: bool = False,
 ) -> CheckResult:
     gold = np.asarray(gold, dtype=np.float32)
     res = np.asarray(res, dtype=np.float32)
@@ -42,11 +45,16 @@ def res_check(
     err = np.where(denom >= 1.0, diff / np.maximum(denom, 1e-300), diff)
     bad = err > tol
 
+    n_bad = int(bad.sum())
+    if verbose and n_bad:
+        for r, c in np.argwhere(bad)[:max_report]:
+            print(f"  mismatch C[{r},{c}]: gold={gold[r, c]:.6g} "
+                  f"got={res[r, c]:.6g} err={err[r, c]:.3g} "
+                  f"tol={tol[r, 0]:.3g}")
     nz_frac = float((gold != 0).mean()) if gold.size else 0.0
     if gold.size and nz_frac < 0.01:
         raise AssertionError(f"gold output suspiciously sparse ({nz_frac:.2%} nonzero)")
 
-    n_bad = int(bad.sum())
     return CheckResult(
         n_bad=n_bad,
         n_total=gold.size,

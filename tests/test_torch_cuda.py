@@ -159,7 +159,7 @@ def test_window_kernel_refuses_what_it_cannot_take(cuda):
         window_spmm_fwd(*t, A, B, **kw)
 
 
-@pytest.mark.parametrize("k", [41, 128])
+@pytest.mark.parametrize("k", [41, 64, 128])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_bwd_kernels_match_plain(cuda, name, k):
     """g_A and g_B kernels on a plan's own tables against their plain
@@ -279,13 +279,13 @@ def _unit_edge_tables(cuda, TM, G, W, n, seed=3):
     return t, len(ptr) - 1, bwd
 
 
-@pytest.mark.parametrize("k", [1, 32, 41, 128, 200])
+@pytest.mark.parametrize("k", [1, 32, 41, 64, 128, 200])
 @pytest.mark.parametrize("TM,G,W,n", [(256, 4, 128, 9000 + 5),
                                       (200, 2, 64, 3000 + 5)])
 def test_unit_kernels_on_chunk_edges(cuda, TM, G, W, n, k):
     """Both unit kernels against plain (|diff| <= 2·L·eps32·(|a|·|b|), L the
     contraction length) with TM a multiple of the 128-row tile or not,
-    n % W != 0, every column tile (k = 1, 32, 41, 128, 200) and both copy
+    n % W != 0, every column tile (k = 1, 32, 41, 64, 128, 200) and both copy
     widths (k % 4 == 0 or not); with the caller's unit tables and with
     derived ones; a second launch gives the same bits."""
     t, n_panels, bwd = _unit_edge_tables(cuda, TM, G, W, n)

@@ -132,7 +132,8 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [PORT.parent / "chip_smoke.py",
+                                          PORT.parent / "bench_torch.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imports(f):
