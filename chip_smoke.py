@@ -994,6 +994,17 @@ def kernel_usage(source: str, name: str) -> list:
     return out
 
 
+def ptxas_summary(usage: list) -> dict:
+    """:func:`kernel_usage` keyed by each entry's template arguments."""
+    out = {}
+    for u in usage:
+        m = re.search(r"kernelI(.*?)E+v", u["entry"])
+        out[m.group(1) if m else u["entry"]] = (
+            f"{u.get('registers')} registers, {u['spill_stores']} bytes "
+            f"spill stores, {u['spill_loads']} bytes spill loads")
+    return out
+
+
 def reset_launches():
     from flex_tpu_torch.kernels import reset_launch_counts
 
@@ -2655,6 +2666,9 @@ SHARD_PHASES = ("bf16", "bf16_windowed", "options", "sharded_ell",
 # an NVIDIA H100 80GB HBM3 at 700 W, before the bf16 mode existed: printed
 # beside this run's f32 and bf16 plans
 ELL_CLI_RECORD_MS = {128: 1.3905, 41: 0.9889}
+# kernel 7's bf16 instance before its redesign (the f32 body on bf16 B, 8-byte
+# loads), on the same card model at 700 W
+BF16_TEMPLATED_RECORD_MS = {128: 1.0174, 41: 1.0247}
 ONE_CARD = "four shards on one card, not a scaling figure"
 BF16_SCALE = 4.0 * 2 ** 16   # res_check's eps_scale for a bf16 gather
 
@@ -2662,12 +2676,12 @@ BF16_SCALE = 4.0 * 2 ** 16   # res_check's eps_scale for a bf16 gather
 def check_gespmm_bf16_kernel(torch, t, B, label, into=None):
     """Kernel 7's bf16 instance on B rounded to bf16: launched twice, the
     same bits; the f32 instance on that B widened, the same bits (the
-    instances sum in one order); B misaligned by one element (scalar
-    loads), the same bits; and its plain version (``gespmm_rows_plain`` on
-    the bf16 B) within the rounding bound of two f32 sums.  Returns
-    max_abs_err."""
+    instances sum in one order); B in the plans' padded cast (16-byte
+    loads at every k) and misaligned by one element (2-byte loads), the
+    same bits; and its plain version (``gespmm_rows_plain`` on the bf16 B)
+    within the rounding bound of two f32 sums.  Returns max_abs_err."""
     from flex_tpu_torch.ops.gespmm import (
-        gespmm_rows, gespmm_rows_bf16, gespmm_rows_plain,
+        gespmm_rows, gespmm_rows_bf16, gespmm_rows_plain, to_bf16_padded,
     )
 
     Bb = B.bfloat16()
@@ -2682,6 +2696,8 @@ def check_gespmm_bf16_kernel(torch, t, B, label, into=None):
                       call(gespmm_rows_bf16, Bb))
     require_same_bits(torch, "gespmm_rows_bf16 vs the f32 instance on B "
                       "widened", label, out, call(gespmm_rows, Bb.float()))
+    require_same_bits(torch, "gespmm_rows_bf16 on the padded cast", label,
+                      out, call(gespmm_rows_bf16, to_bf16_padded(B)))
     mis = torch.empty(Bb.numel() + 1, dtype=torch.bfloat16,
                       device=B.device)[1:].view(Bb.shape)
     mis.copy_(Bb)
@@ -2695,11 +2711,14 @@ def check_gespmm_bf16_kernel(torch, t, B, label, into=None):
                          call(gespmm_rows_plain, Bb), absprod, L)
 
 
+BF16_KS = (8, 16, 32, 41, 64, 96, 128, 200)
+
+
 def phase_bf16_kernel_vs_plain(torch, dev="cuda"):
     """Kernel 7's bf16 instance at the shapes its f32 instance is held at
     in phase 3: GE-SpMM plans with pad chunks, empty and split rows (w = 32
-    and 7; k = 128, 41, 200), the ELL plan and its transposed plan added
-    into an accumulator (k = 128, 41)."""
+    and 7; every lane-group size, k = 8 .. 200), the ELL plan and its
+    transposed plan added into an accumulator (k = 128, 41, 32)."""
     from flex_tpu_torch.ops.ell_spmm import prepare_ell, with_bwd_plan
     from flex_tpu_torch.ops.gespmm import prepare_gespmm
 
@@ -2707,14 +2726,14 @@ def phase_bf16_kernel_vs_plain(torch, dev="cuda"):
     gh = hub_and_empty_graph(rng)
     for w in (32, 7):
         plan = prepare_gespmm(gh, w=w, device=dev)
-        for k in (K, 41, 200):
+        for k in BF16_KS:
             B = torch.rand((gh.n, k), device=dev) * 2 - 1
             check_gespmm_bf16_kernel(
                 torch, plan.rows, B, f"hub+empty N={plan.cols.shape[0]} "
                 f"w={w} k={k} split rows={plan.rows.splits.shape[0]}")
     ell = with_bwd_plan(prepare_ell(gh, device=dev), gh.n)
     for e, what in ((ell, "ell"), (ell.bwd_plan, "transposed ell")):
-        for k in (K, 41):
+        for k in (K, 41, 32):
             B = torch.rand((gh.n, k), device=dev) * 2 - 1
             into = torch.rand((e.m, k), device=dev) * 2 - 1
             check_gespmm_bf16_kernel(torch, e.rows, B, f"{what} into= k={k}",
@@ -2742,12 +2761,18 @@ def phase_bf16(torch, g, dev, B, gold, sel, peaks, bench_spmm, time_cuda_ms,
                smi):
     """[bf16] on the main path's graph: ``prepare_ell(b_dtype="bfloat16")``
     through ``bench_spmm`` at k = 128 and 41 (its check at the bf16
-    scale), kernel 7's bf16 instance against its plain version on the
-    plan's tables, its time beside the f32 plan's, its bytes bound (2
-    bytes a B element), cuSPARSE on its CSR; then the windowed plan with a
+    scale); at k = 128, 41 and 32 kernel 7's bf16 instance against its
+    plain version on the plan's tables, its time on the plan's padded cast
+    beside the f32 instance's and the f32 plan's, both gathered-row rates,
+    its layout (ldb, lanes a row, units a warp), the units' divergence,
+    its bytes bound (2 bytes a B element), cuSPARSE on its CSR; ptxas's
+    registers and spills for both bodies; then the windowed plan with a
     bf16 residue at k = 128.  Returns (kernel row, launches by path)."""
     from flex_tpu_torch.ops.ell_spmm import ell_spmm_plain, prepare_ell
-    from flex_tpu_torch.ops.gespmm import gespmm_rows_bf16, gespmm_rows_plain
+    from flex_tpu_torch.ops.gespmm import (
+        bf16_layout, gespmm_rows, gespmm_rows_bf16, gespmm_rows_plain,
+        to_bf16_padded,
+    )
 
     reset_launches()
     res, plan = {}, None
@@ -2775,16 +2800,36 @@ def phase_bf16(torch, g, dev, B, gold, sel, peaks, bench_spmm, time_cuda_ms,
     f32 = prepare_ell(g, dev=dev)
     A_csr = csr_tensor(torch, g)
     b_rows = distinct_cols(torch, t)
-    for k in (K, 41):
+    ptxas = {"bf16": ptxas_summary(kernel_usage("gespmm", "rows_bf16_kernel")),
+             "f32": ptxas_summary(kernel_usage("gespmm", "rows_kernelIf"))}
+    row["ptxas"] = ptxas
+    log("[bf16] ptxas, kernel 7's bf16 body by <lanes a row, 16-byte loads> "
+        "beside the f32 body by <float, float4 loads, accumulate>: "
+        + json.dumps(ptxas))
+    lens = (t.units[:, 2] - t.units[:, 1]).cpu().numpy().astype(np.int64)
+    for k in (K, 41, 32):
         Bk = torch.from_numpy(np.ascontiguousarray(B[:, :k])).cuda()
-        Bb = Bk.bfloat16()
+        Bb = to_bf16_padded(Bk)   # the plan's own cast
         out = plan(Bk)
         absprod, L = rows_absprod_and_len(torch, t, Bb.float())
         err = hold_to_plain(torch, "gespmm_rows_bf16", f"bf16 ELL plan k={k}",
                             out, ell_spmm_plain(plan, Bk), absprod, L)
         ms = time_cuda_ms(gespmm_rows_bf16, t, Bb, iters=20)
+        contiguous_ms = time_cuda_ms(gespmm_rows_bf16, t, Bk.bfloat16(),
+                                     iters=20) if k % 8 else ms
+        f32_kernel_ms = time_cuda_ms(gespmm_rows, t, Bk, iters=20)
         plan_ms = time_cuda_ms(plan, Bk, iters=20)
         f32_ms = time_cuda_ms(f32, Bk, iters=20)
+        ldb, lanes, per_warp = bf16_layout(k)
+        n_w = -(-len(lens) // per_warp)
+        warp_max = np.zeros(n_w * per_warp, np.int64)
+        warp_max[:len(lens)] = lens
+        divergence = float(warp_max.reshape(n_w, per_warp).max(1).sum()
+                           * per_warp / max(int(lens.sum()), 1))
+        # bytes of B rows the loads fetch: ldb bf16 a nonzero on the padded
+        # cast, k f32 for the f32 instance
+        tb_s = g.nnz * ldb * 2 / (ms * 1e-3) / 1e12
+        f32_tb_s = g.nnz * k * 4 / (f32_kernel_ms * 1e-3) / 1e12
         plain_ms = time_cuda_ms(lambda: gespmm_rows_plain(t, Bb), iters=3)
         lib_ms = time_cuda_ms(torch.sparse.mm, A_csr, Bb.float(), iters=20)
         try:
@@ -2802,13 +2847,27 @@ def phase_bf16(torch, g, dev, B, gold, sel, peaks, bench_spmm, time_cuda_ms,
                     f"plain_ms{sfx}": plain_ms, f"bound_ms{sfx}": bms,
                     f"bound_by{sfx}": bby, f"library_ms{sfx}": lib_ms,
                     f"plan_ms{sfx}": plan_ms, f"f32_plan_ms{sfx}": f32_ms,
-                    f"t_elap_ms{sfx}": res[k].t_elap_ms,
-                    f"err_frac{sfx}": res[k].err_frac})
+                    f"f32_kernel_ms{sfx}": f32_kernel_ms,
+                    f"contiguous_b_ms{sfx}": contiguous_ms,
+                    f"gather_tb_s{sfx}": tb_s,
+                    f"f32_gather_tb_s{sfx}": f32_tb_s,
+                    f"divergence{sfx}": divergence})
+        if k in res:
+            row.update({f"t_elap_ms{sfx}": res[k].t_elap_ms,
+                        f"err_frac{sfx}": res[k].err_frac})
         log("[bf16] " + json.dumps({
-            "k": k, "t_pre_s": res[k].t_pre_s, "t_elap_ms": res[k].t_elap_ms,
-            "err_frac_bf16_scale": res[k].err_frac, "kernel_ms": ms,
+            "k": k, "t_pre_s": res[k].t_pre_s if k in res else None,
+            "t_elap_ms": res[k].t_elap_ms if k in res else None,
+            "err_frac_bf16_scale": res[k].err_frac if k in res else None,
+            "kernel_ms": ms,
+            "kernel_ms_templated_body_record": BF16_TEMPLATED_RECORD_MS.get(k),
+            "contiguous_b_kernel_ms": contiguous_ms,
+            "f32_kernel_ms_same_run": f32_kernel_ms,
+            "gathered_rows_tb_s": tb_s, "f32_gathered_rows_tb_s": f32_tb_s,
+            "ldb": ldb, "lanes_per_row": lanes, "units_per_warp": per_warp,
+            "divergence": divergence,
             "plan_ms": plan_ms, "f32_plan_ms_same_run": f32_ms,
-            "f32_plan_ms_cli_record": ELL_CLI_RECORD_MS[k],
+            "f32_plan_ms_cli_record": ELL_CLI_RECORD_MS.get(k),
             "bytes_bound_ms": bms, "bound_by": bby, "bound_bytes": nbytes,
             "b_rows_named": b_rows, "plain_ms": plain_ms,
             "cusparse_f32_csr_on_widened_b_ms": lib_ms,

@@ -42,19 +42,45 @@
 // B in bf16 (flex_gespmm_rows_bf16): the JAX package's b_dtype="bfloat16"
 // gather mode (flex_tpu/ops/ell_spmm.py:_ell_spmm, XLA there) casts B once
 // and gathers bf16 rows; the products with the f32 values are summed in
-// f32.  The kernels are templated on B's element type: the bf16 instance
-// reads four bf16 a lane (one 8-byte load per B row when k % 4 == 0 and B
-// is 8-byte aligned, else scalars), widens each with __bfloat162float and
-// runs the f32 instance's fmaf chain in the same order, so on B rounded to
-// bf16 and widened it gives the f32 instance's bits.  Its output, scratch
-// and accumulator stay f32.  It halves the bytes of every gathered row.
+// f32.  It has a body of its own (rows_bf16_kernel), shaped by the bytes
+// of a bf16 row:
+//   - a lane owns 8 consecutive columns: one 16-byte load (uint4) of a B
+//     row, widened in registers with __bfloat1622float2.  The plans cast B
+//     into rows of ldb = round_up(k, 8) elements with zero pads
+//     (ops/gespmm.py:to_bf16_padded), so every k takes that load; the pad
+//     columns are summed and never stored.  B rows that are not 16-byte
+//     aligned (ldb % 8 != 0, or a misaligned pointer) take 2-byte loads in
+//     the same body;
+//   - G lanes (a power of two, 8 G >= min(k, 128)) own one unit, so a warp
+//     runs 32 / G units: one load instruction of the warp fetches the B
+//     rows of 2 (k = 128) to 32 (k <= 8) nonzeros.  A group stages its
+//     unit's cols and vals in its own lanes, the next stage's ahead, and
+//     shuffles them within the group (width G).  The warp walks its longest
+//     unit: every lane takes every shuffle, with the whole warp's mask, and
+//     an entry past its group's unit loads and adds nothing.  (With each
+//     group's own mask, groups could leave on their own, but the compiler
+//     then checks convergence before each shuffle of a partial stage, and
+//     the body ran slower at k = 128.)  Units are in row order and the
+//     orderings sort rows by degree, so the units of a warp have close
+//     lengths: on the reddit_posts graph the warps walk 1.001-1.006 times
+//     the entries they hold;
+//   - each group walks its unit's nonzeros in order and each lane runs the
+//     f32 instance's fmaf chain per column, and the partial rows go through
+//     the same reduce pass, so on B rounded to bf16 and widened it gives
+//     the f32 instance's bits.  out, scratch and the accumulator stay f32
+//     [*, k]: float4 stores when k % 4 == 0 and they are aligned, else
+//     masked scalar stores.
+// On an H100 80GB HBM3 at 700 W on the reddit_posts graph, 16-byte loads of
+// the padded cast ran at 7.3 / 4.8 / 4.5 TB/s of gathered rows (nnz x ldb
+// x 2 bytes) at k = 128 / 41 / 32: 0.82 / 0.47 / 0.34 ms, where the f32
+// body on 8-byte bf16 loads took 1.02 / 1.02 ms at k = 128 / 41.
 //
 // Bound: 2 operations per 4 bytes of B row read, far below the FP32 ridge
 // (20 flop/byte), so bytes bound it; what this run's data needs once is
 // cols, vals, B and C.  What the kernel moves is more: every nonzero reads
 // a whole B row, from L2 when the graph's ordering keeps a row's columns
 // close.  That L2 traffic of re-read B rows is the limit: on an H100 the
-// units pass ran at about 8.6 TB/s of gathered rows on the reddit_posts
+// f32 units pass ran at about 8.6 TB/s of gathered rows on the reddit_posts
 // graph, and neither the unit size (64 to 1024 nonzeros) nor a cap of 32
 // registers (64 warps an SM, with spills) moved it.  Reuse of B rows
 // through shared memory across the rows of a tile is not done here.
@@ -95,25 +121,6 @@ __device__ __forceinline__ void store4(float* row, int col0, int k, int lane,
 #pragma unroll
     for (int t = 0; t < 4; ++t)
       if (col0 + lane + 32 * t < k) row[lane + 32 * t] = v[t];
-  }
-}
-
-// four bf16 of a B row, widened to f32: one 8-byte load (VEC) or scalars
-template <bool VEC>
-__device__ __forceinline__ void load4(const __nv_bfloat16* row, int col0,
-                                      int k, int lane, float (&v)[4]) {
-  if (VEC) {
-    if (col0 + lane * 4 < k) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(row + lane * 4);
-      const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) v[t] = __bfloat162float(b[t]);
-    }
-  } else {
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      if (col0 + lane + 32 * t < k)
-        v[t] = __bfloat162float(row[lane + 32 * t]);
   }
 }
 
@@ -233,8 +240,8 @@ int launch(const int32_t* cols, const float* vals, const int32_t* row_start,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the vector path moves 4 elements of B a lane (16 bytes in f32, 8 in
-// bf16) and float4 rows of out and scratch
+// the vector path moves 4 elements of B a lane (one float4) and float4
+// rows of out and scratch
 template <typename T>
 int launch_any(const int32_t* cols, const float* vals,
                const int32_t* row_start, const int32_t* units,
@@ -255,6 +262,163 @@ int launch_any(const int32_t* cols, const float* vals,
 #undef FLEX_ROWS
 }
 
+// ---- B in bf16: G lanes a unit, 8 columns a lane --------------------------
+
+// eight bf16 of a B row from column c, widened: one 16-byte load (VEC: the
+// row and ldb 16-byte aligned; columns up to round_up(k, 8) lie in the row's
+// pad) or 2-byte loads of the columns below k
+template <bool VEC>
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c, int k,
+                                      float (&v)[8]) {
+  if (c >= k) return;
+  if (VEC) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 f = __bfloat1622float2(h[t]);
+      v[2 * t] = f.x, v[2 * t + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (c + t < k) v[t] = __bfloat162float(row[c + t]);
+  }
+}
+
+// eight f32 of an out or scratch row from column c, columns below k only:
+// two float4 (V4: k % 4 == 0 and the row 16-byte aligned) or scalars
+__device__ __forceinline__ void load8f(const float* row, int c, int k, bool v4,
+                                       float (&v)[8]) {
+  if (v4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (c + 4 * h < k) {
+        const float4 o = *reinterpret_cast<const float4*>(row + c + 4 * h);
+        v[4 * h] = o.x, v[4 * h + 1] = o.y, v[4 * h + 2] = o.z,
+        v[4 * h + 3] = o.w;
+      }
+  } else {
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (c + t < k) v[t] = row[c + t];
+  }
+}
+
+__device__ __forceinline__ void store8f(float* row, int c, int k, bool v4,
+                                        const float (&v)[8]) {
+  if (v4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (c + 4 * h < k)
+        *reinterpret_cast<float4*>(row + c + 4 * h) = make_float4(
+            v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (c + t < k) row[c + t] = v[t];
+  }
+}
+
+// rows_kernel's function with B in bf16 (row stride ldb): lane group
+// lane / G of a warp owns unit (warp * 32 / G + lane / G), lane lane % G
+// columns col0 + 8 (lane % G) .. + 8 of the slice.  The warp walks its
+// longest unit's length in stages of S = max(G, 8) entries, each lane
+// staging R = S / G cols and vals (the next stage's loaded before this
+// stage's B rows); every lane takes every shuffle, and an entry past its
+// group's unit loads and adds nothing.  acc_into: out[row] += the sum; v4:
+// out and scratch move by float4
+template <int G, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32)
+rows_bf16_kernel(const int32_t* __restrict__ cols,
+                 const float* __restrict__ vals,
+                 const int32_t* __restrict__ row_start,
+                 const int4* __restrict__ units,
+                 const __nv_bfloat16* __restrict__ B, float* __restrict__ out,
+                 float* __restrict__ scratch, int n_units, int k, int ldb,
+                 bool acc_into, bool v4) {
+  constexpr int S = G > 8 ? G : 8;
+  constexpr int R = S / G;
+  const int lane = threadIdx.x % 32;
+  const int gl = lane % G;
+  const int u = (blockIdx.x * WARPS + threadIdx.x / 32) * (32 / G) + lane / G;
+  int4 unit = make_int4(0, 0, 0, -1);  // (row, lo, hi, part)
+  if (u < n_units) unit = units[u];
+  // a group past the last unit, or whose unit adds nothing, has no entries
+  const bool live =
+      u < n_units && !(acc_into && unit.w < 0 && unit.y == unit.z);
+  const int len = live ? unit.z - unit.y : 0;
+  const int n = __reduce_max_sync(0xffffffffu, len);
+  const int c = blockIdx.y * SLICE + gl * 8;
+  const int32_t* ucols = cols + (live ? row_start[unit.x] + unit.y : 0);
+  const float* uvals = vals + (ucols - cols);
+
+  int cs[R], ncs[R];
+  float vs[R], nvs[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const int j = t * G + gl;
+    cs[t] = j < len ? ucols[j] : 0;
+    vs[t] = j < len ? uvals[j] : 0.f;
+  }
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int j0 = 0; j0 < n; j0 += S) {
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int j = j0 + S + t * G + gl;
+      ncs[t] = j < len ? ucols[j] : 0;
+      nvs[t] = j < len ? uvals[j] : 0.f;
+    }
+#pragma unroll 8
+    for (int jj = 0; jj < S; ++jj) {
+      const int r = __shfl_sync(0xffffffffu, cs[jj / G], jj % G, G);
+      const float a = __shfl_sync(0xffffffffu, vs[jj / G], jj % G, G);
+      if (j0 + jj < len) {
+        float b[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        load8<VEC>(B + (int64_t)r * ldb, c, k, b);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] = fmaf(a, b[i], acc[i]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < R; ++t) cs[t] = ncs[t], vs[t] = nvs[t];
+  }
+  if (!live) return;
+
+  if (unit.w >= 0) {
+    store8f(scratch + (int64_t)unit.w * k, c, k, v4, acc);
+    return;
+  }
+  float* orow = out + (int64_t)unit.x * k;
+  if (acc_into) {
+    float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    load8f(orow, c, k, v4, o);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = o[i] + acc[i];
+  }
+  store8f(orow, c, k, v4, acc);
+}
+
+template <int G>
+void launch_bf16_units(const int32_t* cols, const float* vals,
+                       const int32_t* row_start, const int32_t* units,
+                       const __nv_bfloat16* B, float* out, float* scratch,
+                       int n_units, int k, int ldb, bool vec, bool acc_into,
+                       bool v4, cudaStream_t st) {
+  const int per_block = WARPS * (32 / G);
+  const dim3 grid((n_units + per_block - 1) / per_block,
+                  (k + SLICE - 1) / SLICE);
+  const int4* u = reinterpret_cast<const int4*>(units);
+  if (vec)
+    rows_bf16_kernel<G, true><<<grid, WARPS * 32, 0, st>>>(
+        cols, vals, row_start, u, B, out, scratch, n_units, k, ldb, acc_into,
+        v4);
+  else
+    rows_bf16_kernel<G, false><<<grid, WARPS * 32, 0, st>>>(
+        cols, vals, row_start, u, B, out, scratch, n_units, k, ldb, acc_into,
+        v4);
+}
+
 }  // namespace
 
 // cols, vals: the flat store; row_start: int32[m]; units: int32[n_units][4]
@@ -271,7 +435,9 @@ extern "C" int flex_gespmm_rows(const int32_t* cols, const float* vals,
                            scratch, n_units, n_splits, k, accumulate, stream);
 }
 
-// the same with B in bf16 (out, scratch and the sums f32)
+// the same with B in bf16, rows ldb elements apart (ldb >= k), read by
+// lane groups of `lanes` (a power of two <= 16, 8 lanes >= min(k, 128));
+// out, scratch and the sums f32
 extern "C" int flex_gespmm_rows_bf16(const int32_t* cols, const float* vals,
                                      const int32_t* row_start,
                                      const int32_t* units,
@@ -279,8 +445,46 @@ extern "C" int flex_gespmm_rows_bf16(const int32_t* cols, const float* vals,
                                      const __nv_bfloat16* B, float* out,
                                      float* scratch, int n_units,
                                      int n_splits, int k, int accumulate,
-                                     void* stream) {
-  return launch_any<__nv_bfloat16>(cols, vals, row_start, units, splits, B,
-                                   out, scratch, n_units, n_splits, k,
-                                   accumulate, stream);
+                                     int ldb, int lanes, void* stream) {
+  const int need = (k < SLICE ? k : SLICE);
+  if (ldb < k || lanes < 1 || lanes > SLICE / 8 || (lanes & (lanes - 1)) ||
+      (k > 0 && 8 * lanes < need))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (k == 0 || (n_units == 0 && n_splits == 0)) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = ldb % 8 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  const bool v4 = k % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+  const bool acc_into = accumulate != 0;
+  if (n_units) {
+#define FLEX_BF16(G)                                                        \
+  launch_bf16_units<G>(cols, vals, row_start, units, B, out, scratch,       \
+                       n_units, k, ldb, vec, acc_into, v4, st)
+    switch (lanes) {
+      case 1: FLEX_BF16(1); break;
+      case 2: FLEX_BF16(2); break;
+      case 4: FLEX_BF16(4); break;
+      case 8: FLEX_BF16(8); break;
+      default: FLEX_BF16(16); break;
+    }
+#undef FLEX_BF16
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (n_splits) {
+    const dim3 grid(n_splits, (k + SLICE - 1) / SLICE);
+    if (v4 && acc_into)
+      rows_reduce_kernel<true, true><<<grid, RWARPS * 32, 0, st>>>(
+          scratch, splits, out, k);
+    else if (v4)
+      rows_reduce_kernel<true, false><<<grid, RWARPS * 32, 0, st>>>(
+          scratch, splits, out, k);
+    else if (acc_into)
+      rows_reduce_kernel<false, true><<<grid, RWARPS * 32, 0, st>>>(
+          scratch, splits, out, k);
+    else
+      rows_reduce_kernel<false, false><<<grid, RWARPS * 32, 0, st>>>(
+          scratch, splits, out, k);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -194,8 +194,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "gespmm":
         # (cols, vals, row_start, units, splits, B, out, scratch,
         #  n_units, n_splits, k, accumulate, stream)
-        for fn in (lib.flex_gespmm_rows, lib.flex_gespmm_rows_bf16):
-            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-            fn.restype = i
+        lib.flex_gespmm_rows.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+        lib.flex_gespmm_rows.restype = i
+        # (..., accumulate, ldb, lanes, stream): B's row stride, lanes a unit
+        lib.flex_gespmm_rows_bf16.argtypes = [p, p, p, p, p, p, p, p,
+                                              i, i, i, i, i, i, p]
+        lib.flex_gespmm_rows_bf16.restype = i
     else:
         raise ValueError(f"no CUDA source named {name!r}")

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.gespmm import (
-    RowTables, gespmm_rows, row_tables, tables_from_buckets, unit_entries,
+    RowTables, gespmm_rows, row_tables, tables_from_buckets, to_bf16_padded,
+    unit_entries,
 )
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import (
@@ -404,10 +405,11 @@ def ell_spmm_plain(plan: EllPlan, B, into=None):
 def _ell_raw_call(plan: EllPlan, B, into):
     if B.device.type == "cpu" or not plan.buckets:
         return ell_spmm_plain(plan, B, into)
-    # a bf16 plan casts B once; gespmm_rows then launches kernel 7's bf16
-    # instance, whose output is f32
-    return gespmm_rows(plan.row_tables(), B.to(B_DTYPES[plan.b_dtype]),
-                       into=into)
+    # a bf16 plan casts B once, into rows padded to 16 bytes; gespmm_rows
+    # then launches kernel 7's bf16 instance, whose output is f32
+    Bc = to_bf16_padded(B) if plan.b_dtype == "bfloat16" \
+        else B.to(torch.float32)
+    return gespmm_rows(plan.row_tables(), Bc, into=into)
 
 
 def _ell_transpose_scatter(plan: EllPlan, g, n: int):

@@ -164,9 +164,13 @@ def gespmm_rows_plain(t: RowTables, B, into=None,
     return into.add_(out) if into is not None else out
 
 
-def _rows_call(t: RowTables, B, into, symbol: str):
+def _rows_call(t: RowTables, B, into, symbol: str, row_strided=(),
+               extra=()):
     """Checks, then the plain version on the CPU or ``symbol`` of
-    ``csrc/gespmm.cu`` on the card; returns (out, launched)."""
+    ``csrc/gespmm.cu`` on the card, with the ints ``extra`` after its
+    others; returns (out, launched).  ``row_strided=("B",)`` lets B be a
+    column slice of a wider buffer
+    (:func:`.operands.check_kernel_operands`)."""
     if B.dim() != 2:
         raise ValueError(f"B must be 2-D, got {tuple(B.shape)}")
     m, k = t.m, B.shape[1]
@@ -185,8 +189,9 @@ def _rows_call(t: RowTables, B, into, symbol: str):
         return gespmm_rows_plain(t, B, into), False
     if B.device.type != "cuda":
         raise ValueError(f"no gespmm kernel for device {B.device}")
-    check_kernel_operands(("units",), cols=t.cols, row_start=t.row_start,
-                          units=t.units, splits=t.splits, B=B, **floats)
+    check_kernel_operands(("units",), row_strided, cols=t.cols,
+                          row_start=t.row_start, units=t.units,
+                          splits=t.splits, B=B, **floats)
     if t.cols.numel() and B.shape[0] == 0:
         raise ValueError("B has no rows for cols to point at")
     from flex_tpu_torch import kernels
@@ -200,7 +205,7 @@ def _rows_call(t: RowTables, B, into, symbol: str):
                    t.row_start.data_ptr(), t.units.data_ptr(),
                    t.splits.data_ptr(), B.data_ptr(), out.data_ptr(),
                    scratch.data_ptr(), t.units.shape[0], t.splits.shape[0], k,
-                   int(into is not None))
+                   int(into is not None), *extra)
     return out, True
 
 
@@ -226,16 +231,61 @@ def gespmm_rows(t: RowTables, B, into=None):
 gespmm_rows.launches = 0
 
 
+def bf16_layout(k: int) -> tuple[int, int, int]:
+    """How kernel 7's bf16 instance reads B at width ``k``: (ldb, the row
+    stride of the padded cast, k rounded up to 8 elements = 16 bytes;
+    lanes_per_row G, the smallest power of two with 8·G ≥ min(k, 128), the
+    lanes that read one B row, 8 columns each; units_per_warp, 32 / G)."""
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    ldb = -(-k // 8) * 8
+    lanes = 1
+    while 8 * lanes < min(k, 128):
+        lanes *= 2
+    return ldb, lanes, 32 // lanes
+
+
+def to_bf16_padded(B: torch.Tensor) -> torch.Tensor:
+    """B cast to bf16 as the ``[n, k]`` view of a new ``[n, ldb]`` buffer
+    (:func:`bf16_layout`) whose pad columns are zero: every row of the
+    view starts on a 16-byte boundary, so the bf16 instance reads it with
+    16-byte loads at any k.  One pass over B, as a plain cast."""
+    n, k = B.shape
+    ldb = bf16_layout(k)[0]
+    buf = torch.empty((n, ldb), dtype=torch.bfloat16, device=B.device)
+    buf[:, k:].zero_()
+    buf[:, :k].copy_(B)
+    return buf[:, :k]
+
+
 def gespmm_rows_bf16(t: RowTables, B, into=None):
     """:func:`gespmm_rows` with B in bf16 (the JAX package's
     ``b_dtype="bfloat16"`` gather): bf16 rows of B, widened to f32, times
-    the f32 values, summed in f32; out and ``into`` are f32.  CUDA tensors
-    launch kernel 7's bf16 instance (``flex_gespmm_rows_bf16``, counted in
-    ``gespmm_rows_bf16.launches``), whose sums run in the f32 instance's
-    order; CPU tensors take :func:`gespmm_rows_plain`."""
+    the f32 values, summed in f32; out and ``into`` are f32.  B is
+    contiguous or row-strided (a column slice of a wider buffer, as
+    :func:`to_bf16_padded` makes).  CUDA tensors launch kernel 7's bf16
+    instance (``flex_gespmm_rows_bf16``, counted in
+    ``gespmm_rows_bf16.launches``) with B's row stride and the lanes of
+    :func:`bf16_layout`: 16-byte loads when the rows are 16-byte aligned,
+    else 2-byte loads, and the f32 instance's sums in its order either
+    way.  CPU tensors take :func:`gespmm_rows_plain`."""
     if B.dtype != torch.bfloat16:
         raise ValueError(f"B must be bfloat16, got {B.dtype}")
-    out, launched = _rows_call(t, B, into, "flex_gespmm_rows_bf16")
+    if B.dim() != 2:
+        raise ValueError(f"B must be 2-D, got {tuple(B.shape)}")
+    n, k = B.shape
+    ldb = B.stride(0) if n > 1 else k
+    if B.device.type == "cuda" and n and k % 8 and ldb % 8 == 0 \
+            and B.data_ptr() % 16 == 0:
+        # 16-byte loads read the last row's pad up to column round_up(k, 8)
+        have = (B.untyped_storage().data_ptr()
+                + B.untyped_storage().nbytes() - B.data_ptr()) // 2
+        if have < (n - 1) * ldb + bf16_layout(k)[0]:
+            raise ValueError("B's storage ends inside its last row's pad "
+                             "(16-byte loads would read past it)")
+    out, launched = _rows_call(t, B, into, "flex_gespmm_rows_bf16",
+                               row_strided=("B",),
+                               extra=(ldb, bf16_layout(k)[1]))
     gespmm_rows_bf16.launches += launched
     return out
 

@@ -33,14 +33,23 @@ def check_operands(ints: dict, floats: dict) -> None:
         raise ValueError(f"arguments lie on several devices: {devices}")
 
 
-def check_kernel_operands(aligned=(), **tensors) -> None:
+def check_kernel_operands(aligned=(), row_strided=(), **tensors) -> None:
     """What the CUDA kernels add to :func:`check_operands`: every tensor
     contiguous and no size beyond the kernels' int32 arguments; those named
-    in ``aligned`` start on a 16-byte boundary (they move by float4)."""
+    in ``aligned`` start on a 16-byte boundary (they move by float4).  A
+    2-D tensor named in ``row_strided`` may instead have rows ``stride(0)
+    >= size(1)`` elements apart (``stride(1) == 1``): the layout of a
+    column slice of a wider buffer, which the kernel reads by row
+    stride."""
     for name, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if max(t.shape, default=0) >= 2**31:
+        if not t.is_contiguous() and not (
+                name in row_strided and t.dim() == 2 and t.stride(1) == 1
+                and t.stride(0) >= t.shape[1]):
+            raise ValueError(f"{name} must be contiguous" + (
+                " or row-strided (stride(1) == 1, stride(0) >= size(1))"
+                if name in row_strided else ""))
+        if max(t.shape, default=0) >= 2**31 or (
+                name in row_strided and t.dim() == 2 and t.stride(0) >= 2**31):
             raise ValueError(f"a size of {name} exceeds the kernel's int32 "
                              f"arguments")
         if name in aligned and t.data_ptr() % 16:

@@ -8,8 +8,12 @@ bf16 residue through its transposed backward plan, which gathers the
 cotangent in bf16, against ``jax.grad`` of the JAX plan with its
 ``with_bwd_plan`` (1e-4).  ``bench_spmm``'s check scales its tolerance by
 bf16 eps / f32 eps for such a plan, as the JAX harness does; the f32
-tolerance flags the same output.  The kernel itself runs only on a card:
-tests/test_torch_cuda.py."""
+tolerance flags the same output.  The bf16 instance's layout:
+``bf16_layout`` (row stride, lanes a row, units a warp), the padded cast
+that the plans hand it (``to_bf16_padded``), the plain versions on that
+view against the JAX plan, and the operand check that admits a
+row-strided B.  The kernel
+itself runs only on a card: tests/test_torch_cuda.py."""
 import numpy as np
 import pytest
 import torch
@@ -24,11 +28,13 @@ from flex_tpu.ops.window_spmm import with_training_bwd as j_with_training_bwd
 from flex_tpu_torch.bench.harness import bench_spmm, check_eps_scale
 from flex_tpu_torch.io import community_graph
 from flex_tpu_torch.ops.ell_spmm import (
-    check_b_dtype, prepare_ell, with_bwd_plan,
+    check_b_dtype, ell_spmm_plain, prepare_ell, with_bwd_plan,
 )
 from flex_tpu_torch.ops.gespmm import (
-    gespmm_rows, gespmm_rows_bf16, gespmm_rows_plain,
+    bf16_layout, gespmm_rows, gespmm_rows_bf16, gespmm_rows_plain,
+    to_bf16_padded,
 )
+from flex_tpu_torch.ops.operands import check_kernel_operands
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.ops.window_spmm import prepare_windowed, with_training_bwd
 from flex_tpu_torch.reorder import reorder
@@ -206,3 +212,81 @@ def test_cli_b_dtype_flag_reaches_the_plan(tmp_path, capsys):
         (row,) = list(csv.DictReader(f))
     assert row["method"] == "ell" and float(row["err_frac"]) == 0.0
     assert "kernel launches: " in capsys.readouterr().out
+
+
+# -- the bf16 instance's layout: padded rows, lane groups ---------------------
+
+@pytest.mark.parametrize("k", [1, 7, 8, 41, 64, 128, 200])
+def test_bf16_layout(k):
+    """ldb is k rounded up to 8 elements (16 bytes); G is the smallest power
+    of two whose 8·G columns cover min(k, 128); a warp runs 32 / G units."""
+    ldb, lanes, per_warp = bf16_layout(k)
+    assert ldb % 8 == 0 and k <= ldb < k + 8
+    assert lanes & (lanes - 1) == 0 and 8 * lanes >= min(k, 128)
+    assert lanes == 1 or 4 * lanes < min(k, 128)
+    assert lanes * per_warp == 32
+
+
+@pytest.mark.parametrize("k", [1, 7, 8, 41, 128, 200])
+def test_bf16_padded_view(k):
+    """The padded cast equals ``B.to(torch.bfloat16)``, its rows lie ldb
+    elements apart in a buffer whose pad columns are zero, and the kernels'
+    operand check takes it as a row-strided B."""
+    B = torch.from_numpy(
+        (2 * np.random.default_rng(k).random((37, k)) - 1).astype(np.float32))
+    P = to_bf16_padded(B)
+    ldb = bf16_layout(k)[0]
+    assert P.dtype == torch.bfloat16 and P.shape == B.shape
+    assert P.stride() == (ldb, 1)
+    assert torch.equal(P, B.to(torch.bfloat16))
+    buf = P.as_strided((B.shape[0], ldb), (ldb, 1))
+    assert not buf[:, k:].any()
+    check_kernel_operands((), ("B",), B=P)
+
+
+@pytest.mark.parametrize("k", [8, 41, 128, 200])
+def test_bf16_plain_on_padded_view_matches_jax(k):
+    """``ell_spmm_plain`` and ``gespmm_rows_plain`` (and the bf16 wrapper's
+    CPU path) on the padded view give the JAX bf16 plan's output, at the
+    tolerance of :func:`test_bf16_ell_matches_jax`, and the plan's own
+    call's bits."""
+    g = _community()
+    B = _features(g, k)
+    P = to_bf16_padded(torch.from_numpy(B))
+    plan = prepare_ell(g, b_dtype="bfloat16", device="cpu")
+    C_jax = np.asarray(j_prepare_ell(jax_graph(g), b_dtype="bfloat16")(
+        jnp.asarray(B)))
+    t = plan.row_tables()
+    want = plan(torch.from_numpy(B)).numpy()
+    for C in (ell_spmm_plain(plan, P), gespmm_rows_plain(t, P),
+              gespmm_rows_bf16(t, P)):
+        assert C.dtype == torch.float32
+        np.testing.assert_allclose(C.numpy(), C_jax, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(ell_spmm_plain(plan, P).numpy(), want)
+
+
+def _b_layouts(k=41, n=6):
+    base = torch.arange(n * 64, dtype=torch.float32).view(n, 64).bfloat16()
+    return {"contiguous": base[:, :k].contiguous(),
+            "padded": to_bf16_padded(base[:, :k].float()),
+            "column_slice": base[:, 8:8 + k],
+            "column_strided": base[:, ::2],
+            "transposed": base[:k, :n].t()}
+
+
+@pytest.mark.parametrize("layout,ok", [
+    ("contiguous", True), ("padded", True), ("column_slice", True),
+    ("column_strided", False), ("transposed", False)])
+def test_kernel_operands_row_strided_b(layout, ok):
+    """``check_kernel_operands`` takes a row-strided B (stride(1) == 1,
+    stride(0) >= k) only where the caller names it ``row_strided``, and
+    refuses a column-strided or transposed one either way."""
+    B = _b_layouts()[layout]
+    if ok:
+        check_kernel_operands((), ("B",), B=B)
+    else:
+        with pytest.raises(ValueError, match="row-strided"):
+            check_kernel_operands((), ("B",), B=B)
+    if layout != "contiguous":
+        with pytest.raises(ValueError, match="must be contiguous$"):
+            check_kernel_operands(B=B)

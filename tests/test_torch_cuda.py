@@ -931,14 +931,16 @@ def test_panel_hub_rows_match_plain_and_scipy(cuda, k):
 
 # -- kernel 7's bf16 instance and the sharded plans on one card ---------------
 
-@pytest.mark.parametrize("k", [8, 41, 128, 200])
+@pytest.mark.parametrize("k", [8, 16, 32, 41, 64, 96, 128, 200])
 @pytest.mark.parametrize("w", [7, 32])
 def test_gespmm_bf16_kernel_matches_plain(cuda, w, k):
     """B in bf16: the bf16 instance (counted apart from the f32 one) gives
     the f32 instance's bits on B widened (the same fmaf order), its plain
     version within the rounding bound of two f32 sums, the same bits when
-    launched again and when B is misaligned (scalar loads); f32 out."""
-    from flex_tpu_torch.ops.gespmm import gespmm_rows_bf16
+    launched again, and the same bits on each layout of B: contiguous, the
+    plans' padded cast (16-byte loads at every k) and misaligned (2-byte
+    loads), one launch each, with and without an accumulator; f32 out."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows_bf16, to_bf16_padded
 
     g = _hub_and_empty()
     plan = prepare_gespmm(g, w=w, device=cuda)
@@ -955,10 +957,27 @@ def test_gespmm_bf16_kernel_matches_plain(cuda, w, k):
     mis = torch.empty(g.n * k + 1, dtype=torch.bfloat16,
                       device=cuda)[1:].view(g.n, k)
     mis.copy_(Bb)
-    assert torch.equal(out, gespmm_rows(plan.rows, mis))
+    padded = to_bf16_padded(Bb)
     base = torch.rand((g.m, k), device=cuda)
-    assert torch.equal(gespmm_rows(plan.rows, Bb, into=base.clone()),
-                       gespmm_rows(plan.rows, Bb.float(), into=base.clone()))
+    want_into = gespmm_rows(plan.rows, Bb.float(), into=base.clone())
+    for layout in (Bb, padded, mis):
+        n0 = gespmm_rows_bf16.launches
+        assert torch.equal(out, gespmm_rows(plan.rows, layout))
+        assert torch.equal(gespmm_rows(plan.rows, layout, into=base.clone()),
+                           want_into)
+        assert gespmm_rows_bf16.launches == n0 + 2
+
+
+def test_gespmm_bf16_refuses_a_short_last_row(cuda):
+    """A row-strided bf16 B whose storage ends before its last row's pad is
+    refused: 16-byte loads would read past it."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows_bf16
+
+    g = _hub_and_empty()
+    plan = prepare_gespmm(g, w=32, device=cuda)
+    flat = torch.zeros((g.n - 1) * 48 + 41, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="pad"):
+        gespmm_rows_bf16(plan.rows, flat.as_strided((g.n, 41), (48, 1)))
 
 
 def test_bf16_ell_plan_on_the_card(cuda):
