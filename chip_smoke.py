@@ -151,12 +151,27 @@ Phases:
      the launch counts (each of the example's kernels at least once);
      kernels 1 and 3 on the windowed example's own plan at k = 64 and 8
      against their plain versions.
+ 19. [micro] the probes of experiments/: each of
+     flex_tpu_torch.experiments.micro_ellreduce, micro_dma_u16, micro_tpu
+     and micro_vmem_gather run by its main() at the scripts' sizes (their
+     launches of kernels 8-11 counted from 0); u16x2's rebuilt rows
+     bit-exact; then kernel 8 (row_gather_sum) at the scripts' 64 x 1024
+     (16 deep) and 32 x 1024 (8 deep) rows and at 7,520 x 1024 rows beside
+     kernel 7's gather rate in phase 10 (GE-SpMM, k = 128), kernel 9
+     (smem_probe) at the opt-in limit that m6_vmem_probe found, beside
+     x.clone() (launch-bound), kernel 10 (slab_gather) in both placements
+     with and without bf16 rounding and kernel 11 (ell_reduce) on the
+     script's 3.4 GB, each held to its plain version (bits for 8-10, the
+     f32 order bound for 11) with its time, the plain version's, the
+     library call's and the bound.  Phase 3 also holds kernels 8-11 to
+     their plain versions at the edges of their shapes.
 Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after (the command-line phases
 count in their own process, from 0, and print the counts last).
-Then one JSON line {"kernels": [...]} (eight rows: kernel 7's bf16
-instance is its own; each row also counts its kernel's launches in the
+Then one JSON line {"kernels": [...]} (twelve rows: kernel 7's bf16
+instance is its own, kernels 8-11 are the probes'; each row also counts
+its kernel's launches in the
 phases autotune, gcn_bench, cli_*, sweep, 11e-11h and 16-18), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA card the script exits 2
@@ -1006,15 +1021,19 @@ def ptxas_summary(usage: list) -> dict:
 
 
 def reset_launches():
-    from flex_tpu_torch.kernels import reset_launch_counts
+    """Every count to 0: the package's kernels and the probes' (8-11)."""
+    from flex_tpu_torch import kernels
+    from flex_tpu_torch.experiments import micro
 
-    reset_launch_counts()
+    kernels.reset_launch_counts()
+    micro.reset_launch_counts()
 
 
 def read_launches() -> dict:
-    from flex_tpu_torch.kernels import launch_counts
+    from flex_tpu_torch import kernels
+    from flex_tpu_torch.experiments import micro
 
-    return launch_counts()
+    return {**kernels.launch_counts(), **micro.launch_counts()}
 
 
 def expect_launches(launches: dict, what: str, **counts):
@@ -3324,6 +3343,282 @@ def phase_examples(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the probes of experiments/: kernels 8-11
+# ---------------------------------------------------------------------------
+
+# the probes' mains: each timed call is 1 checked + 3 warm-up + 10 timed
+# (3 timed in m3_row_dma); m6_vmem_probe launches 48..227 KB, and 228 KB
+# is refused before it launches
+MICRO_LAUNCHES = dict(ell_reduce=28, row_gather_sum=21, smem_probe=5,
+                      slab_gather=42)
+
+
+def require_plain_bits(torch, name, label, out, ref):
+    """A kernel whose plain version takes its sums in the kernel's order,
+    or copies: the same bits.  Returns max_abs_err (0)."""
+    if out.shape != ref.shape or not torch.equal(out, ref):
+        diff = (float((out - ref).abs().max()) if out.shape == ref.shape
+                else f"shape {tuple(out.shape)} != {tuple(ref.shape)}")
+        raise AssertionError(f"{name} on {label} differs from plain: {diff}")
+    log(f"[kernel-vs-plain] {name} {label}: the plain version's bits")
+    return 0.0
+
+
+def check_ell_reduce(torch, v, Bg, label):
+    """Kernel 11 (fmaf over j in order) against the plain product and sum,
+    to the f32 order bound 2·w·eps·Σ_j |v·Bg|."""
+    from flex_tpu_torch.experiments import micro
+
+    out = micro.ell_reduce(v, Bg)
+    ref = micro.ell_reduce_plain(v, Bg)
+    absprod = (v.abs()[:, :, None] * Bg.abs()).sum(1)
+    return hold_to_plain(torch, "ell_reduce", label, out, ref, absprod,
+                         v.shape[1])
+
+
+def phase_micro_kernels_vs_plain(torch, dev="cuda"):
+    """Phase 3 for kernels 8-11 at the edges of their shapes: kernel 8 with
+    0, 1, 7 and 1001 rows a step, k = 128, 64 and 36, both ring depths;
+    kernel 9 at 48 and 227 KB; kernel 10 in both placements, with and
+    without bf16 rounding, on a slab of 1000 rows (not a multiple of the
+    cluster's 16 blocks) at k = 36; kernel 11 at w = 40 (two passes of 32)
+    and k = 200 (two column slices)."""
+    from flex_tpu_torch.experiments import micro
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B = torch.rand((5000, 128), generator=gen, device=dev) * 2 - 1
+    for S, n, depth, k in ((3, 0, 8, 128), (3, 1, 16, 128), (4, 7, 16, 128),
+                           (5, 1001, 8, 64), (2, 300, 16, 36),
+                           (9, 1024, 8, 128)):
+        Bk = B[:, :k].contiguous()
+        idx = torch.randint(0, 5000, (S, n), generator=gen, device=dev,
+                            dtype=torch.int32)
+        require_plain_bits(torch, "row_gather_sum",
+                           f"{S} steps x {n} rows k={k} depth={depth}",
+                           micro.row_gather_sum(Bk, idx, depth),
+                           micro.row_gather_sum_plain(Bk, idx))
+    x = torch.rand((8, 128), generator=gen, device=dev)
+    for kb in (48, 227):
+        require_plain_bits(torch, "smem_probe", f"{kb} KB",
+                           micro.smem_probe(x, kb * 1024),
+                           micro.smem_probe_plain(x, kb * 1024))
+    slab = torch.rand((1000, 36), generator=gen, device=dev) * 2 - 1
+    idx = torch.randint(0, 1000, (777,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for placement in micro.PLACEMENTS:
+        for rnd in (False, True):
+            require_plain_bits(
+                torch, "slab_gather", f"U=1000 k=36 {placement} bf16={rnd}",
+                micro.slab_gather(slab, idx, placement, rnd),
+                micro.slab_gather_plain(slab, idx, rnd))
+    for N, w, k in ((100, 40, 200), (7, 1, 4), (33, 32, 128)):
+        v = torch.rand((N, w), generator=gen, device=dev) * 2 - 1
+        Bg = torch.rand((N, w, k), generator=gen, device=dev) * 2 - 1
+        check_ell_reduce(torch, v, Bg, f"N={N} w={w} k={k}")
+    torch.cuda.synchronize()
+
+
+def micro_times(torch, time_cuda_ms, kernel, plain, library, args,
+                iters=20):
+    """(kernel ms, plain ms, library ms or None) on the same inputs."""
+    ms = time_cuda_ms(kernel, *args, iters=iters)
+    plain_ms = time_cuda_ms(plain, *args, iters=5)
+    lib_ms = None if library is None else time_cuda_ms(library, *args,
+                                                       iters=iters)
+    return ms, plain_ms, lib_ms
+
+
+def phase_micro(torch, peaks, time_cuda_ms, smi, kernel7_rows, kernel7_ms):
+    """[micro] the four probes' ``main`` in process at the scripts' sizes
+    (the launch counts set to 0 just before and read just after), u16x2's
+    rebuilt rows bit-exact; then each of kernels 8-11 on the scripts'
+    inputs held to its plain version (bits for 8, 9 and 10; the f32 order
+    bound for 11), its time beside the plain version's, the library
+    call's and the bound.  Kernel 8 also at 7,520 steps of 1024 rows
+    (m2_gather_bw's 7.70 M rows, through m3_row_dma's parameters) beside
+    kernel 7's gather rate in this run: ``kernel7_rows`` B rows (one a
+    nonzero of the main path's graph) in ``kernel7_ms``, its time at
+    k = 128 on the GE-SpMM plan.  Kernel 10 in both placements, with and
+    without bf16 rounding.  Returns the four rows of the kernels line."""
+    import torch.nn.functional as F
+    from flex_tpu_torch.experiments import (
+        micro, micro_dma_u16, micro_ellreduce, micro_tpu, micro_vmem_gather,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = {}
+    reset_launches()
+    for mod in (micro_ellreduce, micro_dma_u16, micro_tpu, micro_vmem_gather):
+        name = mod.__name__.rsplit(".", 1)[1]
+        log(f"[micro] {mod.__name__}.main(), as python -m {mod.__name__}:")
+        t1 = time.perf_counter()
+        res[name] = mod.main()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[micro] {name}: {time.perf_counter() - t1:.1f}s")
+    launches = read_launches()
+    expect_launches(launches, "the probes' mains", **MICRO_LAUNCHES)
+    t_mains = time.perf_counter() - t0
+    if not res["micro_dma_u16"]["u16x2"]["bits_equal"]:
+        raise AssertionError("u16x2: the rebuilt rows are not B's bits")
+    probe = res["micro_tpu"]["m6_vmem_probe"]
+    log(f"[micro] u16x2 rebuilds f32 exactly (max abs diff "
+        f"{res['micro_dma_u16']['u16x2']['max_abs_diff']}); smem probe: "
+        f"{probe['ok_kb']} KB launched, {probe['refused_kb']} KB refused, "
+        f"opt-in limit {probe['limit_bytes']} B")
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    # kernel 8: E1 (64 steps, 16 deep), E2 (32 steps, 8 deep), 7.70 M rows
+    B = torch.rand((262144, K), generator=gen, device=dev)
+    k8 = {}
+    for tag, S, depth in (("e1", 64, 16), ("e2", 32, 8),
+                          ("7520_steps", 7520, 8)):
+        idx = torch.randint(0, B.shape[0], (S, 1024), generator=gen,
+                            device=dev, dtype=torch.int32)
+        out = micro.row_gather_sum(B, idx, depth)
+        require_plain_bits(torch, "row_gather_sum",
+                           f"{S} steps x 1024 rows depth={depth}", out,
+                           micro.row_gather_sum_plain(B, idx))
+        lib_err = float((F.embedding_bag(idx, B, mode="sum") - out).abs()
+                        .max())
+        ms, plain_ms, lib_ms = micro_times(
+            torch, time_cuda_ms,
+            lambda b, i: micro.row_gather_sum(b, i, depth),
+            micro.row_gather_sum_plain,
+            lambda b, i: F.embedding_bag(i, b, mode="sum"), (B, idx))
+        rows = idx.numel()
+        distinct = int(torch.unique(idx).numel())
+        bound_ms, bound_by = bound(distinct * K * 4 + rows * 4 + S * K * 4,
+                                   rows * K, peaks)
+        k8[tag] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_ms_gathered": rows * K * 4 / peaks["bytes"] * 1e3,
+                   "rows": rows, "distinct_rows": distinct,
+                   "g_rows_per_s": rows / ms / 1e6,
+                   "gathered_tbps": rows * K * 4 / ms / 1e9,
+                   "library_max_abs_diff": lib_err}
+        log(f"[micro] row_gather_sum {tag}: " + json.dumps(k8[tag]))
+        del idx, out
+    big = k8["7520_steps"]
+    k7_rate = kernel7_rows / kernel7_ms / 1e6
+    take = res["micro_tpu"]["m2_gather_bw"]["m_rows_per_s"] / 1e3
+    log(f"[micro] kernel 8 at {big['rows']} rows: {big['g_rows_per_s']:.3f} "
+        f"G rows/s ({big['gathered_tbps']:.3f} TB/s of gathered rows); "
+        f"kernel 7 in this run (GE-SpMM plan, k=128) gathers {kernel7_rows} "
+        f"rows in {kernel7_ms:.4f} ms = {k7_rate:.3f} G rows/s "
+        f"({k7_rate * K * 4 / 1e3:.3f} TB/s); m2_gather_bw's index_select "
+        f"{take:.3f} G rows/s")
+    del B
+    e1 = k8["e1"]
+    row8 = {
+        "name": "row_gather_sum", "route": "cuda",
+        "source": "flex_tpu_torch/csrc/micro.cu",
+        "replaces": "experiments/micro_dma_u16.py:27",
+        "also_replaces": "experiments/micro_tpu.py:141",
+        "launches": launches["row_gather_sum"], "max_abs_err": 0.0,
+        **{f: e1[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        **{f"{tag}_{f}": r[f] for tag, r in k8.items() if tag != "e1"
+           for f in r},
+        "e1_bound_ms_gathered": e1["bound_ms_gathered"],
+        "kernel7_g_rows_per_s": k7_rate,
+    }
+
+    # kernel 9 at the limit: x through 227 KB
+    x = torch.rand((8, 128), generator=gen, device=dev)
+    nbytes = probe["limit_bytes"]
+    require_plain_bits(torch, "smem_probe", f"{nbytes} B",
+                       micro.smem_probe(x, nbytes),
+                       micro.smem_probe_plain(x, nbytes))
+    ms, plain_ms, lib_ms = micro_times(torch, time_cuda_ms, micro.smem_probe,
+                                       micro.smem_probe_plain,
+                                       lambda a, n: a.clone(), (x, nbytes))
+    # 8 KB moved: the time is a launch's, and the bound no roofline share
+    bound_ms, bound_by = bound(2 * x.numel() * 4, 0, peaks)
+    row9 = {"name": "smem_probe", "route": "cuda",
+            "source": "flex_tpu_torch/csrc/micro.cu",
+            "replaces": "experiments/micro_tpu.py:116",
+            "launches": launches["smem_probe"], "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "library_call": "x.clone()", "launch_bound": True,
+            "largest_kb_launched": probe["ok_kb"],
+            "refused_kb": probe["refused_kb"],
+            "optin_limit_bytes": nbytes}
+    log(f"[micro] smem_probe: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"x.clone() {lib_ms:.4f} ms: launch-bound")
+
+    # kernel 10: the script's slab and 16 steps of 8192 rows
+    slab = torch.rand((micro_vmem_gather.U, micro_vmem_gather.K),
+                      generator=gen, device=dev)
+    idx = torch.randint(0, slab.shape[0], (micro_vmem_gather.STEPS * 8,
+                                           micro_vmem_gather.RB),
+                        generator=gen, device=dev, dtype=torch.int32)
+    clusters = micro.cluster_occupancy(*slab.shape)
+    k10 = {}
+    for placement in micro.PLACEMENTS:
+        for rnd in (False, True):
+            require_plain_bits(
+                torch, "slab_gather",
+                f"{idx.numel()} rows placement={placement} bf16={rnd}",
+                micro.slab_gather(slab, idx, placement, rnd),
+                micro.slab_gather_plain(slab, idx, rnd))
+            k10[(placement, rnd)] = micro_times(
+                torch, time_cuda_ms,
+                lambda s, i: micro.slab_gather(s, i, placement, rnd),
+                lambda s, i: micro.slab_gather_plain(s, i, rnd),
+                lambda s, i: torch.index_select(
+                    s.bfloat16().float() if rnd else s, 0, i.reshape(-1)),
+                (slab, idx))
+    rows = idx.numel()
+    bound_ms, bound_by = bound(rows * K * 4 + slab.numel() * 4 + rows * 4,
+                               0, peaks)
+    ms, plain_ms, lib_ms = k10[("l2", False)]
+    row10 = {"name": "slab_gather", "route": "cuda",
+             "source": "flex_tpu_torch/csrc/micro.cu",
+             "replaces": "experiments/micro_vmem_gather.py:34",
+             "launches": launches["slab_gather"], "max_abs_err": 0.0,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms,
+             "clusters_of_16": clusters, "rows": rows,
+             **{f"{pl}{'_bf16' if rnd else ''}_{f}": t
+                for (pl, rnd), ts in k10.items()
+                for f, t in zip(("ms", "plain_ms", "library_ms"), ts)}}
+    log(f"[micro] slab_gather: cudaOccupancyMaxActiveClusters = {clusters} "
+        f"clusters of 16 blocks x {slab.shape[0] // 16 * K * 4} B; " +
+        json.dumps({k: v for k, v in row10.items() if k.startswith(
+            ("l2", "cluster"))}))
+    del slab, idx
+
+    # kernel 11: the script's v and Bg (3.4 GB)
+    v, Bg = micro_ellreduce.make_inputs(device=dev)
+    err = check_ell_reduce(torch, v, Bg, "the script's N=208000 w=32 k=128")
+    ms, plain_ms, lib_ms = micro_times(
+        torch, time_cuda_ms, micro.ell_reduce, micro.ell_reduce_plain,
+        lambda a, b: torch.bmm(a[:, None, :], b), (v, Bg))
+    N, w, k = Bg.shape
+    bound_ms, bound_by = bound(N * w * k * 4 + N * w * 4 + N * k * 4,
+                               2 * N * w * k, peaks)
+    row11 = {"name": "ell_reduce", "route": "cuda",
+             "source": "flex_tpu_torch/csrc/micro.cu",
+             "replaces": "experiments/micro_ellreduce.py:38",
+             "also_replaces": "experiments/micro_ellreduce.py:63",
+             "launches": launches["ell_reduce"], "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms,
+             "library_call": "torch.bmm, TF32 off"}
+    log(f"[micro] ell_reduce: {ms:.4f} ms, plain {plain_ms:.4f}, bmm "
+        f"{lib_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+    del v, Bg
+    torch.cuda.empty_cache()
+    log(f"[micro] phase took {time.perf_counter() - t0:.1f}s (the four "
+        f"mains {t_mains:.1f}s); {smi}")
+    return [row8, row9, row10, row11]
+
+
 def run_shard_phases(torch, g, dev, B, gold, sel, peaks, bench_spmm,
                      time_cuda_ms, smi):
     """[bf16], [options], [sharded], [parallel_2d], each with the counts
@@ -3388,6 +3683,7 @@ def main() -> int:
     phase_kernels_vs_plain(torch)
     phase_new_kernels_vs_plain(torch)
     phase_bf16_kernel_vs_plain(torch)
+    phase_micro_kernels_vs_plain(torch)
     if quick:
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -3594,6 +3890,10 @@ def main() -> int:
     _, launches_headline = phase_headline(g, cli["cli_auto_k128"])
     launches_entry, launches_dryrun = phase_entry(torch, time_cuda_ms, smi)
     launches_examples = phase_examples(torch, smi)
+    # [micro] the probes of experiments/, kernels 8-11
+    torch.cuda.empty_cache()
+    micro_rows = phase_micro(torch, peaks, time_cuda_ms, smi, g.nnz,
+                             gespmm_row["ms"])
     # kernel 7 also runs the main path's residue: its launches there, and
     # the residue's own numbers
     gespmm_row.update({
@@ -3626,15 +3926,18 @@ def main() -> int:
             "bwd_bound_ms", "bwd_err")})
     rows.append(gespmm_row)
     rows.append(bf16_row)
+    rows += micro_rows
     new_launches = {"autotune": launches_autotune, "gcn_bench": launches_gcn,
                     "sweep": launches_sweep, **launches_shard,
                     **{tag: c["launches"] for tag, c in cli.items()},
                     "headline": launches_headline, "entry": launches_entry,
                     "dryrun_multichip": launches_dryrun, **launches_examples}
+    # the command-line processes print the package's counts alone: they
+    # never import the probes, so kernels 8-11 launch 0 times there
     for r in rows:
-        r.update({f"launches_{ph}": new_launches[ph][r["name"]]
+        r.update({f"launches_{ph}": new_launches[ph].get(r["name"], 0)
                   for ph in NEW_PHASES + SHARD_PHASES + ENTRY_PHASES})
-    if len(rows) != 8 or any(r["launches"] < 1 for r in rows):
+    if len(rows) != 12 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")
     log(json.dumps({"kernels": rows}))

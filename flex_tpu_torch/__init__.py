@@ -35,7 +35,9 @@ unless the caller passes ``device="cpu"``.
 - :mod:`flex_tpu_torch.cli` — ``python -m flex_tpu_torch <graph.csv> <k>``.
 """
 
-from flex_tpu_torch.utils.hostmem import tune_host_malloc
+__version__ = "0.1.0"
+
+from flex_tpu_torch.utils.hostmem import tune_host_malloc  # noqa: E402
 
 # keep large NumPy temporaries on the heap (fault once, reuse after), as
 # the JAX package does at import (utils/hostmem.py)

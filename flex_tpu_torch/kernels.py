@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("window_spmm", "window_spmm_bwd", "window_spmm_t", "band_spmm",
-           "gespmm")
+           "gespmm", "micro")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -200,5 +200,24 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flex_gespmm_rows_bf16.argtypes = [p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, i, p]
         lib.flex_gespmm_rows_bf16.restype = i
+    elif name == "micro":
+        # (B, idx, out, n_steps, rows, k, depth, stream)
+        lib.flex_row_gather_sum.argtypes = [p, p, p, i, i, i, i, p]
+        # (x, out, nbytes, stream)
+        lib.flex_smem_probe.argtypes = [p, p, i, p]
+        ip = ctypes.POINTER(ctypes.c_int)
+        # (int* out)
+        lib.flex_smem_optin.argtypes = [ip]
+        # (slab, idx, out, n_rows, U, k, placement, round_bf16, stream)
+        lib.flex_slab_gather.argtypes = [p, p, p, ctypes.c_int64, i, i, i,
+                                         i, p]
+        # (U, k, int* n_clusters)
+        lib.flex_slab_cluster_occupancy.argtypes = [i, i, ip]
+        # (v, Bg, out, N, w, k, stream)
+        lib.flex_ell_reduce.argtypes = [p, p, p, i, i, i, p]
+        for fn in ("flex_row_gather_sum", "flex_smem_probe", "flex_smem_optin",
+                   "flex_slab_gather", "flex_slab_cluster_occupancy",
+                   "flex_ell_reduce"):
+            getattr(lib, fn).restype = i
     else:
         raise ValueError(f"no CUDA source named {name!r}")

@@ -232,7 +232,7 @@ def gather_chunks(col_pad, val_pad, starts, lengths, w: int):
             torch.where(mask, val_pad[idx], 0.0))
 
 
-def ell_buckets_core(row_ptr, col, vals, *, meta):
+def ell_buckets_core(row_ptr, col_dev, vals_dev, *, meta):
     """Bucket arrays from a device CSR: returns (((cols i32 [N,w],
     vals f32 [N,w]), ...), chunk_row i32, rows), ``rows`` the
     :class:`.gespmm.RowTables` of the flat store the buckets are views of
@@ -240,21 +240,21 @@ def ell_buckets_core(row_ptr, col, vals, *, meta):
     ``starts[:, None] + arange(w)`` (each chunk's nnz are contiguous in CSR
     order), masked past its length."""
     wmax, widths, bucket_meta, _ = meta
-    dev = col.device
+    dev = col_dev.device
     if not bucket_meta:  # empty residue
         return (), torch.zeros(0, dtype=torch.int32, device=dev), None
     row_ptr = row_ptr.long()
     deg = row_ptr[1:] - row_ptr[:-1]
     order = _chunk_order(deg, widths)
-    col_pad = torch.cat([col, col.new_zeros(wmax)])
-    val_pad = torch.cat([vals, vals.new_zeros(wmax)])
+    col_pad = torch.cat([col_dev, col_dev.new_zeros(wmax)])
+    val_pad = torch.cat([vals_dev, vals_dev.new_zeros(wmax)])
 
     total = sum(w * n_alloc for w, n_alloc, _ in bucket_meta)
     flat_c = torch.empty(total, dtype=torch.int32, device=dev)
     flat_v = torch.empty(total, dtype=torch.float32, device=dev)
     buckets, rows_parts, offs, lens, base = [], [], [], [], 0
     for w, rows_b, starts, lengths in _bucket_layouts(
-            row_ptr, deg, order, col.shape[0], meta):
+            row_ptr, deg, order, col_dev.shape[0], meta):
         N = rows_b.shape[0]
         c, v = flat_c[base:base + N * w].view(N, w), \
             flat_v[base:base + N * w].view(N, w)

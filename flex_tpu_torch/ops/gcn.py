@@ -11,10 +11,11 @@ leaves it to XLA.
 """
 from __future__ import annotations
 
-import enum
 from typing import Callable
 
 import torch
+
+from flex_tpu_torch.ops.operands import check_precision
 
 
 def pick_association(m: int, nnz: int, d: int, c: int) -> str:
@@ -22,14 +23,6 @@ def pick_association(m: int, nnz: int, d: int, c: int) -> str:
     flops_axw = 2 * m * d * c + 2 * nnz * c
     flops_ax_w = 2 * nnz * d + 2 * m * d * c
     return "axw" if flops_axw <= flops_ax_w else "ax_w"
-
-
-def _check_precision(precision) -> None:
-    pair = precision if isinstance(precision, tuple) else (precision,)
-    if len(pair) not in (1, 2) or not all(
-            p is None or isinstance(p, (str, enum.Enum)) for p in pair):
-        raise TypeError(f"precision must be None, a name, a Precision "
-                        f"member or a pair of them, got {precision!r}")
 
 
 def gcn_layer(plan, X, W, b=None, activation: Callable | None = torch.relu,
@@ -45,7 +38,7 @@ def gcn_layer(plan, X, W, b=None, activation: Callable | None = torch.relu,
     ignored: the dense product is exact f32 here.  matmul: the dense
     product (the 2-D sharded step passes one that runs W's column blocks on
     several devices)."""
-    _check_precision(precision)
+    check_precision(precision)
     d, c = W.shape
     if association == "auto":
         if nnz is None:

@@ -1,7 +1,10 @@
 """Operand checks shared by the kernel wrappers: what a wrapper verifies
-before it hands raw pointers to a CUDA kernel; and the check of the JAX
-signature's ``interpret`` keyword, which the card has no use for."""
+before it hands raw pointers to a CUDA kernel; and the checks of the JAX
+signatures' ``interpret`` and ``precision`` keywords, which the card has
+no use for."""
 from __future__ import annotations
+
+import enum
 
 import torch
 
@@ -13,6 +16,18 @@ def check_interpret(interpret) -> None:
     if interpret not in (None, True, False):
         raise ValueError(f"interpret must be a bool or None, got "
                          f"{interpret!r}")
+
+
+def check_precision(precision) -> None:
+    """``precision`` (a JAX dot precision: None, a name, a
+    ``jax.lax.Precision`` member or a pair of them) must have that type;
+    the port accepts it and ignores it, since its products are exact
+    f32."""
+    pair = precision if isinstance(precision, tuple) else (precision,)
+    if len(pair) not in (1, 2) or not all(
+            p is None or isinstance(p, (str, enum.Enum)) for p in pair):
+        raise TypeError(f"precision must be None, a name, a Precision "
+                        f"member or a pair of them, got {precision!r}")
 
 
 def check_operands(ints: dict, floats: dict) -> None:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.gespmm import RowTables, gespmm_rows, row_tables
+from flex_tpu_torch.ops.operands import check_precision
 from flex_tpu_torch.sparse.csr import CSRGraph, repeat_arange
 from flex_tpu_torch.sparse.device import (
     DeviceCSR, resident_csr, resolve_device,
@@ -128,6 +129,7 @@ def prepare_panel(
     hub_threshold: int = 512,
     hub_width: int = 2048,
     u_bucket_min: int = 128,
+    precision=None,
     dev: DeviceCSR | None = None,
     device=None,
     **_unused,
@@ -135,9 +137,12 @@ def prepare_panel(
     """Build the panel plan on the host and move it to the device (``dev``'s
     when given, else ``device``: CUDA unless the caller names another).
     Requires the hub rows (degree ≥ ``hub_threshold``) to form a prefix,
-    as a DEG ordering leaves them.  Other keywords of the JAX signature
-    (``precision``) are accepted and ignored."""
+    as a DEG ordering leaves them.  ``precision`` (the JAX signature's dot
+    precision) is checked and ignored: the products are exact f32.  Other
+    keywords of the JAX signature are accepted and ignored."""
     from flex_tpu_torch.tiling.panels import build_panels
+
+    check_precision(precision)
 
     # the plan reads the host CSR; ``dev`` only names the device
     device = (resident_csr(g, dev, device).device if dev is not None

@@ -247,15 +247,22 @@ def window_select(
     }
 
 
-def pattern_is_unique(g: CSRGraph) -> bool:
+def pattern_is_unique(g: CSRGraph, row_ptr_h: np.ndarray | None = None
+                      ) -> bool:
     """Host duplicate-(row, col) detection: with columns sorted within rows
     a duplicate is an adjacent equal pair.  Unsorted rows return the
-    conservative False (the build then sums duplicates)."""
+    conservative False (the build then sums duplicates).  ``row_ptr_h``,
+    a host copy of the row pointers the caller already holds, is read in
+    place of ``g.row_ptr``."""
     nnz = g.nnz
     if nnz <= 1:
         return True
+    row_ptr = g.row_ptr if row_ptr_h is None else np.asarray(row_ptr_h)
+    if row_ptr.shape != (g.m + 1,):
+        raise ValueError(f"row_ptr_h must have {g.m + 1} entries, got "
+                         f"{row_ptr.shape}")
     same_row = np.ones(nnz - 1, dtype=bool)
-    b = np.asarray(g.row_ptr[1:-1], dtype=np.int64)
+    b = np.asarray(row_ptr[1:-1], dtype=np.int64)
     b = b[(b > 0) & (b < nnz)]
     same_row[b - 1] = False  # position i compares entries i and i+1
     return not np.any(same_row & (g.col[1:] <= g.col[:-1]))

@@ -14,14 +14,18 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import flex_tpu
 import flex_tpu.sparse as j_sparse
 from flex_tpu.ops import spmm as j_spmm
+from flex_tpu.ops.ell_spmm import ell_buckets_core as j_ell_buckets_core
 from flex_tpu.ops.ell_spmm import prepare_ell as j_prepare_ell
 from flex_tpu.ops.ell_spmm import spmm_ell as j_spmm_ell
 from flex_tpu.ops.gcn import gcn_layer as j_gcn_layer
 from flex_tpu.ops.gespmm import prepare_gespmm as j_prepare_gespmm
 from flex_tpu.ops.pallas_band import prepare_band as j_prepare_band
+from flex_tpu.ops.panel_spmm import prepare_panel as j_prepare_panel
 from flex_tpu.ops.ref import spmm_dense_numpy as j_spmm_dense_numpy
+from flex_tpu.ops.window_spmm import pattern_is_unique as j_pattern_is_unique
 from flex_tpu.ops.window_spmm import spmm_windowed as j_spmm_windowed
 from flex_tpu.ops.window_spmm import window_select as j_window_select
 from flex_tpu.ops.xla_spmm import prepare_xla as j_prepare_xla
@@ -30,17 +34,23 @@ from flex_tpu.sparse.device import DeviceCSR as JDeviceCSR
 from flex_tpu.sparse.device import round_up as j_round_up
 from flex_tpu.utils.check import res_check as j_res_check
 
+import flex_tpu_torch
 import flex_tpu_torch.sparse as sparse
 from flex_tpu_torch import spmm
 from flex_tpu_torch.io import (
-    banded_graph, community_graph, make_features, rmat_graph,
+    banded_graph, community_graph, hub_graph, make_features, rmat_graph,
 )
-from flex_tpu_torch.ops.ell_spmm import prepare_ell, spmm_ell
+from flex_tpu_torch.ops.ell_spmm import (
+    ell_buckets_core, ell_meta, prepare_ell, spmm_ell,
+)
 from flex_tpu_torch.ops.gcn import gcn_layer
 from flex_tpu_torch.ops.gespmm import prepare_gespmm
 from flex_tpu_torch.ops.pallas_band import prepare_band
+from flex_tpu_torch.ops.panel_spmm import prepare_panel
 from flex_tpu_torch.ops.ref import spmm_dense_numpy, spmm_scipy
-from flex_tpu_torch.ops.window_spmm import spmm_windowed, window_select
+from flex_tpu_torch.ops.window_spmm import (
+    pattern_is_unique, spmm_windowed, window_select,
+)
 from flex_tpu_torch.ops.xla_spmm import prepare_xla
 from flex_tpu_torch.reorder import reorder
 from flex_tpu_torch.reorder.rabbit import modularity, order_rabbit
@@ -156,6 +166,54 @@ def _report(capsys):
         [ref.max_err, ref.err_frac])
 
 
+def _unique():
+    """pattern_is_unique with the caller's host row pointers, on a graph
+    without and one with a duplicate (row, col) pair."""
+    g = rmat_graph(500, 4_000, seed=3)
+    col = g.col.copy()
+    r = int(np.flatnonzero(np.diff(g.row_ptr) >= 2)[0])
+    col[g.row_ptr[r] + 1] = col[g.row_ptr[r]]   # a duplicate in row r
+    dup = type(g)(row_ptr=g.row_ptr, col=col, vals=g.vals, name="dup")
+    out, ref = [], []
+    for h in (g, dup):
+        out.append(pattern_is_unique(h, row_ptr_h=h.row_ptr.copy()))
+        ref.append(j_pattern_is_unique(jax_graph(h),
+                                       row_ptr_h=h.row_ptr.copy()))
+    assert out == [True, False]
+    return np.array(out, float), np.array(ref, float)
+
+
+def _buckets():
+    """ell_buckets_core with the JAX parameter names as keywords."""
+    g = rmat_graph(600, 7_000, seed=4)
+    meta, _ = ell_meta(np.diff(g.row_ptr))
+    buckets, chunk_row, _ = ell_buckets_core(
+        torch.from_numpy(g.row_ptr.astype(np.int32)),
+        col_dev=torch.from_numpy(g.col.astype(np.int32)),
+        vals_dev=torch.from_numpy(g.vals.astype(np.float32)), meta=meta)
+    jb, jrow = j_ell_buckets_core(
+        jnp.asarray(g.row_ptr.astype(np.int32)),
+        col_dev=jnp.asarray(g.col.astype(np.int32)),
+        vals_dev=jnp.asarray(g.vals.astype(np.float32)), meta=meta)
+    assert len(buckets) == len(jb) > 0
+    flat = lambda bs, row: np.concatenate(  # noqa: E731
+        [np.asarray(a, np.float64).ravel() for b in bs for a in b]
+        + [np.asarray(row, np.float64)])
+    return flat([(c.numpy(), v.numpy()) for c, v in buckets],
+                chunk_row.numpy()), flat(jb, jrow)
+
+
+def _panel():
+    g = reorder(hub_graph(3000, 60_000, n_hub_cols=64, hub_frac=0.5,
+                          seed=2), "deg", check=False)
+    prec = jax.lax.Precision.HIGHEST
+    return _plans(
+        lambda g_: prepare_panel(g_, hub_threshold=30, precision=prec,
+                                 device="cpu"),
+        lambda jg: j_prepare_panel(jg, hub_threshold=30,
+                                   precision=prec))(g, jax_graph(g))
+
+
 CASES = {
     "prepare_band(interpret=)": lambda capsys: _band(),
     "prepare_gespmm(interpret=, **_unused)": lambda capsys: _gespmm(),
@@ -164,7 +222,14 @@ CASES = {
     "window_select(dev=None)": lambda capsys: _select(False),
     "window_select(dev=<resident CSR>)": lambda capsys: _select(True),
     "res_check(verbose=True, max_report=3)": _report,
+    "pattern_is_unique(row_ptr_h=)": lambda capsys: _unique(),
+    "ell_buckets_core(col_dev=, vals_dev=)": lambda capsys: _buckets(),
+    "prepare_panel(precision=HIGHEST)": lambda capsys: _panel(),
 }
+
+
+def test_version_matches_jax():
+    assert flex_tpu_torch.__version__ == flex_tpu.__version__
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -192,6 +257,8 @@ def test_res_check_is_quiet_without_verbose(capsys):
     (lambda g: gcn_layer(prepare_ell(g, device="cpu"), torch.ones(g.n, 4),
                          torch.ones(4, 2), association="axw", precision=3),
      TypeError),
+    (lambda g: prepare_panel(g, precision=3, device="cpu"), TypeError),
+    (lambda g: pattern_is_unique(g, row_ptr_h=g.row_ptr[:-1]), ValueError),
 ])
 def test_ignored_keywords_are_still_checked(call, err):
     with pytest.raises(err):

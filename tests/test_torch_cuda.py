@@ -1,7 +1,7 @@
 """Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
 forward, g_A, g_B, transposed forward, the two band kernels, the row-unit
-kernel of GE-SpMM, the ELL residue, the dynamic-value SpMM and the panel
-plan's hub rows) against their plain twins, the unit
+kernel of GE-SpMM, the ELL residue, the dynamic-value SpMM, the panel
+plan's hub rows and the probes' kernels 8-11) against their plain twins, the unit
 kernels (g_A too) on the edges of their work units and the ranged band kernels on
 empty, one-half and full ranges, whole plans on the card against SciPy,
 repeat calls of whole plans and of g_B bit for bit, gradients against
@@ -1030,3 +1030,64 @@ def test_sharded_ell_on_one_card(cuda, layout):
     col_deg = np.bincount(g.col, minlength=g.n)
     assert res_check(g.to_scipy().T @ co.cpu().numpy(),
                      Bt.grad.cpu().numpy(), col_deg).err_frac == 0
+
+
+# -- the probes' kernels 8-11 (flex_tpu_torch/experiments/micro.py) ----------
+
+@pytest.mark.parametrize("steps, rows, k, depth", [
+    (3, 0, 128, 8), (4, 7, 128, 16), (64, 1024, 128, 16), (5, 1001, 64, 8),
+    (2, 300, 36, 16)])
+def test_row_gather_sum_kernel_gives_plain_bits(cuda, steps, rows, k, depth):
+    from flex_tpu_torch.experiments import micro
+
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    B = torch.rand((4000, k), generator=gen, device=cuda) * 2 - 1
+    idx = torch.randint(0, 4000, (steps, rows), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    before = micro.row_gather_sum.launches
+    out = micro.row_gather_sum(B, idx, depth)
+    assert micro.row_gather_sum.launches == before + 1
+    assert torch.equal(out, micro.row_gather_sum_plain(B, idx))
+
+
+def test_smem_probe_kernel_finds_the_limit(cuda):
+    from flex_tpu_torch.experiments import micro, micro_tpu
+
+    limit = micro.smem_optin(cuda)
+    x = torch.rand((8, 128), device=cuda)
+    assert torch.equal(micro.smem_probe(x, limit), x)
+    before = micro.smem_probe.launches
+    with pytest.raises(RuntimeError):
+        micro.smem_probe(x, limit + 1024)
+    assert micro.smem_probe.launches == before   # refused: not launched
+    assert torch.equal(micro.smem_probe(x, 48 * 1024), x)
+    r = micro_tpu.m6_vmem_probe(device=cuda)
+    assert r["limit_bytes"] == limit and r["ok_kb"] * 1024 <= limit
+
+
+@pytest.mark.parametrize("placement", ["l2", "cluster"])
+@pytest.mark.parametrize("round_bf16", [False, True])
+@pytest.mark.parametrize("U, k, n", [(4096, 128, 131072), (1000, 36, 777)])
+def test_slab_gather_kernel_gives_plain_bits(cuda, placement, round_bf16,
+                                             U, k, n):
+    from flex_tpu_torch.experiments import micro
+
+    gen = torch.Generator(device=cuda).manual_seed(U)
+    slab = torch.rand((U, k), generator=gen, device=cuda) * 2 - 1
+    idx = torch.randint(0, U, (n,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    assert torch.equal(micro.slab_gather(slab, idx, placement, round_bf16),
+                       micro.slab_gather_plain(slab, idx, round_bf16))
+
+
+@pytest.mark.parametrize("N, w, k", [(100, 40, 200), (7, 1, 4), (2048, 32, 128)])
+def test_ell_reduce_kernel_within_the_order_bound(cuda, N, w, k):
+    from flex_tpu_torch.experiments import micro
+
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    v = torch.rand((N, w), generator=gen, device=cuda) * 2 - 1
+    Bg = torch.rand((N, w, k), generator=gen, device=cuda) * 2 - 1
+    out = micro.ell_reduce(v, Bg)
+    ref = micro.ell_reduce_plain(v, Bg)
+    bound = 2 * w * EPS32 * (v.abs()[:, :, None] * Bg.abs()).sum(1)
+    assert bool(((out - ref).abs() <= bound).all())
