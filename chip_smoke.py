@@ -165,14 +165,41 @@ Phases:
      f32 order bound for 11) with its time, the plain version's, the
      library call's and the bound.  Phase 3 also holds kernels 8-11 to
      their plain versions at the edges of their shapes.
+ 20. [winstep] E7: flex_tpu_torch.experiments.micro_winstep.main() at the
+     script's sizes (A f32 [28000 / G, 256, G·128], 3.67 GB, G = 4 and 8;
+     kernel 1 on its highest rows, kernel 12 on its default rows, and
+     kernel 1 with one step a panel), its launches counted from 0; kernels
+     1 and 12 against their plain versions on E7's own G = 4 tables;
+     kernel 12's ms, plain, library (torch.bmm on gathered windows), bound
+     (bytes at 3.35 TB/s or operations at the bf16 tensor rate, 989
+     TFLOP/s), launches and ptxas's registers and spills; then the
+     precision ladder: micro_precision.main() (default, high, highest and
+     the card's tf32 rung) and high_precision_host.main() on the main
+     path's graph (res_check of each rung's dense half).  Phase 3 also
+     holds kernel 12 to its plain version on random tables (panels of 1,
+     8, 9 and 17 steps, an all-sentinel step, G = 4 and 8, W = 128 and 48,
+     TM = 256 and 200, k = 128, 41 and 200, a misaligned B), launched
+     twice for equal bits.
+ 21. [band_v2] E8: pallas_band_v2.main() on banded_graph(262144, 256,
+     64.0, seed=2), k = 128: kernel 5 on the script's split, err_frac
+     <= 1e-4 against SciPy, its launches and ms beside phase 12's.
+ 22. [studies] gen_graphs (the headline's cache: must be there),
+     bench_windowed (mc 64, mc 128 and ell through bench_spmm),
+     profile_windowed at mc 64 and 128, analyze_windows,
+     subtile_occupancy, sweep_windowed_r3 and sweep_windowed_r4 in full
+     (each config runs, or is the refusal the JAX package shares), and
+     bench_gcn_train (grad parity, then ms/step on windowed,
+     windowed+tbwd, ell and ell+tbwd), each with its seconds and its
+     launches counted from 0.
 Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after (the command-line phases
 count in their own process, from 0, and print the counts last).
-Then one JSON line {"kernels": [...]} (twelve rows: kernel 7's bf16
-instance is its own, kernels 8-11 are the probes'; each row also counts
-its kernel's launches in the
-phases autotune, gcn_bench, cli_*, sweep, 11e-11h and 16-18), the card's
+Then one JSON line {"kernels": [...]} (thirteen rows: kernel 7's bf16
+instance is its own, kernels 8-11 are the probes', kernel 12 is E7's
+default rows'; each row also counts its kernel's launches in the
+phases autotune, gcn_bench, cli_*, sweep, 11e-11h, 16-18, winstep and
+each study), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA card the script exits 2
 and prints no result.  The ordered graph is cached under
@@ -283,25 +310,35 @@ def require_same_bits(torch, name, label, a, b):
                              f"bits, max |diff| {float((a - b).abs().max())}")
 
 
-def check_window_kernel(torch, t, n_panels, W, ptr, label, units=None):
-    """Kernel 1 against its plain version; L = the panel's contraction
-    length (steps·G·W).  Launched twice: the outputs must be bit-equal."""
+def check_window_kernel(torch, t, n_panels, W, ptr, label, units=None,
+                        bf16=False):
+    """Kernel 1 (kernel 12 with ``bf16``: its plain version is kernel 1's
+    on the bf16-rounded operands) against its plain version; L = the
+    panel's contraction length (steps·G·W), |a|·|b| of the operands the
+    plain version multiplies.  Launched twice: the outputs must be
+    bit-equal.  Returns max_abs_err."""
+    from flex_tpu_torch.experiments import micro
     from flex_tpu_torch.ops.window_spmm import (
         window_spmm_fwd, window_spmm_fwd_plain,
     )
 
+    name, fn, plain = (
+        ("window_step_bf16", micro.window_step_bf16,
+         micro.window_step_bf16_plain) if bf16 else
+        ("window_spmm", window_spmm_fwd, window_spmm_fwd_plain))
     args = (t["first"], t["out_panel"], t["win_step"])
     kw = dict(n_panels=n_panels, W=W, panel_step_ptr=ptr, units=units)
-    C_k = window_spmm_fwd(*args, t["A"], t["B"], **kw)
-    require_same_bits(torch, "window_spmm", label, C_k,
-                      window_spmm_fwd(*args, t["A"], t["B"], **kw))
-    C_p = window_spmm_fwd_plain(*args, t["A"], t["B"], n_panels=n_panels,
-                                W=W)
-    absprod = window_spmm_fwd_plain(*args, t["A"].abs(), t["B"].abs(),
+    C_k = fn(*args, t["A"], t["B"], **kw)
+    require_same_bits(torch, name, label, C_k, fn(*args, t["A"], t["B"],
+                                                  **kw))
+    C_p = plain(*args, t["A"], t["B"], n_panels=n_panels, W=W)
+    A, B = ((x.bfloat16().float() for x in (t["A"], t["B"])) if bf16
+            else (t["A"], t["B"]))
+    absprod = window_spmm_fwd_plain(*args, A.abs(), B.abs(),
                                     n_panels=n_panels, W=W)
     TM, GW = t["A"].shape[1], t["A"].shape[2]
     L = ((ptr[1:] - ptr[:-1]).double() * GW).repeat_interleave(TM)[:, None]
-    return hold_to_plain(torch, "window_spmm", label, C_k, C_p, absprod, L)
+    return hold_to_plain(torch, name, label, C_k, C_p, absprod, L)
 
 
 # column tiles of 128, 48, 32 and 64, and two of 128; 64 is the windowed
@@ -3419,6 +3456,36 @@ def phase_micro_kernels_vs_plain(torch, dev="cuda"):
     torch.cuda.synchronize()
 
 
+def phase_winstep_kernel_vs_plain(torch, dev="cuda"):
+    """Phase 3 for kernel 12: panels of 1, 8, 9 and 17 steps (one unit,
+    exactly one, one plus one and three units) with an all-sentinel step
+    and trailing empty panels, G = 4 and 8, k = 128, 41 (4-byte loads of B)
+    and 200 (two column tiles), n % W != 0; W = 48 (stages of 16) at
+    G = 4; TM = 200 (a partial row tile); a misaligned B.  Each launched
+    twice for equal bits."""
+    rng = np.random.default_rng(12)
+    steps = [1, 8, 9, 17]
+    for G, W, TM in ((4, 128, 256), (8, 128, 256), (4, 48, 256),
+                     (4, 128, 200)):
+        t, n_panels, W, ptr = random_window_case(
+            torch, rng, steps, 20_000 + 37, dev, TM=TM, G=G, W=W,
+            sentinel_steps=(3,))
+        for k in (K, 41, 200):
+            B = t["B"] if k == K else \
+                torch.rand((t["B"].shape[0], k), device=dev) * 2 - 1
+            check_window_kernel(torch, dict(t, B=B), n_panels, W, ptr,
+                                f"steps={steps} G={G} W={W} TM={TM} k={k}",
+                                bf16=True)
+        # B 4 bytes past a 16-byte boundary: the 4-byte loads at k = 128
+        buf = torch.rand((t["B"].numel() + 1,), device=dev) * 2 - 1
+        Bm = buf[1:].view(t["B"].shape)
+        check_window_kernel(torch, dict(t, B=Bm), n_panels, W, ptr,
+                            f"steps={steps} G={G} W={W} TM={TM} misaligned B",
+                            bf16=True)
+        del t, buf, Bm
+    torch.cuda.synchronize()
+
+
 def micro_times(torch, time_cuda_ms, kernel, plain, library, args,
                 iters=20):
     """(kernel ms, plain ms, library ms or None) on the same inputs."""
@@ -3619,6 +3686,265 @@ def phase_micro(torch, peaks, time_cuda_ms, smi, kernel7_rows, kernel7_ms):
     return [row8, row9, row10, row11]
 
 
+# ---------------------------------------------------------------------------
+# E7 and E8, the precision pair, the windowed and training studies
+# ---------------------------------------------------------------------------
+
+# the dense bf16 tensor-core rate of an H100 SXM5 at 700 W (NVIDIA's data
+# sheet), kernel 12's operations bound
+BF16_TC_PEAK = 989e12
+# micro_winstep.main(): 5 rows of 1 checked + 3 warm-up + 10 timed calls,
+# three on kernel 1 (highest) and two on kernel 12 (default)
+WINSTEP_LAUNCHES = dict(window_spmm_fwd=42, window_step_bf16=28)
+
+
+def winstep_bytes_flops(t, A, k):
+    """Bytes (A, the distinct B windows and the step table read once, C
+    written once) and operations of one E7 call on tables ``t``."""
+    S, TM, GW = A.shape
+    W = GW // (t["win"].numel() // S)
+    distinct = int(t["win"].unique().numel())
+    n_bytes = (A.numel() * 4 + distinct * W * k * 4 + t["win"].numel() * 4
+               + t["n_panels"] * TM * k * 4)
+    return n_bytes, 2 * S * TM * GW * k
+
+
+def phase_winstep(torch, g, peaks, smi, dev="cuda"):
+    """[winstep] micro_winstep.main() at the script's sizes (the counts
+    set to 0 just before, read just after: kernel 1 runs its highest rows,
+    kernel 12 its default rows); kernels 1 and 12 against their plain
+    versions on E7's own G = 4 tables (main's first rows' window ids);
+    kernel 12's ms, plain, library, bound, launches and ptxas registers
+    and spills; then the precision ladder, micro_precision.main() and
+    high_precision_host.main() on the main path's graph.  Returns (kernel
+    12's row, kernel 1's E7 columns, the launches)."""
+    from flex_tpu_torch.experiments import (
+        high_precision_host, micro_precision, micro_winstep as mw,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log("[winstep] flex_tpu_torch.experiments.micro_winstep.main(), as "
+        "python -m flex_tpu_torch.experiments.micro_winstep:")
+    reset_launches()
+    res = mw.main()
+    launches = read_launches()
+    expect_launches(launches, "micro_winstep.main()", **WINSTEP_LAUNCHES)
+    t_main = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    G, spp = 4, 4
+    S = mw.WINDOWS // G
+    t = mw.step_tables(G, S, spp, -(-mw.m // mw.W), np.random.default_rng(0),
+                       dev)
+    tabs = {"first": t["first"], "out_panel": t["out_panel"],
+            "win_step": t["win"], "A": mw.make_a(G, S, device=dev),
+            "B": mw.make_b_pad(device=dev)}
+    label = f"E7 G={G} S={S} {spp} steps a panel"
+    err1 = check_window_kernel(torch, tabs, t["n_panels"], mw.W, t["ptr"],
+                               label, units=t["units"])
+    err12 = check_window_kernel(torch, tabs, t["n_panels"], mw.W, t["ptr"],
+                                label, units=t["units"], bf16=True)
+    n_bytes, n_flops = winstep_bytes_flops(t, tabs["A"], mw.k)
+    del tabs, t
+    torch.cuda.empty_cache()
+    bound1, by1 = bound(n_bytes, n_flops, peaks)
+    t_b = n_bytes / peaks["bytes"] * 1e3
+    t_f = n_flops / BF16_TC_PEAK * 1e3
+    bound12, by12 = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    d4, h4 = res[f"G={G} spp={spp} default"], res[f"G={G} spp={spp} highest"]
+    d8, h8 = res["G=8 spp=4 default"], res["G=8 spp=4 highest"]
+    ptxas = ptxas_summary(kernel_usage("winstep_bf16", "winstep_bf16_kernel"))
+    log(f"[winstep] kernel 12 (window_step_bf16) on E7 at G=4: "
+        f"{d4['ms']:.4f} ms = {n_flops / d4['ms'] / 1e9:.1f} TFLOP/s bf16 "
+        f"({d4['dma_gbps']:.0f} GB/s of the script's count); G=8 "
+        f"{d8['ms']:.4f} ms; plain {d4['plain_ms']:.4f} ms; library "
+        f"({d4['library_call']}) {d4['library_ms']:.4f} ms, its gather "
+        f"{d4['gather_ms']:.4f} and cast {d4['cast_ms']:.4f} ms apart; "
+        f"bound {bound12:.4f} ms ({by12}: {n_bytes / 1e9:.3f} GB, "
+        f"{n_flops / 1e9:.1f} GFLOP); launches "
+        f"{launches['window_step_bf16']}; ptxas {ptxas}")
+    log(f"[winstep] kernel 1 (window_spmm_fwd) on E7 at G=4: "
+        f"{h4['ms']:.4f} ms = {n_flops / h4['ms'] / 1e9:.1f} TFLOP/s f32; "
+        f"G=8 {h8['ms']:.4f} ms; one step a panel "
+        f"{res['G=4 spp=1 highest']['ms']:.4f} ms; plain "
+        f"{h4['plain_ms']:.4f} ms; library ({h4['library_call']}) "
+        f"{h4['library_ms']:.4f} ms; bound {bound1:.4f} ms ({by1}); "
+        f"launches {launches['window_spmm_fwd']}")
+
+    log("[winstep] the precision ladder: micro_precision.main()")
+    reset_launches()
+    prec = micro_precision.main()
+    launches_prec = read_launches()
+    if prec["highest"]["frac_beyond_tol"] != 0.0:
+        raise AssertionError(f"micro_precision: the f32 row has "
+                             f"{prec['highest']['frac_beyond_tol']} beyond "
+                             f"tolerance")
+    log("[winstep] high_precision_host.main() on the main path's graph")
+    hp = high_precision_host.main(graph=g)
+    if hp["highest"]["n_bad"]:
+        raise AssertionError(f"high_precision_host: the f32 dense half has "
+                             f"{hp['highest']['n_bad']} rows beyond "
+                             f"tolerance")
+    torch.cuda.empty_cache()
+    log(f"[winstep] phase took {time.perf_counter() - t0:.1f}s (main "
+        f"{t_main:.1f}s); {smi}")
+    row12 = {
+        "name": "window_step_bf16", "route": "cuda",
+        "source": "flex_tpu_torch/csrc/winstep_bf16.cu",
+        "replaces": "experiments/micro_winstep.py:29",
+        "launches": launches["window_step_bf16"], "max_abs_err": err12,
+        "ms": d4["ms"], "plain_ms": d4["plain_ms"], "bound_ms": bound12,
+        "bound_by": by12, "library_ms": d4["library_ms"],
+        "library_call": d4["library_call"], "library_gather_ms":
+        d4["gather_ms"], "library_cast_ms": d4["cast_ms"],
+        "tflops": n_flops / d4["ms"] / 1e9, "ms_g8": d8["ms"],
+        "plain_ms_g8": d8["plain_ms"], "library_ms_g8": d8["library_ms"],
+        "ptxas": ptxas,
+        "launches_precision": launches_prec["window_step_bf16"],
+        "ladder": {k: {f: v[f] for f in ("ms", "tflops", "max_rel",
+                                         "frac_beyond_tol", "how")}
+                   for k, v in prec.items() if k != "device"},
+        "high_precision_host": {k: v for k, v in hp.items()
+                                if k != "device"}}
+    k1 = {"launches_winstep": launches["window_spmm_fwd"],
+          "winstep_ms": h4["ms"], "winstep_ms_g8": h8["ms"],
+          "winstep_ms_one_step_a_panel": res["G=4 spp=1 highest"]["ms"],
+          "winstep_plain_ms": h4["plain_ms"],
+          "winstep_library_ms": h4["library_ms"],
+          "winstep_bound_ms": bound1, "winstep_bound_by": by1,
+          "winstep_max_abs_err": err1,
+          "winstep_tflops": n_flops / h4["ms"] / 1e9}
+    return row12, k1, launches
+
+
+def phase_band_v2(torch, kernel5_ms, smi):
+    """[band_v2] pallas_band_v2.main() at the script's size (the counts set
+    to 0 just before, read just after): kernel 5 on the script's split,
+    err_frac <= 1e-4 against SciPy, its ms beside phase 12's."""
+    from flex_tpu_torch.experiments import pallas_band_v2
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    log("[band_v2] flex_tpu_torch.experiments.pallas_band_v2.main(), as "
+        "python -m flex_tpu_torch.experiments.pallas_band_v2:")
+    reset_launches()
+    r = pallas_band_v2.main()
+    launches = read_launches()
+    # 1 checked + 3 warm-up + 10 timed calls
+    expect_launches(launches, "pallas_band_v2.main()", band_spmm_v2=14)
+    if r["err_frac"] > 1e-4:
+        raise AssertionError(f"pallas_band_v2: err_frac {r['err_frac']}")
+    torch.cuda.empty_cache()
+    log(f"[band_v2] kernel 5 on the script's split: {r['ms']:.4f} ms "
+        f"({r['gflops']:.1f} GF/s, depth share read "
+        f"{r['depth_read']:.4f}), phase 12's band_spmm_v2 on the pallas2 "
+        f"plan's tables {kernel5_ms:.4f} ms; xla ref {r['xla_ms']:.4f} ms; "
+        f"err_frac {r['err_frac']}; launches {launches['band_spmm_v2']}; "
+        f"{time.perf_counter() - t0:.1f}s; {smi}")
+    return r, launches
+
+
+STUDY_SPECS = ("windowed,W=128,J=1024,mc=64", "windowed,W=128,J=1024,mc=128",
+               "ell")
+# refusals that the JAX package gives for the same config
+# (tests/test_torch_studies.py holds the port to it)
+SHARED_REFUSALS = ("transposed windowed requires W % 128 == 0",)
+# kernels each study's path must launch
+STUDY_KERNELS = {
+    "bench_windowed": ("window_spmm_fwd", "gespmm_rows"),
+    "profile_windowed_mc64": ("window_spmm_fwd", "gespmm_rows"),
+    "profile_windowed_mc128": ("window_spmm_fwd", "gespmm_rows"),
+    "sweep_windowed_r3": ("window_spmm_fwd", "gespmm_rows"),
+    "sweep_windowed_r4": ("window_spmm_fwd", "window_spmm_t_fwd",
+                          "gespmm_rows"),
+    "bench_gcn_train": ("window_spmm_fwd", "window_bwd_gB", "gespmm_rows"),
+}
+
+
+def phase_studies(torch, g, smi):
+    """[studies] the windowed and training studies in turn, each with the
+    counts set to 0 just before it and read just after: gen_graphs (the
+    headline's cache, which must be there), bench_windowed (mc 64, mc 128,
+    ell), profile_windowed at mc 64 and 128, analyze_windows,
+    subtile_occupancy, both sweeps in full, bench_gcn_train.  Every config
+    runs, or is a refusal the JAX package shares.  Returns (the numbers
+    PERF.md reads, launches by study)."""
+    from flex_tpu_torch.experiments import (
+        analyze_windows, bench_gcn_train, bench_windowed, gen_graphs,
+        profile_windowed, subtile_occupancy, sweep_windowed_r3,
+        sweep_windowed_r4,
+    )
+
+    t0 = time.perf_counter()
+    out, launches, secs = {}, {}, {}
+
+    def study(name, fn):
+        torch.cuda.empty_cache()
+        log(f"[studies] {name}:")
+        reset_launches()
+        t1 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t1
+        launches[name] = read_launches()
+        missing = [k for k in STUDY_KERNELS.get(name, ())
+                   if launches[name][k] < 1]
+        if missing:
+            raise AssertionError(f"{name} never launched {missing}")
+        log(f"[studies] {name}: {secs[name]:.1f}s, launches "
+            f"{ {k: v for k, v in launches[name].items() if v} }")
+
+    study("gen_graphs", lambda: gen_graphs.main(("reddit_posts",),
+                                                ("rbdeg",)))
+    if out["gen_graphs"] != {("reddit_posts", "rbdeg"): "cached"}:
+        raise AssertionError(f"gen_graphs rebuilt the cache: "
+                             f"{out['gen_graphs']}")
+    study("bench_windowed", lambda: bench_windowed.main("rbdeg", STUDY_SPECS))
+    for spec, r in out["bench_windowed"].items():
+        if r.check is None or r.check.err_frac > 1e-4:
+            raise AssertionError(f"bench_windowed {spec}: err_frac "
+                                 f"{r.check and r.check.err_frac}")
+    for mc in (64, 128):
+        study(f"profile_windowed_mc{mc}",
+              lambda mc=mc: profile_windowed.main(graph=g, mc=mc))
+    study("analyze_windows", lambda: analyze_windows.main(graph=g))
+    study("subtile_occupancy", lambda: subtile_occupancy.main(graph=g))
+    study("sweep_windowed_r3", lambda: sweep_windowed_r3.main(graph=g))
+    study("sweep_windowed_r4", lambda: sweep_windowed_r4.main(graph=g))
+    refused = []
+    for name in ("sweep_windowed_r3", "sweep_windowed_r4"):
+        for tag, typ, msg in out[name]["failed"]:
+            if typ != "ValueError" or not msg.startswith(SHARED_REFUSALS):
+                raise AssertionError(f"{name} {tag} failed: {typ}: {msg}")
+            refused.append(f"{name} {tag}: {msg}")
+    study("bench_gcn_train", lambda: bench_gcn_train.main(graph=g))
+    gcn = out["bench_gcn_train"]
+    firsts = [gcn[n]["losses"][0] for n in ("windowed", "windowed+tbwd",
+                                            "ell", "ell+tbwd")]
+    if max(firsts) - min(firsts) > 1e-4 or not np.isfinite(firsts).all():
+        raise AssertionError(f"bench_gcn_train: first losses {firsts}")
+    bw = {spec: r.t_elap * 1e3 for spec, r in out["bench_windowed"].items()}
+    summary = {
+        "seconds": secs, "refused": refused,
+        "bench_windowed_t_elap_ms": bw,
+        "profile": {mc: {f: out[f"profile_windowed_mc{mc}"][f] for f in (
+            "full_ms", "dense_ms", "res_ms", "coverage", "steps")}
+            for mc in (64, 128)},
+        "gcn_ms_per_step": {n: gcn[n]["ms_per_step"] for n in (
+            "windowed", "windowed+tbwd", "ell", "ell+tbwd")},
+        "grad_parity_max_rel": gcn["grad_parity_max_rel"],
+        "sweep_r3": {k: v for k, v in out["sweep_windowed_r3"].items()
+                     if k not in ("device", "failed")},
+        "sweep_r4": {k: v for k, v in out["sweep_windowed_r4"].items()
+                     if k not in ("device", "failed")},
+    }
+    log(f"[studies] refused (the JAX package refuses the same): {refused}")
+    log("[studies] " + json.dumps(summary))
+    log(f"[studies] phase took {time.perf_counter() - t0:.1f}s; {smi}")
+    return summary, launches
+
+
 def run_shard_phases(torch, g, dev, B, gold, sel, peaks, bench_spmm,
                      time_cuda_ms, smi):
     """[bf16], [options], [sharded], [parallel_2d], each with the counts
@@ -3684,6 +4010,7 @@ def main() -> int:
     phase_new_kernels_vs_plain(torch)
     phase_bf16_kernel_vs_plain(torch)
     phase_micro_kernels_vs_plain(torch)
+    phase_winstep_kernel_vs_plain(torch)
     if quick:
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -3894,6 +4221,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     micro_rows = phase_micro(torch, peaks, time_cuda_ms, smi, g.nnz,
                              gespmm_row["ms"])
+    # [winstep], [band_v2], [studies]: E7, E8 and the studies
+    torch.cuda.empty_cache()
+    row12, k1_winstep, launches_winstep = phase_winstep(torch, g, peaks, smi)
+    band_v2, launches_band_v2 = phase_band_v2(
+        torch, next(r["ms"] for r in rows if r["name"] == "band_spmm_v2"),
+        smi)
+    studies, launches_studies = phase_studies(torch, g, smi)
     # kernel 7 also runs the main path's residue: its launches there, and
     # the residue's own numbers
     gespmm_row.update({
@@ -3927,6 +4261,19 @@ def main() -> int:
     rows.append(gespmm_row)
     rows.append(bf16_row)
     rows += micro_rows
+    rows.append(row12)
+    for r in rows:
+        if r["name"] == "window_spmm_fwd":
+            r.update(k1_winstep)
+            r["mc64_vs_mc128_t_elap_ms"] = studies["bench_windowed_t_elap_ms"]
+        if r["name"] == "band_spmm_v2":
+            r.update({"launches_band_v2": launches_band_v2["band_spmm_v2"],
+                      "band_v2_ms": band_v2["ms"],
+                      "band_v2_err_frac": band_v2["err_frac"],
+                      "band_v2_xla_ms": band_v2["xla_ms"]})
+        r["launches_winstep"] = launches_winstep.get(r["name"], 0)
+        r.update({f"launches_studies_{ph}": c.get(r["name"], 0)
+                  for ph, c in launches_studies.items()})
     new_launches = {"autotune": launches_autotune, "gcn_bench": launches_gcn,
                     "sweep": launches_sweep, **launches_shard,
                     **{tag: c["launches"] for tag, c in cli.items()},
@@ -3937,7 +4284,7 @@ def main() -> int:
     for r in rows:
         r.update({f"launches_{ph}": new_launches[ph].get(r["name"], 0)
                   for ph in NEW_PHASES + SHARD_PHASES + ENTRY_PHASES})
-    if len(rows) != 12 or any(r["launches"] < 1 for r in rows):
+    if len(rows) != 13 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")
     log(json.dumps({"kernels": rows}))

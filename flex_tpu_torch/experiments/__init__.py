@@ -29,6 +29,8 @@ numbers:
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -46,3 +48,15 @@ def banner(dev: torch.device) -> str:
 
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     return f"device: {smi_query(idx) or torch.cuda.get_device_name(idx)}"
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """f32 matrix products without TF32 inside the block (the flag as it
+    was after it)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -12,6 +12,10 @@ with its plain PyTorch version beside it.
   (``micro_vmem_gather``).
 - :func:`ell_reduce` (kernel 11): out[c] = Σ_j v[c, j]·Bg[c, j, :]
   (``micro_ellreduce``).
+- :func:`window_step_bf16` (kernel 12, ``csrc/winstep_bf16.cu``): kernel
+  1's window step at the TPU's DEFAULT precision, A and B rounded to bf16
+  on the tensor cores with f32 sums (``micro_winstep``'s ``"default"``
+  rows).  No plan reaches it: the plans stay exact f32.
 
 CUDA tensors launch the kernel and count the launch in the wrapper's
 ``launches``; CPU tensors take the plain version; any other device
@@ -252,11 +256,62 @@ def ell_reduce(v: torch.Tensor, Bg: torch.Tensor) -> torch.Tensor:
 ell_reduce.launches = 0
 
 
+# -- kernel 12 ----------------------------------------------------------------
+
+def window_step_bf16_plain(first, out_panel, win_step, A, B, *, n_panels,
+                           W):
+    """Plain version of :func:`window_step_bf16`: kernel 1's plain version
+    on A and B rounded to bf16 (nearest even) and widened back, TF32 off,
+    so the products are exact and the sums f32."""
+    from flex_tpu_torch.experiments import exact_f32
+    from flex_tpu_torch.ops.window_spmm import window_spmm_fwd_plain
+
+    with exact_f32():
+        return window_spmm_fwd_plain(
+            first, out_panel, win_step, A.to(torch.bfloat16).float(),
+            B.to(torch.bfloat16).float(), n_panels=n_panels, W=W)
+
+
+def window_step_bf16(first, out_panel, win_step, A, B, *, n_panels, W,
+                     panel_step_ptr, units=None):
+    """out[p] = Σ over used panel p's steps s and windows g of
+    bf16(A[s][:, g·W:(g+1)·W]) · bf16(B[win_step[s·G+g]·W : +W]), products
+    exact and sums in f32: the TPU's DEFAULT dot on kernel 1's step tables
+    (:func:`..ops.window_spmm.window_spmm_fwd`'s arguments, with the same
+    operand rules: W % 16 == 0, any k, A 16-byte aligned).  Returns f32
+    [n_panels·TM, k].
+
+    CUDA tensors launch kernel 12 (``csrc/winstep_bf16.cu``: A and B read
+    in f32 and rounded as they are staged, ``mma.sync`` bf16 with f32
+    accumulators, in kernel 1's work units) and, where a panel has several
+    units, kernel 1's pass that adds the partial tiles in unit order;
+    counted in ``window_step_bf16.launches``.  CPU tensors take
+    :func:`window_step_bf16_plain`; any other device raises."""
+    from flex_tpu_torch.ops.window_spmm import (
+        check_step_operands, launch_step_kernel,
+    )
+
+    kw = dict(n_panels=n_panels, W=W)
+    check_step_operands(first, out_panel, win_step, A, B, **kw,
+                        panel_step_ptr=panel_step_ptr, units=units)
+    if _device_of(A=A, B=B).type == "cpu":
+        return window_step_bf16_plain(first, out_panel, win_step, A, B, **kw)
+    out = launch_step_kernel("winstep_bf16", "flex_winstep_bf16", win_step,
+                             A, B, **kw, panel_step_ptr=panel_step_ptr,
+                             units=units)
+    window_step_bf16.launches += 1
+    return out
+
+
+window_step_bf16.launches = 0
+
+
 def wrappers() -> list:
-    """Kernels 8-11's wrappers.  They count their launches as the
+    """Kernels 8-12's wrappers.  They count their launches as the
     package's do, but stay out of :func:`flex_tpu_torch.kernels.wrappers`:
     no path of the package launches them."""
-    return [row_gather_sum, smem_probe, slab_gather, ell_reduce]
+    return [row_gather_sum, smem_probe, slab_gather, ell_reduce,
+            window_step_bf16]
 
 
 def launch_counts() -> dict[str, int]:

@@ -21,7 +21,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("window_spmm", "window_spmm_bwd", "window_spmm_t", "band_spmm",
-           "gespmm", "micro")
+           "gespmm", "micro", "winstep_bf16")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -219,5 +219,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                    "flex_slab_gather", "flex_slab_cluster_occupancy",
                    "flex_ell_reduce"):
             getattr(lib, fn).restype = i
+    elif name == "winstep_bf16":
+        # (A, B, win_step, units, out, scratch,
+        #  n_units, TM, G, W, n, k, nblk, stream)
+        lib.flex_winstep_bf16.argtypes = [p, p, p, p, p, p,
+                                          i, i, i, i, i, i, i, p]
+        lib.flex_winstep_bf16.restype = i
     else:
         raise ValueError(f"no CUDA source named {name!r}")

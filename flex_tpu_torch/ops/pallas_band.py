@@ -334,15 +334,16 @@ def panel_window_stats(g: CSRGraph, tm: int):
 def prepare_band(
     g: CSRGraph,
     dev: DeviceCSR | None = None,
-    device=None,
     tm: int = 256,
     min_density: float = 0.02,
     max_band_bytes: int = 4 << 30,
     interpret: bool | None = None,
     impl: str = "pallas2",
+    *,
+    device=None,
 ) -> BandPlan:
-    """Build the band plan on ``dev``'s device (or ``device``; CUDA when
-    neither is given).  Refuses (ValueError) when the matrix is not
+    """Build the band plan on ``dev``'s device (or ``device``, a keyword
+    after the JAX parameters; CUDA when neither is given).  Refuses (ValueError) when the matrix is not
     band-friendly.  ``interpret`` is accepted and ignored
     (:func:`.operands.check_interpret`)."""
     check_interpret(interpret)

@@ -537,18 +537,11 @@ def window_spmm_fwd_plain(first, out_panel, win_step, A, B, *, n_panels, W):
     return C.view(n_panels * TM, B.shape[1])
 
 
-def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
-                    panel_step_ptr, units=None):
-    """Dense half of the windowed hybrid: out[p] = Σ over used panel p's
-    steps s and windows g of A[s][:, g·W:(g+1)·W] · B[win_step[s·G+g]·W : +W].
-    Returns f32 [n_panels·TM, k].  ``units`` are the panels' work units
-    (:func:`device_units` of ``panel_step_ptr`` and ``FWD_CHUNK_STEPS``);
-    without them the CUDA path derives them from ``panel_step_ptr``.
-
-    CUDA tensors launch ``csrc/window_spmm.cu`` (and count the launch in
-    ``window_spmm_fwd.launches``): one kernel over the units and, where a
-    panel has several, the pass that adds its partial tiles.  CPU tensors
-    take :func:`window_spmm_fwd_plain`.  Anything else raises."""
+def check_step_operands(first, out_panel, win_step, A, B, *, n_panels, W,
+                        panel_step_ptr, units=None) -> None:
+    """The step tables, operands and units of kernel 1's interface: A f32
+    [S, TM, G·W], B f32 [n, k], int32 tables of S, S·G and n_panels + 1
+    entries, all on one device."""
     if A.dim() != 3 or B.dim() != 2:
         raise ValueError(f"A must be 3-D and B 2-D, got {A.dim()}, {B.dim()}")
     S, TM, GW = A.shape
@@ -559,11 +552,16 @@ def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
                      "panel_step_ptr": (panel_step_ptr, n_panels + 1)},
                     {"A": A, "B": B})
     _check_units(units, A.device)
-    if A.device.type == "cpu":
-        return window_spmm_fwd_plain(first, out_panel, win_step, A, B,
-                                     n_panels=n_panels, W=W)
-    if A.device.type != "cuda":
-        raise ValueError(f"no window kernel for device {A.device}")
+
+
+def launch_step_kernel(name, symbol, win_step, A, B, *, n_panels, W,
+                       panel_step_ptr, units=None):
+    """Launch ``symbol`` of ``csrc/<name>.cu``, a kernel with kernel 1's
+    C interface, over the panels' work units (derived from
+    ``panel_step_ptr`` when ``units`` is None), then kernel 1's pass that
+    adds a panel's partial tiles in unit order.  CUDA tensors checked by
+    :func:`check_step_operands`; returns f32 [n_panels·TM, k]."""
+    S, TM, GW = A.shape
     n, k = B.shape
     _check_window_kernel_operands(W, ("A",), A=A, B=B)
     if units is None:  # a trip to the host: a plan carries its own
@@ -576,13 +574,37 @@ def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
                       device=A.device)
     scratch = torch.empty((n_parts, TM, k), dtype=torch.float32,
                           device=A.device)
-    kernels.launch("window_spmm", "flex_window_spmm_fwd", A.device,
-                   A.data_ptr(), B.data_ptr(), win_step.data_ptr(),
-                   unit_tab.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                   unit_tab.shape[0], TM, GW // W, W, n, k,
-                   max(-(-n // W), 1))
+    kernels.launch(name, symbol, A.device, A.data_ptr(), B.data_ptr(),
+                   win_step.data_ptr(), unit_tab.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr(), unit_tab.shape[0], TM, GW // W, W, n,
+                   k, max(-(-n // W), 1))
     reduce_partials("window_spmm", "flex_window_spmm_reduce", scratch, out,
                     splits)
+    return out
+
+
+def window_spmm_fwd(first, out_panel, win_step, A, B, *, n_panels, W,
+                    panel_step_ptr, units=None):
+    """Dense half of the windowed hybrid: out[p] = Σ over used panel p's
+    steps s and windows g of A[s][:, g·W:(g+1)·W] · B[win_step[s·G+g]·W : +W].
+    Returns f32 [n_panels·TM, k].  ``units`` are the panels' work units
+    (:func:`device_units` of ``panel_step_ptr`` and ``FWD_CHUNK_STEPS``);
+    without them the CUDA path derives them from ``panel_step_ptr``.
+
+    CUDA tensors launch ``csrc/window_spmm.cu`` (and count the launch in
+    ``window_spmm_fwd.launches``): one kernel over the units and, where a
+    panel has several, the pass that adds its partial tiles.  CPU tensors
+    take :func:`window_spmm_fwd_plain`.  Anything else raises."""
+    kw = dict(n_panels=n_panels, W=W)
+    check_step_operands(first, out_panel, win_step, A, B, **kw,
+                        panel_step_ptr=panel_step_ptr, units=units)
+    if A.device.type == "cpu":
+        return window_spmm_fwd_plain(first, out_panel, win_step, A, B, **kw)
+    if A.device.type != "cuda":
+        raise ValueError(f"no window kernel for device {A.device}")
+    out = launch_step_kernel("window_spmm", "flex_window_spmm_fwd", win_step,
+                             A, B, **kw, panel_step_ptr=panel_step_ptr,
+                             units=units)
     window_spmm_fwd.launches += 1
     return out
 
@@ -1061,7 +1083,6 @@ def _windowed_call(plan: WindowedPlan, B: torch.Tensor) -> torch.Tensor:
 def prepare_windowed(
     g: CSRGraph,
     dev: DeviceCSR | None = None,
-    device=None,
     tm: int = 256,
     W: int = 128,
     J: int = 1024,
@@ -1076,9 +1097,11 @@ def prepare_windowed(
     step_order: str = "row",
     fused: bool | str = True,
     transposed: bool = False,
+    *,
+    device=None,
 ) -> WindowedPlan:
-    """Build the hybrid plan on ``dev``'s device (or ``device``; CUDA when
-    neither is given).  Refuses (ValueError) when windows would cover less
+    """Build the hybrid plan on ``dev``'s device (or ``device``, a keyword
+    after the JAX parameters; CUDA when neither is given).  Refuses (ValueError) when windows would cover less
     than ``min_coverage`` of nnz.  When the dense array at ``min_count``
     would exceed ``max_dense_bytes`` the count gate rises until it fits
     (see :func:`window_select`, which also takes ``g_step`` and

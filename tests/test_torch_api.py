@@ -7,7 +7,15 @@ JAX function's on the same seeded graph at rtol = atol = 1e-5;
 ``res_check``'s printed mismatch report equals the JAX function's line for
 line.  The names the port lacked (``spmm_ell``, ``spmm_windowed``,
 ``spmm_dense_numpy``, ``modularity``, ``round_up``, the ``sparse``
-exports) against the JAX ones."""
+exports) against the JAX ones.  Every public function that the two
+packages share takes the JAX positional parameters first, in the JAX
+order, so a positional JAX call means the same in the port; the models'
+losses and the checkpoint functions differ by design (``nn.Module``
+parameters, ``torch.save`` of state dicts)."""
+import importlib
+import inspect
+import pkgutil
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +34,7 @@ from flex_tpu.ops.pallas_band import prepare_band as j_prepare_band
 from flex_tpu.ops.panel_spmm import prepare_panel as j_prepare_panel
 from flex_tpu.ops.ref import spmm_dense_numpy as j_spmm_dense_numpy
 from flex_tpu.ops.window_spmm import pattern_is_unique as j_pattern_is_unique
+from flex_tpu.ops.window_spmm import prepare_windowed as j_prepare_windowed
 from flex_tpu.ops.window_spmm import spmm_windowed as j_spmm_windowed
 from flex_tpu.ops.window_spmm import window_select as j_window_select
 from flex_tpu.ops.xla_spmm import prepare_xla as j_prepare_xla
@@ -49,7 +58,7 @@ from flex_tpu_torch.ops.pallas_band import prepare_band
 from flex_tpu_torch.ops.panel_spmm import prepare_panel
 from flex_tpu_torch.ops.ref import spmm_dense_numpy, spmm_scipy
 from flex_tpu_torch.ops.window_spmm import (
-    pattern_is_unique, spmm_windowed, window_select,
+    pattern_is_unique, prepare_windowed, spmm_windowed, window_select,
 )
 from flex_tpu_torch.ops.xla_spmm import prepare_xla
 from flex_tpu_torch.reorder import reorder
@@ -331,3 +340,94 @@ def test_sparse_exports_match_jax():
                                         sparse.invert_permutation(perm))
     with pytest.raises(AssertionError):
         sparse.check_permutation_invariants(g, new, perm)
+
+
+# -- positional parameters: the JAX order first -------------------------------
+
+POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+              inspect.Parameter.POSITIONAL_OR_KEYWORD)
+# differences by design: the losses read an nn.Module's own parameters
+# (no ``params``), a checkpoint holds a module's and an optimizer's state
+SIGNATURE_EXCEPTIONS = {
+    ("flex_tpu_torch.models.gcn", "gcn_loss"),
+    ("flex_tpu_torch.models.sage", "sage_loss"),
+    ("flex_tpu_torch.models.gat", "gat_loss"),
+    ("flex_tpu_torch.models.checkpoint", "save_checkpoint"),
+    ("flex_tpu_torch.models.checkpoint", "restore_checkpoint"),
+}
+
+
+def _shared_functions() -> list:
+    """(port module, name) of every public function that a port module and
+    the JAX module of the same name both define."""
+    out = []
+    for info in pkgutil.walk_packages(flex_tpu_torch.__path__,
+                                      "flex_tpu_torch."):
+        if info.name.endswith("__main__"):
+            continue
+        jname = "flex_tpu." + info.name.split(".", 1)[1]
+        try:
+            jmod = importlib.import_module(jname)
+        except ImportError:
+            continue
+        mod = importlib.import_module(info.name)
+        for attr in sorted(dir(mod)):
+            fn, jfn = getattr(mod, attr), getattr(jmod, attr, None)
+            if (not attr.startswith("_") and inspect.isfunction(fn)
+                    and inspect.isfunction(jfn)
+                    and fn.__module__ == info.name
+                    and jfn.__module__ == jname):
+                out.append((info.name, attr))
+    return out
+
+
+def _positional(fn) -> list:
+    return [p.name for p in inspect.signature(fn).parameters.values()
+            if p.kind in POSITIONAL]
+
+
+SHARED = _shared_functions()
+
+
+def test_shared_functions_are_found():
+    names = {name for _, name in SHARED}
+    assert {"prepare_band", "prepare_windowed", "prepare_ell",
+            "window_select", "make_train_step"} <= names
+    assert SIGNATURE_EXCEPTIONS <= set(SHARED)
+
+
+@pytest.mark.parametrize("module, name", SHARED,
+                         ids=[f"{m.split('.', 1)[1]}.{n}" for m, n in SHARED])
+def test_positional_parameters_start_with_the_jax_ones(module, name):
+    fn = getattr(importlib.import_module(module), name)
+    jfn = getattr(importlib.import_module(
+        "flex_tpu." + module.split(".", 1)[1]), name)
+    jax_pos, port_pos = _positional(jfn), _positional(fn)
+    if (module, name) in SIGNATURE_EXCEPTIONS:
+        assert port_pos[:len(jax_pos)] != jax_pos
+    else:
+        assert port_pos[:len(jax_pos)] == jax_pos
+
+
+@pytest.mark.parametrize("which", ["band", "windowed"])
+def test_positional_tm_builds_the_jax_plan(which):
+    """``prepare_band(g, dev, 128)`` and ``prepare_windowed(g, dev, 128)``,
+    valid JAX calls, build tm = 128 in the port too."""
+    if which == "band":
+        g = banded_graph(2048, 64, 8.0, seed=1)
+        port, jax_ = prepare_band, j_prepare_band
+        jkw = dict(interpret=True)
+    else:
+        g = _community()
+        port, jax_ = prepare_windowed, j_prepare_windowed
+        jkw = {}
+    jg = jax_graph(g)
+    plan = port(g, DeviceCSR.from_graph(g, "cpu"), 128)
+    jplan = jax_(jg, JDeviceCSR.from_graph(jg), 128, **jkw)
+    assert plan.tm == jplan.tm == 128
+    stats, jstats = plan.stats, jplan.stats
+    assert set(jstats) <= set(stats)
+    assert {key: stats[key] for key in jstats} == pytest.approx(jstats)
+    B = _features(g)
+    np.testing.assert_allclose(plan(torch.from_numpy(B)).numpy(),
+                               np.asarray(jplan(jnp.asarray(B))), **TOL)

@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
 forward, g_A, g_B, transposed forward, the two band kernels, the row-unit
 kernel of GE-SpMM, the ELL residue, the dynamic-value SpMM, the panel
-plan's hub rows and the probes' kernels 8-11) against their plain twins, the unit
+plan's hub rows, the probes' kernels 8-11 and kernel 12 with the E7 and
+E8 mains) against their plain twins, the unit
 kernels (g_A too) on the edges of their work units and the ranged band kernels on
 empty, one-half and full ranges, whole plans on the card against SciPy,
 repeat calls of whole plans and of g_B bit for bit, gradients against
@@ -1091,3 +1092,75 @@ def test_ell_reduce_kernel_within_the_order_bound(cuda, N, w, k):
     ref = micro.ell_reduce_plain(v, Bg)
     bound = 2 * w * EPS32 * (v.abs()[:, :, None] * Bg.abs()).sum(1)
     assert bool(((out - ref).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("G, W, TM, k", [(4, 128, 256, 128), (8, 128, 256, 41),
+                                         (4, 48, 200, 200), (3, 32, 64, 16)])
+def test_winstep_bf16_kernel_within_the_order_bound(cuda, G, W, TM, k):
+    """Kernel 12 against its plain version (kernel 1's on bf16-rounded
+    operands) to 2·L·eps·Σ|a||b|, panels of 1, 8, 9 and 17 steps with
+    sentinels and rows >= n; a second launch gives the same bits."""
+    from flex_tpu_torch.experiments import micro
+
+    rng = np.random.default_rng(G * W + k)
+    steps = [1, 8, 9, 17]
+    S, n = sum(steps), 3000 + 7
+    nblk = -(-n // W)
+    win = rng.integers(0, nblk + 1, S * G).astype(np.int32)
+    win[:G] = nblk                                      # an all-sentinel step
+    win[G] = nblk - 1                                   # the partial block
+    out_panel = np.repeat(np.arange(len(steps)), steps).astype(np.int32)
+    first = np.zeros(S, np.int32)
+    first[np.cumsum([0] + steps[:-1])] = 1
+    ptr = np.r_[0, np.cumsum(steps)].astype(np.int32)
+    tabs = [torch.from_numpy(a).to(cuda) for a in (first, out_panel, win)]
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    A = torch.rand((S, TM, G * W), generator=gen, device=cuda) * 2 - 1
+    B = torch.rand((n, k), generator=gen, device=cuda) * 2 - 1
+    kw = dict(n_panels=len(steps), W=W)
+    p = torch.from_numpy(ptr).to(cuda)
+    out = micro.window_step_bf16(*tabs, A, B, panel_step_ptr=p, **kw)
+    assert torch.equal(out, micro.window_step_bf16(*tabs, A, B,
+                                                   panel_step_ptr=p, **kw))
+    ref = micro.window_step_bf16_plain(*tabs, A, B, **kw)
+    absprod = window_spmm_fwd_plain(*tabs, A.bfloat16().float().abs(),
+                                    B.bfloat16().float().abs(), **kw)
+    L = torch.from_numpy(np.repeat(np.diff(ptr) * G * W, TM)).to(cuda)
+    assert bool(((out - ref).abs() <= 2 * L[:, None] * EPS32 * absprod).all())
+
+
+def test_winstep_and_band_v2_mains_on_the_card(cuda, capsys):
+    from flex_tpu_torch.experiments import micro, micro_winstep, pallas_band_v2
+
+    before = micro.window_step_bf16.launches
+    micro_winstep.main(windows=96, iters=2, m=3000)
+    assert micro.window_step_bf16.launches - before == 2 * (1 + 3 + 2)
+    r = pallas_band_v2.main(m=8192, bandwidth=128, avg_degree=24.0, iters=2)
+    assert r["err_frac"] == 0.0
+    assert "pallas v2: " in capsys.readouterr().out
+
+
+def test_precision_ladder_falls_back_to_kernel_12(cuda, monkeypatch):
+    """Without ``torch.bmm(out_dtype=)`` the ladder's bf16 products run on
+    kernel 12 (G = JW / 128, one step a panel), with the same function."""
+    from flex_tpu_torch.experiments import micro_precision
+
+    A, B = (torch.from_numpy(x).to(cuda) for x in micro_precision.make_inputs(
+        P=3, TM=64, JW=512, K=32))
+    ref, how = micro_precision.bf16_product(A, B)
+    assert "out_dtype" in how
+    a, b = A.bfloat16().float(), B.bfloat16().float()
+    want = ref(a, b)
+    bmm = torch.bmm
+
+    def bmm_without_out_dtype(*args, **kw):
+        if "out_dtype" in kw:
+            raise TypeError("no out_dtype")
+        return bmm(*args, **kw)
+
+    monkeypatch.setattr(torch, "bmm", bmm_without_out_dtype)
+    k12, how = micro_precision.bf16_product(A, B)
+    assert "kernel 12" in how
+    bound = 2 * 512 * EPS32 * (a.abs().reshape(-1, 512) @ b.abs()).view(
+        3, 64, 32)
+    assert bool(((k12(a, b) - want).abs() <= bound).all())

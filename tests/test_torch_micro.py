@@ -382,21 +382,37 @@ def test_main_on_the_cpu(name, capsys):
         assert r["u16x2"]["bits_equal"]
 
 
+# the modules of the fourteenth slice: E7, E8, the precision pair and the
+# windowed and training studies
+SLICE_MODULES = {"micro_winstep", "pallas_band_v2", "micro_precision",
+                 "high_precision_host", "gen_graphs", "bench_windowed",
+                 "profile_windowed", "sweep_windowed_r3", "sweep_windowed_r4",
+                 "analyze_windows", "subtile_occupancy", "bench_gcn_train"}
+
+
 def test_probes_import_no_jax():
-    for path in (pathlib.Path(micro.__file__).parent).glob("*.py"):
+    paths = list((pathlib.Path(micro.__file__).parent).glob("*.py"))
+    assert SLICE_MODULES <= {path.stem for path in paths}
+    for path in paths:
         tree = ast.parse(path.read_text())
         mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
                 for a in n.names} | {n.module for n in ast.walk(tree)
                                      if isinstance(n, ast.ImportFrom)
                                      and n.module}
         assert not {mod for mod in mods if mod == "jax" or mod.startswith(
-            ("jax.", "flex_tpu.")) or mod == "flex_tpu"}, path
+            ("jax.", "flex_tpu.", "ml_dtypes")) or mod in (
+            "flex_tpu", "ml_dtypes")}, path
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
+    import importlib
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    slice_mains = [importlib.import_module(
+        f"flex_tpu_torch.experiments.{name}").main
+        for name in sorted(SLICE_MODULES)]
     for call in (micro_ellreduce.main, micro_dma_u16.main, micro_tpu.main,
-                 micro_vmem_gather.main):
+                 micro_vmem_gather.main, *slice_mains):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -404,7 +420,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 def test_probe_launch_counts_stay_out_of_the_package_registry():
     counts = micro.launch_counts()
     assert set(counts) == {"row_gather_sum", "smem_probe", "slab_gather",
-                           "ell_reduce"}
+                           "ell_reduce", "window_step_bf16"}
     assert not set(counts) & set(kernels.launch_counts())
     micro.reset_launch_counts()
     assert set(micro.launch_counts().values()) == {0}
