@@ -158,28 +158,34 @@ Phases:
      bit-exact; then kernel 8 (row_gather_sum) at the scripts' 64 x 1024
      (16 deep) and 32 x 1024 (8 deep) rows and at 7,520 x 1024 rows beside
      kernel 7's gather rate in phase 10 (GE-SpMM, k = 128), kernel 9
-     (smem_probe) at the opt-in limit that m6_vmem_probe found, beside
-     x.clone() (launch-bound), kernel 10 (slab_gather) in both placements
-     with and without bf16 rounding and kernel 11 (ell_reduce) on the
-     script's 3.4 GB, each held to its plain version (bits for 8-10, the
-     f32 order bound for 11) with its time, the plain version's, the
-     library call's and the bound.  Phase 3 also holds kernels 8-11 to
-     their plain versions at the edges of their shapes.
+     (smem_probe) at the opt-in limit that m6_vmem_probe found, timed on
+     the card alone (200 calls in a CUDA graph) beside x.clone() and the
+     empty launch of its shape at 48 and 227 KB (its floor), with the
+     host clock of kernels.launch alone, kernel 10 (slab_gather) in both
+     placements with and without bf16 rounding and kernel 11 (ell_reduce)
+     on the script's 3.4 GB, each held to its plain version (bits for
+     8-10, the f32 order bound for 11) with its time, the plain
+     version's, the library call's and the bound; kernels 8 and 10 also
+     on the card alone.  Phase 3 also holds kernels 8-11 to their plain
+     versions at the edges of their shapes.
  20. [winstep] E7: flex_tpu_torch.experiments.micro_winstep.main() at the
      script's sizes (A f32 [28000 / G, 256, G·128], 3.67 GB, G = 4 and 8;
      kernel 1 on its highest rows, kernel 12 on its default rows, and
      kernel 1 with one step a panel), its launches counted from 0; kernels
      1 and 12 against their plain versions on E7's own G = 4 tables;
-     kernel 12's ms, plain, library (torch.bmm on gathered windows), bound
+     kernel 12's ms at G = 4 and 8 (its B cast inside the call, timed
+     apart too; again with B's windows drawn from 64 blocks, held in L2),
+     plain, library (torch.bmm on gathered windows), bound
      (bytes at 3.35 TB/s or operations at the bf16 tensor rate, 989
-     TFLOP/s), launches and ptxas's registers and spills; then the
+     TFLOP/s), launches, stages and shared memory a block, and ptxas's
+     registers and spills; then the
      precision ladder: micro_precision.main() (default, high, highest and
      the card's tf32 rung) and high_precision_host.main() on the main
      path's graph (res_check of each rung's dense half).  Phase 3 also
      holds kernel 12 to its plain version on random tables (panels of 1,
      8, 9 and 17 steps, an all-sentinel step, G = 4 and 8, W = 128 and 48,
-     TM = 256 and 200, k = 128, 41 and 200, a misaligned B), launched
-     twice for equal bits.
+     TM = 256 and 200 at both, k = 128, 41 and 200, a misaligned B),
+     launched twice for equal bits.
  21. [band_v2] E8: pallas_band_v2.main() on banded_graph(262144, 256,
      64.0, seed=2), k = 128: kernel 5 on the script's split, err_frac
      <= 1e-4 against SciPy, its launches and ms beside phase 12's.
@@ -3459,14 +3465,15 @@ def phase_micro_kernels_vs_plain(torch, dev="cuda"):
 def phase_winstep_kernel_vs_plain(torch, dev="cuda"):
     """Phase 3 for kernel 12: panels of 1, 8, 9 and 17 steps (one unit,
     exactly one, one plus one and three units) with an all-sentinel step
-    and trailing empty panels, G = 4 and 8, k = 128, 41 (4-byte loads of B)
-    and 200 (two column tiles), n % W != 0; W = 48 (stages of 16) at
-    G = 4; TM = 200 (a partial row tile); a misaligned B.  Each launched
-    twice for equal bits."""
+    and trailing empty panels, G = 4 and 8, k = 128, 41 (one B box of
+    the column tile) and 200 (two column tiles), n % W != 0; W = 48
+    (stages of 16) at G = 4; TM = 200 (a partial row tile: the second
+    warpgroup's rows past TM), also at W = 48; a misaligned B.  Each
+    launched twice for equal bits."""
     rng = np.random.default_rng(12)
     steps = [1, 8, 9, 17]
     for G, W, TM in ((4, 128, 256), (8, 128, 256), (4, 48, 256),
-                     (4, 128, 200)):
+                     (4, 128, 200), (4, 48, 200)):
         t, n_panels, W, ptr = random_window_case(
             torch, rng, steps, 20_000 + 37, dev, TM=TM, G=G, W=W,
             sentinel_steps=(3,))
@@ -3476,7 +3483,7 @@ def phase_winstep_kernel_vs_plain(torch, dev="cuda"):
             check_window_kernel(torch, dict(t, B=B), n_panels, W, ptr,
                                 f"steps={steps} G={G} W={W} TM={TM} k={k}",
                                 bf16=True)
-        # B 4 bytes past a 16-byte boundary: the 4-byte loads at k = 128
+        # B 4 bytes past a 16-byte boundary: the cast's copy is aligned
         buf = torch.rand((t["B"].numel() + 1,), device=dev) * 2 - 1
         Bm = buf[1:].view(t["B"].shape)
         check_window_kernel(torch, dict(t, B=Bm), n_panels, W, ptr,
@@ -3496,19 +3503,47 @@ def micro_times(torch, time_cuda_ms, kernel, plain, library, args,
     return ms, plain_ms, lib_ms
 
 
+def launch_path_us(torch, x, nbytes, n=2000):
+    """Host-clock microseconds a call of kernel 9's ``kernels.launch``
+    alone (its arguments made once) and of its wrapper, over ``n`` calls
+    each, the card synchronised at the end."""
+    from flex_tpu_torch import kernels
+    from flex_tpu_torch.experiments import micro
+
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), out.data_ptr(), nbytes)
+    res = []
+    for call in (lambda: kernels.launch("micro", "flex_smem_probe", x.device,
+                                        *args),
+                 lambda: micro.smem_probe(x, nbytes)):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        res.append((time.perf_counter() - t0) / n * 1e6)
+    return tuple(res)
+
+
 def phase_micro(torch, peaks, time_cuda_ms, smi, kernel7_rows, kernel7_ms):
     """[micro] the four probes' ``main`` in process at the scripts' sizes
     (the launch counts set to 0 just before and read just after), u16x2's
     rebuilt rows bit-exact; then each of kernels 8-11 on the scripts'
     inputs held to its plain version (bits for 8, 9 and 10; the f32 order
     bound for 11), its time beside the plain version's, the library
-    call's and the bound.  Kernel 8 also at 7,520 steps of 1024 rows
-    (m2_gather_bw's 7.70 M rows, through m3_row_dma's parameters) beside
+    call's and the bound; kernels 8-10 and their library calls also on
+    the card alone (``time_device_ms``: 200 calls in a CUDA graph),
+    kernel 9 beside clone's, the empty launch's at 48 and 227 KB (its
+    floor) and the host clock of ``kernels.launch`` alone.  Kernel 8 also
+    at 7,520 steps of 1024 rows (m2_gather_bw's 7.70 M rows, through
+    m3_row_dma's parameters) beside
     kernel 7's gather rate in this run: ``kernel7_rows`` B rows (one a
     nonzero of the main path's graph) in ``kernel7_ms``, its time at
     k = 128 on the GE-SpMM plan.  Kernel 10 in both placements, with and
     without bf16 rounding.  Returns the four rows of the kernels line."""
     import torch.nn.functional as F
+    from flex_tpu_torch.bench.harness import time_device_ms
     from flex_tpu_torch.experiments import (
         micro, micro_dma_u16, micro_ellreduce, micro_tpu, micro_vmem_gather,
     )
@@ -3556,11 +3591,15 @@ def phase_micro(torch, peaks, time_cuda_ms, smi, kernel7_rows, kernel7_ms):
             lambda b, i: micro.row_gather_sum(b, i, depth),
             micro.row_gather_sum_plain,
             lambda b, i: F.embedding_bag(i, b, mode="sum"), (B, idx))
+        device_ms = time_device_ms(micro.row_gather_sum, B, idx, depth)
+        lib_device_ms = time_device_ms(
+            lambda b, i: F.embedding_bag(i, b, mode="sum"), B, idx)
         rows = idx.numel()
         distinct = int(torch.unique(idx).numel())
         bound_ms, bound_by = bound(distinct * K * 4 + rows * 4 + S * K * 4,
                                    rows * K, peaks)
-        k8[tag] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        k8[tag] = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "library_device_ms": lib_device_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bound_ms_gathered": rows * K * 4 / peaks["bytes"] * 1e3,
                    "rows": rows, "distinct_rows": distinct,
@@ -3586,24 +3625,36 @@ def phase_micro(torch, peaks, time_cuda_ms, smi, kernel7_rows, kernel7_ms):
         "replaces": "experiments/micro_dma_u16.py:27",
         "also_replaces": "experiments/micro_tpu.py:141",
         "launches": launches["row_gather_sum"], "max_abs_err": 0.0,
-        **{f: e1[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")},
+        **{f: e1[f] for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "library_device_ms")},
         **{f"{tag}_{f}": r[f] for tag, r in k8.items() if tag != "e1"
            for f in r},
         "e1_bound_ms_gathered": e1["bound_ms_gathered"],
         "kernel7_g_rows_per_s": k7_rate,
     }
 
-    # kernel 9 at the limit: x through 227 KB
+    # kernel 9 at the limit: x through 227 KB.  It moves 8 KB, so a call's
+    # events measure the host's path to the launch: its time, clone's and
+    # the empty launch's are taken on the card alone (a CUDA graph of 200
+    # calls), the per-call figures kept beside them
     x = torch.rand((8, 128), generator=gen, device=dev)
     nbytes = probe["limit_bytes"]
     require_plain_bits(torch, "smem_probe", f"{nbytes} B",
                        micro.smem_probe(x, nbytes),
                        micro.smem_probe_plain(x, nbytes))
-    ms, plain_ms, lib_ms = micro_times(torch, time_cuda_ms, micro.smem_probe,
-                                       micro.smem_probe_plain,
-                                       lambda a, n: a.clone(), (x, nbytes))
-    # 8 KB moved: the time is a launch's, and the bound no roofline share
+    ms_call, plain_call, lib_call = micro_times(
+        torch, time_cuda_ms, micro.smem_probe, micro.smem_probe_plain,
+        lambda a, n: a.clone(), (x, nbytes))
+    dev_ms = {f"{kb}kb": time_device_ms(micro.smem_probe, x, kb * 1024)
+              for kb in (48, nbytes // 1024)}
+    empty_ms = {f"{kb}kb": time_device_ms(micro.empty_probe, kb * 1024)
+                for kb in (48, nbytes // 1024)}
+    ms = time_device_ms(micro.smem_probe, x, nbytes)
+    plain_ms = time_device_ms(micro.smem_probe_plain, x, nbytes)
+    lib_ms = time_device_ms(lambda a: a.clone(), x)
+    floor_ms = time_device_ms(micro.empty_probe, nbytes)
+    launch_us, wrapper_us = launch_path_us(torch, x, nbytes)
+    # 8 KB moved: the bytes bound; the empty launch at 227 KB is the floor
     bound_ms, bound_by = bound(2 * x.numel() * 4, 0, peaks)
     row9 = {"name": "smem_probe", "route": "cuda",
             "source": "flex_tpu_torch/csrc/micro.cu",
@@ -3611,12 +3662,23 @@ def phase_micro(torch, peaks, time_cuda_ms, smi, kernel7_rows, kernel7_ms):
             "launches": launches["smem_probe"], "max_abs_err": 0.0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms,
-            "library_call": "x.clone()", "launch_bound": True,
+            "library_call": "x.clone()", "timing": "device: CUDA graph of "
+            "200 calls", "launch_floor_ms": floor_ms,
+            "device_ms_by_size": dev_ms, "empty_launch_ms_by_size": empty_ms,
+            "per_call_ms": ms_call, "plain_per_call_ms": plain_call,
+            "library_per_call_ms": lib_call, "launch_us": launch_us,
+            "wrapper_us": wrapper_us,
             "largest_kb_launched": probe["ok_kb"],
             "refused_kb": probe["refused_kb"],
             "optin_limit_bytes": nbytes}
-    log(f"[micro] smem_probe: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"x.clone() {lib_ms:.4f} ms: launch-bound")
+    log(f"[micro] smem_probe on the card alone: {ms * 1e3:.2f} us a call "
+        f"at {nbytes} B ({dev_ms['48kb'] * 1e3:.2f} us at 48 KB); "
+        f"x.clone() {lib_ms * 1e3:.2f} us; the empty launch "
+        f"{floor_ms * 1e3:.2f} us ({empty_ms['48kb'] * 1e3:.2f} us at 48 "
+        f"KB); plain {plain_ms * 1e3:.2f} us.  Per call, events around each "
+        f"call: {ms_call * 1e3:.2f} us, clone {lib_call * 1e3:.2f} us.  Host "
+        f"clock a call: kernels.launch alone {launch_us:.2f} us, the "
+        f"wrapper {wrapper_us:.2f} us")
 
     # kernel 10: the script's slab and 16 steps of 8192 rows
     slab = torch.rand((micro_vmem_gather.U, micro_vmem_gather.K),
@@ -3640,6 +3702,12 @@ def phase_micro(torch, peaks, time_cuda_ms, smi, kernel7_rows, kernel7_ms):
                 lambda s, i: torch.index_select(
                     s.bfloat16().float() if rnd else s, 0, i.reshape(-1)),
                 (slab, idx))
+    k10_device = {
+        f"{pl}{'_bf16' if rnd else ''}_device_ms": time_device_ms(
+            micro.slab_gather, slab, idx, pl, rnd)
+        for pl in micro.PLACEMENTS for rnd in (False, True)}
+    k10_device["library_device_ms"] = time_device_ms(
+        torch.index_select, slab, 0, idx.reshape(-1))
     rows = idx.numel()
     bound_ms, bound_by = bound(rows * K * 4 + slab.numel() * 4 + rows * 4,
                                0, peaks)
@@ -3651,13 +3719,15 @@ def phase_micro(torch, peaks, time_cuda_ms, smi, kernel7_rows, kernel7_ms):
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": lib_ms,
              "clusters_of_16": clusters, "rows": rows,
+             "device_ms": k10_device["l2_device_ms"],
              **{f"{pl}{'_bf16' if rnd else ''}_{f}": t
                 for (pl, rnd), ts in k10.items()
-                for f, t in zip(("ms", "plain_ms", "library_ms"), ts)}}
+                for f, t in zip(("ms", "plain_ms", "library_ms"), ts)},
+             **k10_device}
     log(f"[micro] slab_gather: cudaOccupancyMaxActiveClusters = {clusters} "
         f"clusters of 16 blocks x {slab.shape[0] // 16 * K * 4} B; " +
         json.dumps({k: v for k, v in row10.items() if k.startswith(
-            ("l2", "cluster"))}))
+            ("l2", "cluster", "library_device"))}))
     del slab, idx
 
     # kernel 11: the script's v and Bg (3.4 GB)
@@ -3714,13 +3784,17 @@ def phase_winstep(torch, g, peaks, smi, dev="cuda"):
     set to 0 just before, read just after: kernel 1 runs its highest rows,
     kernel 12 its default rows); kernels 1 and 12 against their plain
     versions on E7's own G = 4 tables (main's first rows' window ids);
-    kernel 12's ms, plain, library, bound, launches and ptxas registers
-    and spills; then the precision ladder, micro_precision.main() and
+    kernel 12's ms at G = 4 and 8, plain, library, bound, launches, the B
+    cast's ms apart, its ms with B's windows held in L2 and its tiles'
+    waves over the SMs, its stages and shared memory a block and ptxas
+    registers and spills; then the precision ladder, micro_precision.main() and
     high_precision_host.main() on the main path's graph.  Returns (kernel
     12's row, kernel 1's E7 columns, the launches)."""
+    from flex_tpu_torch.bench.harness import time_cuda_ms
     from flex_tpu_torch.experiments import (
-        high_precision_host, micro_precision, micro_winstep as mw,
+        high_precision_host, micro, micro_precision, micro_winstep as mw,
     )
+    from flex_tpu_torch.ops.gespmm import to_bf16_padded
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3754,16 +3828,34 @@ def phase_winstep(torch, g, peaks, smi, dev="cuda"):
     bound12, by12 = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
     d4, h4 = res[f"G={G} spp={spp} default"], res[f"G={G} spp={spp} highest"]
     d8, h8 = res["G=8 spp=4 default"], res["G=8 spp=4 highest"]
-    ptxas = ptxas_summary(kernel_usage("winstep_bf16", "winstep_bf16_kernel"))
+    ptxas = ptxas_summary(kernel_usage("winstep_bf16",
+                                       "winstep_wgmma_kernel"))
+    layout = micro.winstep_layout(mw.W)
+    B_pad = mw.make_b_pad(device=dev)
+    b_cast_ms = time_cuda_ms(to_bf16_padded, B_pad, iters=20)
+    del B_pad
+    # what limits it: the same A stream with B's windows drawn from 64
+    # blocks (2 MB of bf16, held in L2), and the tiles' waves over the SMs
+    l2_b = mw.run(G, S, "default", spp, device=dev, m=64 * mw.W,
+                  yardsticks=False)
+    l2_b.pop("out")
+    torch.cuda.empty_cache()
+    waves = S // spp / torch.cuda.get_device_properties(0).multi_processor_count
     log(f"[winstep] kernel 12 (window_step_bf16) on E7 at G=4: "
         f"{d4['ms']:.4f} ms = {n_flops / d4['ms'] / 1e9:.1f} TFLOP/s bf16 "
-        f"({d4['dma_gbps']:.0f} GB/s of the script's count); G=8 "
-        f"{d8['ms']:.4f} ms; plain {d4['plain_ms']:.4f} ms; library "
+        f"({d4['dma_gbps']:.0f} GB/s of the script's count, "
+        f"{n_bytes / d4['ms'] / 1e9:.3f} TB/s of the bound's bytes); G=8 "
+        f"{d8['ms']:.4f} ms; the B cast inside the call "
+        f"{b_cast_ms:.4f} ms apart; plain {d4['plain_ms']:.4f} ms; library "
         f"({d4['library_call']}) {d4['library_ms']:.4f} ms, its gather "
         f"{d4['gather_ms']:.4f} and cast {d4['cast_ms']:.4f} ms apart; "
         f"bound {bound12:.4f} ms ({by12}: {n_bytes / 1e9:.3f} GB, "
         f"{n_flops / 1e9:.1f} GFLOP); launches "
-        f"{launches['window_step_bf16']}; ptxas {ptxas}")
+        f"{launches['window_step_bf16']}; {layout['stages']} stages of "
+        f"BK={layout['bk']}, {layout['smem_bytes']} B of shared memory a "
+        f"block; ptxas {ptxas}; with B's windows held in L2 (64 blocks) "
+        f"{l2_b['ms']:.4f} ms; {S // spp} tiles = {waves:.2f} waves of one "
+        f"block an SM")
     log(f"[winstep] kernel 1 (window_spmm_fwd) on E7 at G=4: "
         f"{h4['ms']:.4f} ms = {n_flops / h4['ms'] / 1e9:.1f} TFLOP/s f32; "
         f"G=8 {h8['ms']:.4f} ms; one step a panel "
@@ -3800,6 +3892,9 @@ def phase_winstep(torch, g, peaks, smi, dev="cuda"):
         d4["gather_ms"], "library_cast_ms": d4["cast_ms"],
         "tflops": n_flops / d4["ms"] / 1e9, "ms_g8": d8["ms"],
         "plain_ms_g8": d8["plain_ms"], "library_ms_g8": d8["library_ms"],
+        "b_cast_ms": b_cast_ms, "ms_b_in_l2": l2_b["ms"], "waves": waves,
+        "stages": layout["stages"],
+        "bk": layout["bk"], "smem_bytes": layout["smem_bytes"],
         "ptxas": ptxas,
         "launches_precision": launches_prec["window_step_bf16"],
         "ladder": {k: {f: v[f] for f in ("ms", "tflops", "max_rel",

@@ -7,7 +7,9 @@ device-resident CSR, ended by a synchronise (the CSR upload is timed
 apart, ``t_upload_s``); pre/elap = tPre / tElap; err_frac = fraction of
 outputs beyond the per-row ``res_check`` tolerance.  On the card tElap is
 the median of per-call CUDA-event times after a warmup, and the serial
-chain (``t_chain_us``) is timed with CUDA events too.  On
+chain (``t_chain_us``) is timed with CUDA events too; a call under
+0.1 ms is timed on the card alone by :func:`time_device_ms` (many calls
+in one CUDA graph).  On
 ``device="cpu"``, asked for explicitly, both use the host clock; the
 harness never falls back to the CPU on its own.
 
@@ -81,6 +83,33 @@ def time_cuda_ms(fn: Callable, *args, iters: int = 10, warmup: int = 3
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def time_device_ms(fn: Callable, *args, n: int = 200, reps: int = 5,
+                   warmup: int = 3) -> float:
+    """Device milliseconds of one ``fn(*args)`` on the card, for calls too
+    short for :func:`time_cuda_ms`, whose events around each call measure
+    the host's path to the launch: ``n`` calls, after ``warmup``, captured
+    into one CUDA graph, the graph replayed ``reps`` times between CUDA
+    events, the median replay over ``n``.  The graph takes the host out;
+    what is left is the card's time a call, the gap between launches
+    included.  The calls must be capturable (no synchronise, no host copy)."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn(*args)
+    graph.replay()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in ev:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev])) / n
 
 
 def time_host_ms(fn: Callable, *args, iters: int = 10, warmup: int = 3

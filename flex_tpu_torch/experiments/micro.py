@@ -15,7 +15,8 @@ with its plain PyTorch version beside it.
 - :func:`window_step_bf16` (kernel 12, ``csrc/winstep_bf16.cu``): kernel
   1's window step at the TPU's DEFAULT precision, A and B rounded to bf16
   on the tensor cores with f32 sums (``micro_winstep``'s ``"default"``
-  rows).  No plan reaches it: the plans stay exact f32.
+  rows): a TMA ring and ``wgmma`` on a per-call bf16 copy of B.  No plan
+  reaches it: the plans stay exact f32.
 
 CUDA tensors launch the kernel and count the launch in the wrapper's
 ``launches``; CPU tensors take the plain version; any other device
@@ -161,6 +162,17 @@ def _query(symbol: str, device, *args) -> int:
     return val.value
 
 
+def empty_probe(nbytes: int, device="cuda") -> None:
+    """Kernel 9's launch (one block of 256 threads, ``nbytes`` of dynamic
+    shared memory) of a kernel that does nothing: the floor under kernel
+    9's time on the card.  A yardstick for the timings only, so it is not
+    counted and has no plain version."""
+    from flex_tpu_torch import kernels
+
+    kernels.launch("micro", "flex_empty_probe", torch.device(device),
+                   nbytes)
+
+
 def smem_optin(device="cuda") -> int:
     """The card's opt-in shared memory a block, in bytes
     (``cudaDevAttrMaxSharedMemoryPerBlockOptin``)."""
@@ -278,15 +290,19 @@ def window_step_bf16(first, out_panel, win_step, A, B, *, n_panels, W,
     bf16(A[s][:, g·W:(g+1)·W]) · bf16(B[win_step[s·G+g]·W : +W]), products
     exact and sums in f32: the TPU's DEFAULT dot on kernel 1's step tables
     (:func:`..ops.window_spmm.window_spmm_fwd`'s arguments, with the same
-    operand rules: W % 16 == 0, any k, A 16-byte aligned).  Returns f32
-    [n_panels·TM, k].
+    operand rules: W % 16 == 0, any k, A 16-byte aligned, B of any
+    alignment).  Returns f32 [n_panels·TM, k].
 
-    CUDA tensors launch kernel 12 (``csrc/winstep_bf16.cu``: A and B read
-    in f32 and rounded as they are staged, ``mma.sync`` bf16 with f32
-    accumulators, in kernel 1's work units) and, where a panel has several
-    units, kernel 1's pass that adds the partial tiles in unit order;
-    counted in ``window_step_bf16.launches``.  CPU tensors take
+    CUDA tensors cast B once, inside the call, into a bf16 buffer with
+    16-byte rows (:func:`..ops.gespmm.to_bf16_padded`, nearest even: the
+    plain version's rounding) and launch kernel 12
+    (``csrc/winstep_bf16.cu``: a TMA ring of f32 A and bf16 B stages,
+    ``wgmma`` with A rounded in registers, f32 accumulators, in kernel 1's
+    work units) and, where a panel has several units, kernel 1's pass that
+    adds the partial tiles in unit order; counted in
+    ``window_step_bf16.launches``.  CPU tensors take
     :func:`window_step_bf16_plain`; any other device raises."""
+    from flex_tpu_torch.ops.gespmm import to_bf16_padded
     from flex_tpu_torch.ops.window_spmm import (
         check_step_operands, launch_step_kernel,
     )
@@ -296,14 +312,32 @@ def window_step_bf16(first, out_panel, win_step, A, B, *, n_panels, W,
                         panel_step_ptr=panel_step_ptr, units=units)
     if _device_of(A=A, B=B).type == "cpu":
         return window_step_bf16_plain(first, out_panel, win_step, A, B, **kw)
+    if not B.shape[0]:  # one zero row: every window reads zero either way
+        B = B.new_zeros((1, B.shape[1]))
+    Bb = to_bf16_padded(B)
     out = launch_step_kernel("winstep_bf16", "flex_winstep_bf16", win_step,
                              A, B, **kw, panel_step_ptr=panel_step_ptr,
-                             units=units)
+                             units=units, kernel_B=Bb,
+                             extra=(A.shape[0], Bb.stride(0)))
     window_step_bf16.launches += 1
     return out
 
 
 window_step_bf16.launches = 0
+
+
+def winstep_layout(W: int) -> dict:
+    """Kernel 12's stages at window width W, as the kernel sets them: the
+    contraction rows of a stage (``bk``), the ring's ``stages`` and the
+    dynamic shared memory of a block (``smem_bytes``)."""
+    from flex_tpu_torch import kernels
+
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    err = kernels.load("winstep_bf16").flex_winstep_bf16_layout(
+        W, *(ctypes.byref(v) for v in vals))
+    if err:
+        raise ValueError(f"kernel 12 takes W % 16 == 0, got W={W}")
+    return dict(zip(("bk", "stages", "smem_bytes"), (v.value for v in vals)))
 
 
 def wrappers() -> list:

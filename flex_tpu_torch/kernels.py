@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict = {}  # (name, symbol) -> the bound C entry
 build_log: dict[str, str] = {}  # name -> nvcc's output (ptxas register use)
 
 
@@ -115,13 +116,20 @@ def load(name: str) -> ctypes.CDLL:
 def launch(name: str, symbol: str, device, *args) -> None:
     """Call the C entry ``symbol`` of ``csrc/<name>.cu`` with ``args`` and,
     last, ``device``'s current stream.  The entry returns its launch's
-    ``cudaError_t``; anything but 0 raises."""
+    ``cudaError_t``; anything but 0 raises.  The bound entry is looked up
+    once per ``(name, symbol)``; the device is entered only when it is not
+    the current one."""
     import torch
 
-    fn = getattr(load(name), symbol)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
+    fn = _fns.get((name, symbol))
+    if fn is None:
+        fn = _fns.setdefault((name, symbol), getattr(load(name), symbol))
+    index = device.index
+    if index is None or index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
 
@@ -205,6 +213,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flex_row_gather_sum.argtypes = [p, p, p, i, i, i, i, p]
         # (x, out, nbytes, stream)
         lib.flex_smem_probe.argtypes = [p, p, i, p]
+        # (nbytes, stream)
+        lib.flex_empty_probe.argtypes = [i, p]
         ip = ctypes.POINTER(ctypes.c_int)
         # (int* out)
         lib.flex_smem_optin.argtypes = [ip]
@@ -215,15 +225,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.flex_slab_cluster_occupancy.argtypes = [i, i, ip]
         # (v, Bg, out, N, w, k, stream)
         lib.flex_ell_reduce.argtypes = [p, p, p, i, i, i, p]
-        for fn in ("flex_row_gather_sum", "flex_smem_probe", "flex_smem_optin",
-                   "flex_slab_gather", "flex_slab_cluster_occupancy",
-                   "flex_ell_reduce"):
+        for fn in ("flex_row_gather_sum", "flex_smem_probe",
+                   "flex_empty_probe", "flex_smem_optin", "flex_slab_gather",
+                   "flex_slab_cluster_occupancy", "flex_ell_reduce"):
             getattr(lib, fn).restype = i
     elif name == "winstep_bf16":
-        # (A, B, win_step, units, out, scratch,
-        #  n_units, TM, G, W, n, k, nblk, stream)
+        # (A, Bb, win_step, units, out, scratch,
+        #  n_units, TM, G, W, n, k, nblk, S, ldb, stream): Bb the bf16 copy
+        #  of B, rows ldb elements apart
         lib.flex_winstep_bf16.argtypes = [p, p, p, p, p, p,
-                                          i, i, i, i, i, i, i, p]
+                                          i, i, i, i, i, i, i, i, i, p]
         lib.flex_winstep_bf16.restype = i
+        ip = ctypes.POINTER(ctypes.c_int)
+        # (W, int* bk, int* stages, int* smem_bytes)
+        lib.flex_winstep_bf16_layout.argtypes = [i, ip, ip, ip]
+        lib.flex_winstep_bf16_layout.restype = i
     else:
         raise ValueError(f"no CUDA source named {name!r}")

@@ -555,12 +555,14 @@ def check_step_operands(first, out_panel, win_step, A, B, *, n_panels, W,
 
 
 def launch_step_kernel(name, symbol, win_step, A, B, *, n_panels, W,
-                       panel_step_ptr, units=None):
+                       panel_step_ptr, units=None, kernel_B=None, extra=()):
     """Launch ``symbol`` of ``csrc/<name>.cu``, a kernel with kernel 1's
     C interface, over the panels' work units (derived from
     ``panel_step_ptr`` when ``units`` is None), then kernel 1's pass that
     adds a panel's partial tiles in unit order.  CUDA tensors checked by
-    :func:`check_step_operands`; returns f32 [n_panels·TM, k]."""
+    :func:`check_step_operands`; returns f32 [n_panels·TM, k].  The kernel
+    is handed ``kernel_B`` (a copy of B in another layout) in B's place
+    when given, and ``extra`` arguments after kernel 1's."""
     S, TM, GW = A.shape
     n, k = B.shape
     _check_window_kernel_operands(W, ("A",), A=A, B=B)
@@ -574,10 +576,11 @@ def launch_step_kernel(name, symbol, win_step, A, B, *, n_panels, W,
                       device=A.device)
     scratch = torch.empty((n_parts, TM, k), dtype=torch.float32,
                           device=A.device)
-    kernels.launch(name, symbol, A.device, A.data_ptr(), B.data_ptr(),
+    kernels.launch(name, symbol, A.device, A.data_ptr(),
+                   (B if kernel_B is None else kernel_B).data_ptr(),
                    win_step.data_ptr(), unit_tab.data_ptr(), out.data_ptr(),
                    scratch.data_ptr(), unit_tab.shape[0], TM, GW // W, W, n,
-                   k, max(-(-n // W), 1))
+                   k, max(-(-n // W), 1), *extra)
     reduce_partials("window_spmm", "flex_window_spmm_reduce", scratch, out,
                     splits)
     return out

@@ -1129,6 +1129,105 @@ def test_winstep_bf16_kernel_within_the_order_bound(cuda, G, W, TM, k):
     assert bool(((out - ref).abs() <= 2 * L[:, None] * EPS32 * absprod).all())
 
 
+@pytest.mark.parametrize("G, W, TM, k, misaligned", [
+    (4, 48, 200, 41, False), (4, 48, 200, 200, True), (4, 128, 200, 41, True),
+    (8, 128, 256, 128, True), (2, 64, 384, 200, False)])
+def test_winstep_bf16_kernel_on_its_tile_edges(cuda, G, W, TM, k, misaligned):
+    """Kernel 12's TMA ring and wgmma tiles at their edges: TM = 200 (the
+    second warpgroup's rows past TM, read as zero from the 3-D map), 384
+    (two row tiles), W = 48 (stages of 16), k = 41 and 200 (a column tile
+    with one B box), a B view 4 bytes past a 16-byte boundary, an
+    all-sentinel unit; held to the plain version's order bound and
+    launched twice for the same bits."""
+    from flex_tpu_torch.experiments import micro
+
+    rng = np.random.default_rng(G * W + k + TM)
+    steps = [1, 8, 9, 17]
+    S, n = sum(steps), 3000 + 7
+    nblk = -(-n // W)
+    win = rng.integers(0, nblk + 1, S * G).astype(np.int32)
+    win[:G] = nblk                                      # an all-sentinel unit
+    win[G] = nblk - 1                                   # the partial block
+    out_panel = np.repeat(np.arange(len(steps)), steps).astype(np.int32)
+    first = np.zeros(S, np.int32)
+    first[np.cumsum([0] + steps[:-1])] = 1
+    ptr = np.r_[0, np.cumsum(steps)].astype(np.int32)
+    tabs = [torch.from_numpy(a).to(cuda) for a in (first, out_panel, win)]
+    gen = torch.Generator(device=cuda).manual_seed(k + TM)
+    A = torch.rand((S, TM, G * W), generator=gen, device=cuda) * 2 - 1
+    buf = torch.rand((n * k + 1,), generator=gen, device=cuda) * 2 - 1
+    B = buf[1:].view(n, k) if misaligned else buf[:-1].view(n, k)
+    kw = dict(n_panels=len(steps), W=W)
+    p = torch.from_numpy(ptr).to(cuda)
+    out = micro.window_step_bf16(*tabs, A, B, panel_step_ptr=p, **kw)
+    assert torch.equal(out, micro.window_step_bf16(*tabs, A, B,
+                                                   panel_step_ptr=p, **kw))
+    assert not bool(out[:TM].any())                     # the sentinel unit
+    ref = micro.window_step_bf16_plain(*tabs, A, B, **kw)
+    absprod = window_spmm_fwd_plain(*tabs, A.bfloat16().float().abs(),
+                                    B.bfloat16().float().abs(), **kw)
+    L = torch.from_numpy(np.repeat(np.diff(ptr) * G * W, TM)).to(cuda)
+    assert bool(((out - ref).abs() <= 2 * L[:, None] * EPS32 * absprod).all())
+
+
+def test_smem_probe_refuses_above_the_limit_after_a_launch_at_it(cuda):
+    """The shared-memory attribute is set once, to the opt-in limit: a
+    launch at 227 KB does not open 228 KB."""
+    from flex_tpu_torch.experiments import micro
+
+    limit = micro.smem_optin(cuda)
+    x = torch.rand((8, 128), device=cuda)
+    assert torch.equal(micro.smem_probe(x, limit), x)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            micro.smem_probe(x, limit + 1024)
+        assert torch.equal(micro.smem_probe(x, limit), x)
+    micro.empty_probe(limit)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        micro.empty_probe(limit + 1024)
+    torch.cuda.synchronize()
+
+
+def test_kernels_9_and_12_count_one_launch_a_call(cuda):
+    from flex_tpu_torch.experiments import micro
+
+    x = torch.rand((8, 128), device=cuda)
+    before = micro.smem_probe.launches
+    for i in range(3):
+        micro.smem_probe(x, 48 * 1024)
+        assert micro.smem_probe.launches == before + i + 1
+    micro.empty_probe(48 * 1024)                        # a yardstick: uncounted
+    assert micro.smem_probe.launches == before + 3
+    S, TM, G, W, n = 4, 256, 2, 64, 500
+    first = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=cuda)
+    out_panel = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=cuda)
+    win = torch.arange(S * G, dtype=torch.int32, device=cuda) % 8
+    ptr = torch.tensor([0, 2, 4], dtype=torch.int32, device=cuda)
+    A = torch.rand((S, TM, G * W), device=cuda)
+    B = torch.rand((n, 32), device=cuda)
+    before = micro.window_step_bf16.launches
+    for i in range(2):
+        micro.window_step_bf16(first, out_panel, win, A, B, n_panels=2, W=W,
+                               panel_step_ptr=ptr)
+        assert micro.window_step_bf16.launches == before + i + 1
+
+
+def test_device_time_captures_the_probes(cuda):
+    """The harness's device timer runs kernel 9, its empty launch and the
+    clone in one CUDA graph each; kernel 9 moves 8 KB, so its time a call
+    stays within the launch's scale (under 50 us)."""
+    from flex_tpu_torch.bench.harness import time_device_ms
+    from flex_tpu_torch.experiments import micro
+
+    x = torch.rand((8, 128), device=cuda)
+    limit = micro.smem_optin(cuda)
+    for fn, args in ((micro.smem_probe, (x, limit)),
+                     (micro.empty_probe, (limit,)),
+                     (lambda a: a.clone(), (x,))):
+        ms = time_device_ms(fn, *args, n=50, reps=3)
+        assert 0 < ms < 0.05
+
+
 def test_winstep_and_band_v2_mains_on_the_card(cuda, capsys):
     from flex_tpu_torch.experiments import micro, micro_winstep, pallas_band_v2
 

@@ -153,6 +153,95 @@ def test_window_step_bf16_refuses_what_it_does_not_take():
                                panel_step_ptr=ptr.to("meta"))
 
 
+def step_case(k, n, W=32, G=3, TM=24, seed=0):
+    """Tables of three panels (1, 3 and 2 steps, sentinels among the
+    windows), A and B, as NumPy arrays."""
+    rng = np.random.default_rng(seed)
+    nblk = -(-n // W)
+    steps = [1, 3, 2]
+    S = sum(steps)
+    out_panel = np.repeat(np.arange(len(steps)), steps).astype(np.int32)
+    first = np.zeros(S, np.int32)
+    first[np.cumsum([0] + steps[:-1])] = 1
+    win = rng.integers(0, nblk + 1, S * G).astype(np.int32)
+    ptr = np.r_[0, np.cumsum(steps)].astype(np.int32)
+    A = (2 * rng.random((S, TM, G * W)) - 1).astype(np.float32)
+    B = (2 * rng.random((n, k)) - 1).astype(np.float32)
+    return (first, out_panel, win), ptr, A, B, len(steps)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("k", [41, 128, 200])
+def test_plain_on_the_bf16_copy_of_B_is_the_plain_version(k, misaligned):
+    """The kernel's B, cast once into rows of 16 bytes, holds the rounding
+    the plain version makes itself: the plain version on it gives the same
+    bits as on B (n % W != 0; B contiguous, or a view 4 bytes past a
+    16-byte boundary)."""
+    from flex_tpu_torch.ops.gespmm import bf16_layout, to_bf16_padded
+
+    tabs, _, A, B, n_panels = step_case(k, n=130, seed=k)
+    Bt = t(B)
+    if misaligned:
+        buf = torch.zeros(B.size + 1)
+        buf[1:] = Bt.reshape(-1)
+        Bt = buf[1:].view(B.shape)
+        assert Bt.data_ptr() % 16 == 4
+    Bb = to_bf16_padded(Bt)
+    assert Bb.dtype == torch.bfloat16 and Bb.data_ptr() % 16 == 0
+    assert Bb.stride(0) == bf16_layout(k)[0] and Bb.stride(0) % 8 == 0
+    kw = dict(n_panels=n_panels, W=32)
+    want = micro.window_step_bf16_plain(*map(t, tabs), t(A), Bt, **kw)
+    got = micro.window_step_bf16_plain(*map(t, tabs), t(A), Bb, **kw)
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(Bb.float().numpy(), bf16(B))
+
+
+@pytest.fixture
+def kernel_path(monkeypatch):
+    """The wrapper's CUDA branch on CPU tensors, up to the launch: the
+    device check says "cuda" and ``kernels.launch`` records its calls."""
+    calls = []
+    monkeypatch.setattr(micro, "_device_of",
+                        lambda **tensors: torch.device("cuda", 0))
+    monkeypatch.setattr(kernels, "launch",
+                        lambda name, symbol, dev, *args: calls.append(
+                            (symbol, args)))
+    return calls
+
+
+def test_window_step_bf16_hands_the_kernel_a_bf16_B(kernel_path):
+    tabs, ptr, A, B, n_panels = step_case(41, n=130)
+    before = micro.window_step_bf16.launches
+    out = micro.window_step_bf16(*map(t, tabs), t(A), t(B),
+                                 n_panels=n_panels, W=32,
+                                 panel_step_ptr=t(ptr))
+    assert micro.window_step_bf16.launches == before + 1
+    assert out.shape == (n_panels * 24, 41) and out.dtype == torch.float32
+    symbols = [c[0] for c in kernel_path]
+    assert symbols == ["flex_winstep_bf16", "flex_window_spmm_reduce"]
+    args = kernel_path[0][1]
+    # (A, Bb, win_step, units, out, scratch, n_units, TM, G, W, n, k,
+    #  nblk, S, ldb): S and B's row stride after kernel 1's arguments
+    assert args[6:] == (3, 24, 3, 32, 130, 41, 5, 6, 48)
+
+
+def test_window_step_bf16_refuses_on_its_kernel_path(kernel_path):
+    tabs, ptr, A, B, n_panels = step_case(16, n=130)
+    kw = dict(n_panels=n_panels, panel_step_ptr=t(ptr))
+    A40 = t(np.zeros((6, 24, 80), np.float32))   # G = 2 windows of 40
+    with pytest.raises(ValueError, match="W % 16 == 0"):
+        micro.window_step_bf16(*map(t, tabs[:2]), t(tabs[2][:12]), A40,
+                               t(B), W=40, **kw)
+    buf = torch.zeros(A.size + 1)
+    Am = buf[1:].view(A.shape)                   # 4 bytes past 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        micro.window_step_bf16(*map(t, tabs), Am, t(B), W=32, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        micro.window_step_bf16(*map(t, tabs), t(A), t(B).bfloat16(), W=32,
+                               **kw)
+    assert kernel_path == []
+
+
 def test_precision_names():
     assert micro_winstep.step_fn("highest").__name__ == "window_spmm_fwd"
     assert micro_winstep.step_fn("default") is micro.window_step_bf16
