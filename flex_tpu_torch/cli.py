@@ -10,7 +10,8 @@ when it exists, else computing and saving it), runs the requested SpMM
 strategy (``auto`` asks the autotuner; the user's explicit flags win; a
 chosen format that refuses the graph falls back to ``ell``) or the
 ordering × method sweep, checks the result against SciPy, and prints the
-report line, the trace table and the CSV.  Runs on the card unless
+report line, the trace table with the port's spans (also written as
+``spans.json`` beside the trace) and the CSV.  Runs on the card unless
 ``--device=cpu`` is given.  The last line counts each hand kernel's
 launches in the run.  Exit status 1 on a failed check.
 """
@@ -137,15 +138,22 @@ def main(argv=None) -> int:
                        device=cfg.device, **cfg.prep_kwargs("ell"))
     print(_fmt(r))
     if cfg.trace:
-        from flex_tpu_torch.utils.trace import format_trace_table, trace_table
+        from flex_tpu_torch.utils import trace
 
-        rows = trace_table(cfg.trace)
+        rows = trace.trace_table(cfg.trace)
         if rows:
             where = "device" if r.extra.get("trace_device_ms") else "host op"
-            print(format_trace_table(rows))
+            print(trace.format_trace_table(rows))
             print(f"trace: {len(rows)} distinct ops; "
                   f"total {sum(x['total_ms'] for x in rows):.2f} ms {where} "
                   f"time in {cfg.trace}")
+        spans = trace.snapshot()
+        print(trace.format_span_table(spans))
+        os.makedirs(cfg.trace, exist_ok=True)
+        path = os.path.join(cfg.trace, trace.SPANS_FILE)
+        with open(path, "w") as f:
+            json.dump(spans, f, indent=1)
+        print(f"spans: {len(spans)} aggregates in {path}")
     if cfg.csv:
         write_csv([r], cfg.csv)
         print(f"wrote {cfg.csv}")

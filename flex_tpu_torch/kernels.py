@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 import threading
 
+from flex_tpu_torch.utils import trace as _trace
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
@@ -118,18 +120,20 @@ def launch(name: str, symbol: str, device, *args) -> None:
     last, ``device``'s current stream.  The entry returns its launch's
     ``cudaError_t``; anything but 0 raises.  The bound entry is looked up
     once per ``(name, symbol)``; the device is entered only when it is not
-    the current one."""
+    the current one.  The C call is annotated ``flex.launch`` on a
+    profiler's clock (:func:`.utils.trace.annotate`)."""
     import torch
 
     fn = _fns.get((name, symbol))
     if fn is None:
         fn = _fns.setdefault((name, symbol), getattr(load(name), symbol))
     index = device.index
-    if index is None or index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
-    else:
-        with torch.cuda.device(index):
+    with _trace.annotate("flex.launch"):
+        if index is None or index == torch.cuda.current_device():
             err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
 

@@ -46,6 +46,7 @@ from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import (
     DeviceCSR, dense_operand, resident_csr,
 )
+from flex_tpu_torch.utils import trace as _trace
 
 # Width ladder (~1.2x steps): padding rows are gathered like real ones, so
 # bucket granularity sets the padding overhead.
@@ -110,15 +111,16 @@ def ell_meta(deg: np.ndarray, widths: tuple[int, ...] = DEFAULT_WIDTHS,
     allocated chunk count ≥ the real count) pads every live width of it to
     that count, so the shards of a sharded plan share bucket shapes; pad
     chunks hold no entry and point at row 0."""
-    by_w, n_rows_last, padded = host_bucket_sizes(
-        np.asarray(deg, dtype=np.int64), widths)
-    if bucket_alloc is None:
-        bucket_meta = tuple((w, nc, nc) for w, nc in by_w.items())
-    else:
-        bucket_meta = tuple(
-            (int(w), int(bucket_alloc[int(w)]), by_w.get(int(w), 0))
-            for w in widths if bucket_alloc.get(int(w), 0) > 0)
-        padded = sum(a * w for w, a, _ in bucket_meta)
+    with _trace.setup_span("flex.build.meta"):
+        by_w, n_rows_last, padded = host_bucket_sizes(
+            np.asarray(deg, dtype=np.int64), widths)
+        if bucket_alloc is None:
+            bucket_meta = tuple((w, nc, nc) for w, nc in by_w.items())
+        else:
+            bucket_meta = tuple(
+                (int(w), int(bucket_alloc[int(w)]), by_w.get(int(w), 0))
+                for w in widths if bucket_alloc.get(int(w), 0) > 0)
+            padded = sum(a * w for w, a, _ in bucket_meta)
     return (widths[-1], tuple(widths), bucket_meta, n_rows_last), padded
 
 
@@ -243,33 +245,34 @@ def ell_buckets_core(row_ptr, col_dev, vals_dev, *, meta):
     dev = col_dev.device
     if not bucket_meta:  # empty residue
         return (), torch.zeros(0, dtype=torch.int32, device=dev), None
-    row_ptr = row_ptr.long()
-    deg = row_ptr[1:] - row_ptr[:-1]
-    order = _chunk_order(deg, widths)
-    col_pad = torch.cat([col_dev, col_dev.new_zeros(wmax)])
-    val_pad = torch.cat([vals_dev, vals_dev.new_zeros(wmax)])
+    with _trace.setup_span("flex.build.buckets"):
+        row_ptr = row_ptr.long()
+        deg = row_ptr[1:] - row_ptr[:-1]
+        order = _chunk_order(deg, widths)
+        col_pad = torch.cat([col_dev, col_dev.new_zeros(wmax)])
+        val_pad = torch.cat([vals_dev, vals_dev.new_zeros(wmax)])
 
-    total = sum(w * n_alloc for w, n_alloc, _ in bucket_meta)
-    flat_c = torch.empty(total, dtype=torch.int32, device=dev)
-    flat_v = torch.empty(total, dtype=torch.float32, device=dev)
-    buckets, rows_parts, offs, lens, base = [], [], [], [], 0
-    for w, rows_b, starts, lengths in _bucket_layouts(
-            row_ptr, deg, order, col_dev.shape[0], meta):
-        N = rows_b.shape[0]
-        c, v = flat_c[base:base + N * w].view(N, w), \
-            flat_v[base:base + N * w].view(N, w)
-        gc, gv = gather_chunks(col_pad, val_pad, starts, lengths, w)
-        c.copy_(gc)
-        v.copy_(gv)
-        buckets.append((c, v))
-        rows_parts.append(rows_b)
-        offs.append(base + torch.arange(N, device=dev) * w)
-        lens.append(lengths)
-        base += N * w
-    chunk_row = torch.cat(rows_parts).to(torch.int32)
+        total = sum(w * n_alloc for w, n_alloc, _ in bucket_meta)
+        flat_c = torch.empty(total, dtype=torch.int32, device=dev)
+        flat_v = torch.empty(total, dtype=torch.float32, device=dev)
+        buckets, rows_parts, offs, lens, base = [], [], [], [], 0
+        for w, rows_b, starts, lengths in _bucket_layouts(
+                row_ptr, deg, order, col_dev.shape[0], meta):
+            N = rows_b.shape[0]
+            c, v = flat_c[base:base + N * w].view(N, w), \
+                flat_v[base:base + N * w].view(N, w)
+            gc, gv = gather_chunks(col_pad, val_pad, starts, lengths, w)
+            c.copy_(gc)
+            v.copy_(gv)
+            buckets.append((c, v))
+            rows_parts.append(rows_b)
+            offs.append(base + torch.arange(N, device=dev) * w)
+            lens.append(lengths)
+            base += N * w
+        chunk_row = torch.cat(rows_parts).to(torch.int32)
+        chunk_off, chunk_len = torch.cat(offs), torch.cat(lens)
     return tuple(buckets), chunk_row, row_tables(
-        flat_c, flat_v, chunk_row, torch.cat(offs), torch.cat(lens),
-        deg.shape[0])
+        flat_c, flat_v, chunk_row, chunk_off, chunk_len, deg.shape[0])
 
 
 def _gather_assembly_tables(chunk_row: torch.Tensor, *, m: int,
@@ -277,18 +280,20 @@ def _gather_assembly_tables(chunk_row: torch.Tensor, *, m: int,
     """``chunk1[r]`` = row r's first chunk (sentinel n_chunks = no chunk);
     with split rows also (extra_idx, extra_first): the non-first chunks and
     the first chunk of their row, folded in before the gather."""
-    n_chunks = chunk_row.shape[0]
-    dev = chunk_row.device
-    idx = torch.arange(n_chunks, device=dev)
-    rows = chunk_row.long()
-    chunk1 = torch.full((m,), n_chunks, dtype=torch.int64, device=dev)
-    chunk1.scatter_reduce_(0, rows, idx, reduce="amin", include_self=True)
-    if n_extras == 0:
-        return chunk1.to(torch.int32), None
-    extra_idx = idx[chunk1[rows] != idx]
-    extra_first = chunk1[rows[extra_idx]]
-    return chunk1.to(torch.int32), (extra_idx.to(torch.int32),
-                                    extra_first.to(torch.int32))
+    with _trace.setup_span("flex.build.assembly"):
+        n_chunks = chunk_row.shape[0]
+        dev = chunk_row.device
+        idx = torch.arange(n_chunks, device=dev)
+        rows = chunk_row.long()
+        chunk1 = torch.full((m,), n_chunks, dtype=torch.int64, device=dev)
+        chunk1.scatter_reduce_(0, rows, idx, reduce="amin",
+                               include_self=True)
+        if n_extras == 0:
+            return chunk1.to(torch.int32), None
+        extra_idx = idx[chunk1[rows] != idx]
+        extra_first = chunk1[rows[extra_idx]]
+        return chunk1.to(torch.int32), (extra_idx.to(torch.int32),
+                                        extra_first.to(torch.int32))
 
 
 def _ell_spmm(buckets, chunk_row, B, *, m, max_gather_rows, into=None,
@@ -402,14 +407,25 @@ def ell_spmm_plain(plan: EllPlan, B, into=None):
                      b_dtype=plan.b_dtype)
 
 
+def _spmm_attrs(plan: EllPlan, B):
+    """The ``flex.spmm`` span's device and attrs: the plan's rows and real
+    nonzeros, B's rows and columns, the gather dtype."""
+    shape = B.shape
+    return B.device, {"m": plan.m, "n": shape[0], "nnz": plan.nnz,
+                      "k": shape[1], "dtype": plan.b_dtype}
+
+
 def _ell_raw_call(plan: EllPlan, B, into):
-    if B.device.type == "cpu" or not plan.buckets:
-        return ell_spmm_plain(plan, B, into)
-    # a bf16 plan casts B once, into rows padded to 16 bytes; gespmm_rows
-    # then launches kernel 7's bf16 instance, whose output is f32
-    Bc = to_bf16_padded(B) if plan.b_dtype == "bfloat16" \
-        else B.to(torch.float32)
-    return gespmm_rows(plan.row_tables(), Bc, into=into)
+    with _trace.span("flex.spmm", _spmm_attrs, plan, B) as sp:
+        if B.device.type == "cpu" or not plan.buckets:
+            return ell_spmm_plain(plan, B, into)
+        # a bf16 plan casts B once, into rows padded to 16 bytes;
+        # gespmm_rows then launches kernel 7's bf16 instance, whose output
+        # is f32.  The cast, or else the launch, is the first device work.
+        sp.begin()
+        Bc = to_bf16_padded(B) if plan.b_dtype == "bfloat16" \
+            else B.to(torch.float32)
+        return gespmm_rows(plan.row_tables(), Bc, into=into)
 
 
 def _ell_transpose_scatter(plan: EllPlan, g, n: int):
@@ -471,18 +487,19 @@ def prepare_ell_device(row_ptr_dev, col_dev, vals_dev, *, m: int, nnz: int,
     chunks point at row 0, so such a plan has no gather assembly
     (``chunk1``), as in the JAX package."""
     check_b_dtype(b_dtype)
-    deg = np.diff(np.asarray(res_row_ptr_host, dtype=np.int64))
-    meta, padded = ell_meta(deg, widths, bucket_alloc)
-    buckets, chunk_row, rows = ell_buckets_core(row_ptr_dev, col_dev,
-                                                vals_dev, meta=meta)
-    chunk1 = extras = None
-    if buckets and bucket_alloc is None:
-        n_extras = int(chunk_row.shape[0]) - int((deg > 0).sum())
-        chunk1, extras = _gather_assembly_tables(chunk_row, m=m,
-                                                 n_extras=n_extras)
-    return EllPlan(m=m, buckets=buckets, chunk_row=chunk_row,
-                   padded_nnz=padded, nnz=nnz, chunk1=chunk1, extras=extras,
-                   rows=rows, b_dtype=b_dtype)
+    with _trace.setup_span("flex.build", m=m, nnz=nnz):
+        deg = np.diff(np.asarray(res_row_ptr_host, dtype=np.int64))
+        meta, padded = ell_meta(deg, widths, bucket_alloc)
+        buckets, chunk_row, rows = ell_buckets_core(row_ptr_dev, col_dev,
+                                                    vals_dev, meta=meta)
+        chunk1 = extras = None
+        if buckets and bucket_alloc is None:
+            n_extras = int(chunk_row.shape[0]) - int((deg > 0).sum())
+            chunk1, extras = _gather_assembly_tables(chunk_row, m=m,
+                                                     n_extras=n_extras)
+        return EllPlan(m=m, buckets=buckets, chunk_row=chunk_row,
+                       padded_nnz=padded, nnz=nnz, chunk1=chunk1,
+                       extras=extras, rows=rows, b_dtype=b_dtype)
 
 
 def prepare_ell_transpose(plan: EllPlan, n: int,
@@ -501,23 +518,28 @@ def prepare_ell_transpose(plan: EllPlan, n: int,
         return EllPlan(m=n, buckets=(), padded_nnz=0, nnz=0,
                        chunk_row=plan.chunk_row.new_zeros(0),
                        b_dtype=plan.b_dtype)
-    cols = torch.cat([c.reshape(-1) for c, _ in plan.buckets])
-    vals = torch.cat([v.reshape(-1) for _, v in plan.buckets])
-    offs, rows_parts = 0, []
-    for c, _ in plan.buckets:
-        N, w = c.shape
-        rows_parts.append(plan.chunk_row[offs:offs + N].repeat_interleave(w))
-        offs += N
-    rows = torch.cat(rows_parts)
-    if not keep_pads:
-        _, real = unit_entries(plan.row_tables())
-        cols, vals, rows = cols[real], vals[real], rows[real]
-    t_row_ptr = torch.cat([cols.new_zeros(1, dtype=torch.int64), torch.cumsum(
-        torch.bincount(cols, minlength=n), 0)])
-    order = torch.sort(cols, stable=True).indices
-    return prepare_ell_device(
-        t_row_ptr, rows[order], vals[order], m=n, nnz=int(cols.shape[0]),
-        res_row_ptr_host=t_row_ptr.cpu().numpy(), b_dtype=plan.b_dtype)
+    # its own flex.build span holds the device-side sort and the row_ptr's
+    # copy to the host, besides the inner build's
+    nnz = plan.padded_nnz if keep_pads else plan.nnz
+    with _trace.setup_span("flex.build", m=n, nnz=nnz):
+        cols = torch.cat([c.reshape(-1) for c, _ in plan.buckets])
+        vals = torch.cat([v.reshape(-1) for _, v in plan.buckets])
+        offs, rows_parts = 0, []
+        for c, _ in plan.buckets:
+            N, w = c.shape
+            rows_parts.append(
+                plan.chunk_row[offs:offs + N].repeat_interleave(w))
+            offs += N
+        rows = torch.cat(rows_parts)
+        if not keep_pads:
+            _, real = unit_entries(plan.row_tables())
+            cols, vals, rows = cols[real], vals[real], rows[real]
+        counts = torch.bincount(cols, minlength=n)
+        t_row_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        order = torch.sort(cols, stable=True).indices
+        return prepare_ell_device(
+            t_row_ptr, rows[order], vals[order], m=n, nnz=int(cols.shape[0]),
+            res_row_ptr_host=t_row_ptr.cpu().numpy(), b_dtype=plan.b_dtype)
 
 
 def with_bwd_plan(plan: EllPlan, n: int) -> EllPlan:

@@ -16,6 +16,7 @@ from typing import Callable
 import torch
 
 from flex_tpu_torch.ops.operands import check_precision
+from flex_tpu_torch.utils import trace as _trace
 
 
 def pick_association(m: int, nnz: int, d: int, c: int) -> str:
@@ -23,6 +24,13 @@ def pick_association(m: int, nnz: int, d: int, c: int) -> str:
     flops_axw = 2 * m * d * c + 2 * nnz * c
     flops_ax_w = 2 * nnz * d + 2 * m * d * c
     return "axw" if flops_axw <= flops_ax_w else "ax_w"
+
+
+def _dense(matmul: Callable, X, W):
+    """``matmul(X, W)``, annotated ``flex.gemm`` on a profiler's clock
+    (:func:`.utils.trace.annotate`)."""
+    with _trace.annotate("flex.gemm"):
+        return matmul(X, W)
 
 
 def gcn_layer(plan, X, W, b=None, activation: Callable | None = torch.relu,
@@ -45,9 +53,9 @@ def gcn_layer(plan, X, W, b=None, activation: Callable | None = torch.relu,
             raise ValueError("association='auto' needs nnz")
         association = pick_association(X.shape[0], nnz, d, c)
     if association == "axw":
-        H = plan(matmul(X, W))
+        H = plan(_dense(matmul, X, W))
     elif association == "ax_w":
-        H = matmul(plan(X), W)
+        H = _dense(matmul, plan(X), W)
     else:
         raise ValueError(association)
     if b is not None:

@@ -37,6 +37,7 @@ from flex_tpu_torch.ops.operands import (
 from flex_tpu_torch.ops.units import row_units
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import DeviceCSR, resident_csr
+from flex_tpu_torch.utils import trace as _trace
 
 CH = 8  # the chunk count is padded to a multiple of CH, as in the JAX plan
 # most nonzeros in one unit of the row-unit kernel: 8 chunks of GE-SpMM's
@@ -71,33 +72,34 @@ def row_tables(cols, vals, chunk_row, chunk_off, chunk_len, m: int,
     Built on the store's device; one O(m) copy of the row lengths to the
     host cuts the units.  Raises if a row's chunks are not one contiguous
     run of the store."""
-    T = int(cols.shape[0])
-    if T >= 2**31:
-        raise ValueError("the row-unit kernel's store is int32-indexed: it "
-                         "must hold < 2^31 entries")
-    dev = cols.device
-    live = (chunk_row.long() < m) & (chunk_len > 0)
-    rows = chunk_row.long()[live]
-    off = chunk_off.long()[live]
-    ln = chunk_len.long()[live]
-    start = torch.full((m,), T, dtype=torch.int64, device=dev)
-    start.scatter_reduce_(0, rows, off, reduce="amin")
-    end = torch.zeros(m, dtype=torch.int64, device=dev)
-    end.scatter_reduce_(0, rows, off + ln, reduce="amax")
-    length = torch.zeros(m, dtype=torch.int64, device=dev).scatter_add_(
-        0, rows, ln)
-    has = length > 0
-    length_h, gap = torch.stack(
-        [length, torch.where(has, end - start - length, 0)]).cpu().numpy()
-    if gap.any():
-        raise ValueError("a row's chunks are not one contiguous run of the "
-                         "flat store")
-    units, splits = row_units(length_h, chunk)
-    return RowTables(cols=cols, vals=vals,
-                     row_start=torch.where(has, start, 0).to(torch.int32),
-                     units=torch.from_numpy(units).to(dev),
-                     splits=torch.from_numpy(splits).to(dev),
-                     n_parts=int((units[:, 3] >= 0).sum()))
+    with _trace.setup_span("flex.build.row_tables"):
+        T = int(cols.shape[0])
+        if T >= 2**31:
+            raise ValueError("the row-unit kernel's store is int32-indexed: "
+                             "it must hold < 2^31 entries")
+        dev = cols.device
+        live = (chunk_row.long() < m) & (chunk_len > 0)
+        rows = chunk_row.long()[live]
+        off = chunk_off.long()[live]
+        ln = chunk_len.long()[live]
+        start = torch.full((m,), T, dtype=torch.int64, device=dev)
+        start.scatter_reduce_(0, rows, off, reduce="amin")
+        end = torch.zeros(m, dtype=torch.int64, device=dev)
+        end.scatter_reduce_(0, rows, off + ln, reduce="amax")
+        length = torch.zeros(m, dtype=torch.int64, device=dev).scatter_add_(
+            0, rows, ln)
+        has = length > 0
+        length_h, gap = torch.stack(
+            [length, torch.where(has, end - start - length, 0)]).cpu().numpy()
+        if gap.any():
+            raise ValueError("a row's chunks are not one contiguous run of "
+                             "the flat store")
+        units, splits = row_units(length_h, chunk)
+        return RowTables(cols=cols, vals=vals,
+                         row_start=torch.where(has, start, 0).to(torch.int32),
+                         units=torch.from_numpy(units).to(dev),
+                         splits=torch.from_numpy(splits).to(dev),
+                         n_parts=int((units[:, 3] >= 0).sum()))
 
 
 def chunk_lengths(cols, vals, chunk_row):

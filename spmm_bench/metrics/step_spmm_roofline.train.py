@@ -1,0 +1,3 @@
+"""The training step's plan calls (kernel 7 forward and on the transposed
+tables) against their least time, from the program's spans, in %."""
+from spmm_bench.program_spans import step_spmm_roofline as read  # noqa: F401

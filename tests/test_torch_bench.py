@@ -3,7 +3,7 @@ sizes: ``FlexConfig``, ``bench_spmm`` and its ``BenchResult`` row,
 ``sweep`` and ``write_csv``, the serial chain and trace columns,
 ``utils.trace`` on ``torch.profiler``, ``classify_op`` on the hand
 kernels' device-function names, ``res_check2``, ``bench_gcn_layer``,
-``StageTimer``, ``utils.device_info``, and the autotuner: ``suggest``'s
+``utils.device_info``, and the autotuner: ``suggest``'s
 eligibility gates and model inputs equal the JAX version's (the band
 window statistics, the budgeted window selection, the tile statistics),
 its method equals the JAX one where eligibility decides, and elsewhere it
@@ -43,8 +43,7 @@ from flex_tpu_torch.tiling.stats import tile_stats
 from flex_tpu_torch.utils import device_info
 from flex_tpu_torch.utils.check import res_check2
 from flex_tpu_torch.utils.trace import (
-    StageTimer, classify_op, format_trace_table, trace, trace_summary,
-    trace_table,
+    classify_op, format_trace_table, trace, trace_summary, trace_table,
 )
 
 # -- FlexConfig ---------------------------------------------------------------
@@ -313,17 +312,6 @@ def test_bench_gcn_layer_on_the_cpu(d, c, community):
     # c defaults to the dataset's label width
     assert bench_gcn_layer(t, 8, method="xla", iters=1, check=False,
                            device="cpu").c == t.label_width
-
-
-def test_stage_timer():
-    st = StageTimer()
-    with st.stage("a"):
-        StageTimer.sync(torch.ones(3))
-    with pytest.raises(RuntimeError):
-        with st.stage("b"):
-            raise RuntimeError("x")
-    assert set(st.stages) == {"a", "b"}
-    assert "total" in st.report()
 
 
 def test_device_info_on_the_cpu(monkeypatch):
