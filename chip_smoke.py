@@ -69,6 +69,13 @@ Phases:
      pass alone, the longest panel alone and one unit per panel.
  10. GE-SpMM at full size on that graph (w = 32, k = 128 and 41): the
      plan is the row-unit kernel alone; its unit report, equal bits.
+ 10b. [grouped] kernel 7 at the cells' narrow widths, each call alone:
+     Reddit (that graph) at k = 41 on the ELL plan's forward and
+     transposed tables, Flickr (flickr_posts(seed=0), rbdeg) at k = 7;
+     the grouped instance (scalar loads) beside the one-unit-a-warp
+     instance at the same k, the same bits; the bytes bound, the plain
+     version and k = 128; way (b), a padded copy and 16-byte loads, as
+     recorded when it lost.
  11. the baselines ``"xla"`` and ``"bcoo"`` at full size (k = 128).
  7b. GraphSAGE(128 -> 128 -> 41) on the main path's windowed plan with its
      training backward: the first step's gradients against the plain
@@ -116,6 +123,11 @@ Phases:
      their transposed plans added into an accumulator): launched twice,
      the same bits; the f32 instance on B widened, the same bits; a
      misaligned B (scalar loads), the same bits.
+ 3c. (with phase 3) kernel 7 at k <= 64 (lane groups): GE-SpMM plans with
+     pad chunks, empty and split rows at k = 1, 7, 16, 41, 64, ELL plans
+     and their transposed plans added into an accumulator at k = 41 and 7;
+     one grouped launch each, on B as it is and misaligned, the bits of the
+     one-unit-a-warp instance on B widened to 128 columns, held to plain.
  11e. [bf16] on the main path's graph: prepare_ell(b_dtype="bfloat16")
      at k = 128 and 41 through bench_spmm (res_check at the bf16 scale,
      eps_scale 4 * 2^16), the bf16 instance against plain on the plan's
@@ -2638,7 +2650,9 @@ def phase_cli(main_ms, main_stats):
         expect_launches(launches, f"[{tag}]", **{
             w: 15 for w in CLI_WRAPPERS[plan]})
         trows = trace_table(tdir)
-        for name in CLI_KERNELS[plan]:
+        # kernel 7 runs in lane groups at k <= 64
+        for name in (n.replace("rows_kernel", "rows_group_kernel")
+                     if k <= 64 else n for n in CLI_KERNELS[plan]):
             hits = [r for r in trows if name in r["op"]]
             if not hits or any(classify_op(r["op"]) != "dot" for r in hits):
                 raise AssertionError(f"[{tag}] trace does not show {name} "
@@ -2800,6 +2814,164 @@ def phase_bf16_kernel_vs_plain(torch, dev="cuda"):
             into = torch.rand((e.m, k), device=dev) * 2 - 1
             check_gespmm_bf16_kernel(torch, e.rows, B, f"{what} into= k={k}",
                                      into=into)
+
+
+GROUPED_KS = (1, 7, 16, 41, 64)
+# way (b), not taken: 16-byte loads on a copy of B padded to round_up(k, 4)
+# floats, made in the wrapper, against way (a), taken: scalar loads of B as
+# it lies, on an NVIDIA H100 80GB HBM3 at 700 W (ms a call; Reddit by
+# events, Flickr in a CUDA graph): printed beside this run's times
+GROUPED_WAYS_RECORD_MS = {
+    "reddit_forward_k41": {"padded_with_copy": 0.6723, "copy": 0.0497,
+                           "padded_kernel": 0.6293, "scalar": 0.6498},
+    "reddit_transposed_k41": {"padded_with_copy": 0.6761, "copy": 0.0498,
+                              "padded_kernel": 0.6296, "scalar": 0.6506},
+    "flickr_forward_k7": {"padded_with_copy": 0.0640, "copy": 0.0027,
+                          "padded_kernel": 0.0612, "scalar": 0.0661},
+    "flickr_transposed_k7": {"padded_with_copy": 0.0646, "copy": 0.0029,
+                             "padded_kernel": 0.0615, "scalar": 0.0660}}
+
+
+def warp_call(t, B, into=None):
+    """Kernel 7's one-unit-a-warp instance (``rows_kernel``) at any k, as
+    ``gespmm_rows`` launched it for every k before the lane groups."""
+    from flex_tpu_torch.ops.gespmm import _rows_call
+
+    return _rows_call(t, B, into, "flex_gespmm_rows")[0]
+
+
+def widened_bits(torch, t, B, into=None):
+    """The first k columns of the one-unit-a-warp instance on B widened
+    with zeros to 128 columns (float4 loads): the bits every k <= 64 call
+    must give."""
+    n, k = B.shape
+    wide = torch.zeros((n, K), device=B.device)
+    wide[:, :k] = B
+    acc = None
+    if into is not None:
+        acc = torch.zeros((into.shape[0], K), device=B.device)
+        acc[:, :k] = into
+    return warp_call(t, wide, acc)[:, :k]
+
+
+def check_grouped_kernel(torch, t, B, label, into=None):
+    """Kernel 7 at k <= 64 through ``gespmm_rows`` (one grouped launch,
+    counted apart), on B as it is and on a misaligned copy (scalar loads at
+    any k), and the one-unit-a-warp instance at k: all the bits of that
+    instance on B widened to 128 columns; held to plain."""
+    from flex_tpu_torch.ops.gespmm import gespmm_rows
+
+    def acc():
+        return None if into is None else into.clone()
+
+    want = widened_bits(torch, t, B, into)
+    n0 = (gespmm_rows.launches, gespmm_rows.grouped_launches)
+    out = gespmm_rows(t, B, into=acc())
+    if (gespmm_rows.launches, gespmm_rows.grouped_launches) != (
+            n0[0] + 1, n0[1] + 1):
+        raise AssertionError(f"gespmm_rows on {label}: not one grouped "
+                             f"launch")
+    mis = torch.empty(B.numel() + 1, device=B.device)[1:].view(B.shape)
+    mis.copy_(B)
+    for way, got in (("as it is", out),
+                     ("misaligned", gespmm_rows(t, mis, acc())),
+                     ("a warp a unit", warp_call(t, B, acc()))):
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"gespmm_rows {way} on {label}: not the bits of the warp "
+                f"instance on B widened, max |diff| "
+                f"{float((got - want).abs().max())}")
+    return check_gespmm_kernel(torch, t, B, label + " grouped", into=into)
+
+
+def phase_grouped_kernel_vs_plain(torch, dev="cuda"):
+    """Kernel 7's grouped instance (k <= 64) on the shapes phase 3 holds
+    the f32 instance to: GE-SpMM plans with pad chunks, empty and split
+    rows (w = 32 and 7, every group size: k = 1, 7, 16, 41, 64), the ELL
+    plan and its transposed plan added into an accumulator (k = 41, 7)."""
+    from flex_tpu_torch.ops.ell_spmm import prepare_ell, with_bwd_plan
+    from flex_tpu_torch.ops.gespmm import prepare_gespmm
+
+    rng = np.random.default_rng(21)
+    gh = hub_and_empty_graph(rng)
+    for w in (32, 7):
+        plan = prepare_gespmm(gh, w=w, device=dev)
+        for k in GROUPED_KS:
+            B = torch.rand((gh.n, k), device=dev) * 2 - 1
+            check_grouped_kernel(
+                torch, plan.rows, B, f"hub+empty w={w} k={k} split rows="
+                f"{plan.rows.splits.shape[0]}")
+    ell = with_bwd_plan(prepare_ell(gh, device=dev), gh.n)
+    for e, what in ((ell, "ell"), (ell.bwd_plan, "transposed ell")):
+        for k in (41, 7):
+            B = torch.rand((gh.n, k), device=dev) * 2 - 1
+            into = torch.rand((e.m, k), device=dev) * 2 - 1
+            check_grouped_kernel(torch, e.rows, B, f"{what} into= k={k}",
+                                 into=into)
+
+
+def phase_grouped(torch, g, peaks, smi):
+    """Kernel 7 at the cells' narrow widths: Reddit (the main path's graph)
+    at k = 41, forward and transposed ELL tables (the training step's two
+    k = 41 calls), and Flickr (flickr_posts(seed=0), rbdeg) at k = 7
+    (inference's layer 2).  Each call alone: the grouped instance (scalar
+    loads, neither width being a multiple of 4) beside the one-unit-a-warp
+    instance at the same k, the bits of the latter and held to plain; the
+    bytes bound, the plain version and, on Reddit, k = 128; way (b) as
+    recorded (GROUPED_WAYS_RECORD_MS).  Reddit's calls are timed by events
+    around each (under a millisecond), Flickr's in a CUDA graph (tens of
+    microseconds).  Returns the numbers for kernel 7's row."""
+    from flex_tpu_torch.bench.harness import time_cuda_ms, time_device_ms
+    from flex_tpu_torch.io import flickr_posts
+    from flex_tpu_torch.ops.ell_spmm import prepare_ell, with_bwd_plan
+    from flex_tpu_torch.ops.gespmm import (
+        gespmm_rows, gespmm_rows_plain, rows_layout,
+    )
+    from flex_tpu_torch.reorder import reorder
+
+    out = {}
+    for name, graph, k in (("reddit", g, 41),
+                           ("flickr", reorder(flickr_posts(seed=0), "rbdeg"),
+                            7)):
+        timer = (lambda *a: time_cuda_ms(*a, iters=20)) if name == "reddit" \
+            else (lambda *a: time_device_ms(*a, n=200))
+        ell = with_bwd_plan(prepare_ell(graph, device="cuda"), graph.n)
+        for what, e in (("forward", ell), ("transposed", ell.bwd_plan)):
+            t = e.row_tables()
+            B = torch.rand((graph.n, k), device="cuda") * 2 - 1
+            label = f"{name} {what} k={k}"
+            r = {"k": k, "lanes": rows_layout(k)[0],
+                 "max_abs_err": check_grouped_kernel(torch, t, B, label),
+                 "ms": timer(gespmm_rows, t, B),
+                 "warp_ms": timer(warp_call, t, B),
+                 "plain_ms": time_cuda_ms(gespmm_rows_plain, t, B, iters=3,
+                                          warmup=1)}
+            nnz = int((t.units[:, 2] - t.units[:, 1]).sum())
+            r["bound_ms"], r["bound_by"] = bound(
+                rows_bytes(t, nnz, distinct_cols(torch, t) * k,
+                           graph.m * k), 2.0 * nnz * k, peaks)
+            # gathered rows: nnz x k floats
+            r["tb_s"] = nnz * k * 4 / (r["ms"] * 1e-3) / 1e12
+            r["warp_tb_s"] = nnz * k * 4 / (r["warp_ms"] * 1e-3) / 1e12
+            if name == "reddit" and what == "forward":
+                B128 = torch.rand((graph.n, K), device="cuda") * 2 - 1
+                r["k128_ms"] = timer(gespmm_rows, t, B128)
+                del B128
+            rec = GROUPED_WAYS_RECORD_MS[f"{name}_{what}_k{k}"]
+            log(f"[grouped] {label}: {r['ms']:.4f} ms ({r['tb_s']:.2f} TB/s "
+                f"of gathered rows), a warp a unit {r['warp_ms']:.4f} "
+                f"({r['warp_tb_s']:.2f}), bound {r['bound_ms']:.4f} "
+                f"({r['bound_by']}), plain {r['plain_ms']:.3f}; way (b) "
+                f"recorded {rec['padded_with_copy']} (copy {rec['copy']}) "
+                f"against scalar loads {rec['scalar']}")
+            log("[grouped] " + json.dumps({"cell": label, "nnz": nnz, **r,
+                                           "way_b_record_ms": rec,
+                                           "card": smi}))
+            out[f"{name}_{what}"] = r
+            del t, B
+        del ell
+        torch.cuda.empty_cache()
+    return out
 
 
 def res_check_logged(g, C, gold, label, eps_scale=4.0, row_nnz=None):
@@ -4104,6 +4276,7 @@ def main() -> int:
     phase_kernels_vs_plain(torch)
     phase_new_kernels_vs_plain(torch)
     phase_bf16_kernel_vs_plain(torch)
+    phase_grouped_kernel_vs_plain(torch)
     phase_micro_kernels_vs_plain(torch)
     phase_winstep_kernel_vs_plain(torch)
     if quick:
@@ -4280,6 +4453,10 @@ def main() -> int:
     gespmm_row = phase_gespmm(torch, g, dev, B, gold, A_csr, peaks,
                               bench_spmm, time_cuda_ms)
     del A_csr
+    torch.cuda.empty_cache()
+    # 10b. kernel 7 at the cells' narrow widths (Reddit k = 41, Flickr k = 7)
+    for cell, r in phase_grouped(torch, g, peaks, smi).items():
+        gespmm_row.update({f"grouped_{cell}_{f}": v for f, v in r.items()})
     phase_baselines(torch, g, dev, B, gold, bench_spmm)
     torch.cuda.empty_cache()
     # 11b. GAT on the main path's graph

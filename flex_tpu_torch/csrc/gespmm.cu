@@ -37,7 +37,16 @@
 // k is any width: a lane owns four consecutive columns of its slice (one
 // float4 per B row) when k % 4 == 0 and the rows are 16-byte aligned, else
 // columns lane, lane + 32, ... with masks; k > 128 takes more slices along
-// grid y.
+// grid y.  At k <= 64 a unit takes fewer lanes (flex_gespmm_rows_grouped,
+// rows_group_kernel): G lanes, the smallest power of two with 4 G >= k, own
+// one unit, so a warp runs 32 / G units (G = 16 at k = 41, 2 at k = 7) and
+// one load instruction of the warp reads the B rows of 32 / G nonzeros.  A
+// lane owns four columns: 4 gl .. 4 gl + 3 by float4 when k % 4 == 0 and
+// the rows are aligned, else gl, gl + G, gl + 2 G, gl + 3 G by scalar loads,
+// so the G lanes of a group read consecutive floats.  The group stages and
+// walks its unit as rows_bf16_kernel's groups do (below); each column's sum
+// is the same fmaf chain in the unit's order, and split rows go through the
+// same reduce pass, so the grouped instance gives rows_kernel's bits.
 //
 // B in bf16 (flex_gespmm_rows_bf16): the JAX package's b_dtype="bfloat16"
 // gather mode (flex_tpu/ops/ell_spmm.py:_ell_spmm, XLA there) casts B once
@@ -79,11 +88,23 @@
 // (20 flop/byte), so bytes bound it; what this run's data needs once is
 // cols, vals, B and C.  What the kernel moves is more: every nonzero reads
 // a whole B row, from L2 when the graph's ordering keeps a row's columns
-// close.  That L2 traffic of re-read B rows is the limit: on an H100 the
-// f32 units pass ran at about 8.6 TB/s of gathered rows on the reddit_posts
-// graph, and neither the unit size (64 to 1024 nonzeros) nor a cap of 32
-// registers (64 warps an SM, with spills) moved it.  Reuse of B rows
-// through shared memory across the rows of a tile is not done here.
+// close.  At k = 128 that L2 traffic of re-read B rows is the limit: on an
+// H100 the f32 units pass ran at about 8.6 TB/s of gathered rows on the
+// reddit_posts graph, and neither the unit size (64 to 1024 nonzeros) nor a
+// cap of 32 registers (64 warps an SM, with spills) moved it.  Reuse of B
+// rows through shared memory across the rows of a tile is not done here.
+// At narrow k the limit was not bytes but lanes idle for each nonzero: with
+// a warp a unit, k = 41 cost every nonzero two masked loads, two shuffles
+// and a serial step with 23 of 32 lanes idle on the second load, 3.9 TB/s
+// of gathered rows (0.99 ms); k = 7 left 25 of 32 lanes idle on its only
+// load.  In lane groups, on an H100 80GB HBM3 at 700 W, k = 41 on the
+// reddit_posts graph runs at 5.9 TB/s (0.65 ms) and k = 7 on the
+// flickr_posts graph at 0.42 TB/s (0.066 ms, against 0.073 a warp a unit);
+// with L2 flushed before the call k = 7 takes 0.087 ms either way, so there
+// something else than lanes or bytes sets the time.  16-byte loads on a
+// copy of B padded to round_up(k, 4) floats gathered faster (0.63 ms at
+// k = 41), but the copy (0.05 ms) made the call slower than scalar loads
+// of B as it lies.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -419,6 +440,162 @@ void launch_bf16_units(const int32_t* cols, const float* vals,
         v4);
 }
 
+// the pass over split rows, by float4 when v4 (k % 4 == 0, out and scratch
+// 16-byte aligned)
+void launch_reduce(const float* scratch, const int32_t* splits, float* out,
+                   int n_splits, int k, bool v4, bool acc_into,
+                   cudaStream_t st) {
+  const dim3 grid(n_splits, (k + SLICE - 1) / SLICE);
+  if (v4 && acc_into)
+    rows_reduce_kernel<true, true><<<grid, RWARPS * 32, 0, st>>>(
+        scratch, splits, out, k);
+  else if (v4)
+    rows_reduce_kernel<true, false><<<grid, RWARPS * 32, 0, st>>>(
+        scratch, splits, out, k);
+  else if (acc_into)
+    rows_reduce_kernel<false, true><<<grid, RWARPS * 32, 0, st>>>(
+        scratch, splits, out, k);
+  else
+    rows_reduce_kernel<false, false><<<grid, RWARPS * 32, 0, st>>>(
+        scratch, splits, out, k);
+}
+
+// ---- f32 B at narrow k: G lanes a unit, 4 columns a lane ------------------
+
+// the t-th of the four columns that lane gl of a group owns: 4 gl + t
+// (VEC: one float4 of a B row) or gl + G t (scalar loads, each of the
+// group's G lanes on consecutive columns)
+template <int G, bool VEC>
+__device__ __forceinline__ int group_col(int gl, int t) {
+  return VEC ? 4 * gl + t : gl + G * t;
+}
+
+// four f32 of a row ([*, k]) at the lane's columns below k: one float4
+// (VEC: k % 4 == 0 and the row 16-byte aligned) or scalars
+template <int G, bool VEC>
+__device__ __forceinline__ void load4g(const float* row, int gl, int k,
+                                       float (&v)[4]) {
+  if (VEC) {
+    if (4 * gl < k) {
+      const float4 b = *reinterpret_cast<const float4*>(row + 4 * gl);
+      v[0] = b.x, v[1] = b.y, v[2] = b.z, v[3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (group_col<G, VEC>(gl, t) < k) v[t] = row[group_col<G, VEC>(gl, t)];
+  }
+}
+
+template <int G, bool VEC>
+__device__ __forceinline__ void store4g(float* row, int gl, int k,
+                                        const float (&v)[4]) {
+  if (VEC) {
+    if (4 * gl < k)
+      *reinterpret_cast<float4*>(row + 4 * gl) =
+          make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (group_col<G, VEC>(gl, t) < k) row[group_col<G, VEC>(gl, t)] = v[t];
+  }
+}
+
+// rows_kernel's function for k <= 4 G <= 64, in rows_bf16_kernel's shape:
+// lane group lane / G of a warp owns unit (warp * 32 / G + lane / G), and
+// lane gl = lane % G the four columns group_col(gl, 0..3).  The warp walks
+// its longest unit's length in stages of S = max(G, 8) entries, each lane
+// staging R = S / G cols and vals (the next stage's loaded before this
+// stage's B rows), shuffled within the group; every lane takes every
+// shuffle, and an entry past its group's unit loads and adds nothing.  Each
+// column's sum is rows_kernel's fmaf chain in the unit's order, so the bits
+// are its bits.  VEC: B, out and scratch move by float4.
+template <int G, bool VEC>
+__global__ void __launch_bounds__(WARPS * 32)
+rows_group_kernel(const int32_t* __restrict__ cols,
+                  const float* __restrict__ vals,
+                  const int32_t* __restrict__ row_start,
+                  const int4* __restrict__ units, const float* __restrict__ B,
+                  float* __restrict__ out, float* __restrict__ scratch,
+                  int n_units, int k, bool acc_into) {
+  constexpr int S = G > 8 ? G : 8;
+  constexpr int R = S / G;
+  const int lane = threadIdx.x % 32;
+  const int gl = lane % G;
+  const int u = (blockIdx.x * WARPS + threadIdx.x / 32) * (32 / G) + lane / G;
+  int4 unit = make_int4(0, 0, 0, -1);  // (row, lo, hi, part)
+  if (u < n_units) unit = units[u];
+  // a group past the last unit, or whose unit adds nothing, has no entries
+  const bool live =
+      u < n_units && !(acc_into && unit.w < 0 && unit.y == unit.z);
+  const int len = live ? unit.z - unit.y : 0;
+  const int n = __reduce_max_sync(0xffffffffu, len);
+  const int32_t* ucols = cols + (live ? row_start[unit.x] + unit.y : 0);
+  const float* uvals = vals + (ucols - cols);
+
+  int cs[R], ncs[R];
+  float vs[R], nvs[R];
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    const int j = t * G + gl;
+    cs[t] = j < len ? ucols[j] : 0;
+    vs[t] = j < len ? uvals[j] : 0.f;
+  }
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j0 = 0; j0 < n; j0 += S) {
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int j = j0 + S + t * G + gl;
+      ncs[t] = j < len ? ucols[j] : 0;
+      nvs[t] = j < len ? uvals[j] : 0.f;
+    }
+#pragma unroll
+    for (int jj = 0; jj < S; ++jj) {
+      const int r = __shfl_sync(0xffffffffu, cs[jj / G], jj % G, G);
+      const float a = __shfl_sync(0xffffffffu, vs[jj / G], jj % G, G);
+      if (j0 + jj < len) {
+        float b[4] = {0.f, 0.f, 0.f, 0.f};
+        load4g<G, VEC>(B + (int64_t)r * k, gl, k, b);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) acc[t] = fmaf(a, b[t], acc[t]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < R; ++t) cs[t] = ncs[t], vs[t] = nvs[t];
+  }
+  if (!live) return;
+
+  if (unit.w >= 0) {
+    store4g<G, VEC>(scratch + (int64_t)unit.w * k, gl, k, acc);
+    return;
+  }
+  float* orow = out + (int64_t)unit.x * k;
+  if (acc_into) {
+    float o[4] = {0.f, 0.f, 0.f, 0.f};
+    load4g<G, VEC>(orow, gl, k, o);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) acc[t] = o[t] + acc[t];
+  }
+  store4g<G, VEC>(orow, gl, k, acc);
+}
+
+template <int G>
+void launch_group_units(const int32_t* cols, const float* vals,
+                        const int32_t* row_start, const int32_t* units,
+                        const float* B, float* out, float* scratch,
+                        int n_units, int k, bool vec, bool acc_into,
+                        cudaStream_t st) {
+  const int per_block = WARPS * (32 / G);
+  const dim3 grid((n_units + per_block - 1) / per_block);
+  const int4* u = reinterpret_cast<const int4*>(units);
+  if (vec)
+    rows_group_kernel<G, true><<<grid, WARPS * 32, 0, st>>>(
+        cols, vals, row_start, u, B, out, scratch, n_units, k, acc_into);
+  else
+    rows_group_kernel<G, false><<<grid, WARPS * 32, 0, st>>>(
+        cols, vals, row_start, u, B, out, scratch, n_units, k, acc_into);
+}
+
 }  // namespace
 
 // cols, vals: the flat store; row_start: int32[m]; units: int32[n_units][4]
@@ -471,20 +648,48 @@ extern "C" int flex_gespmm_rows_bf16(const int32_t* cols, const float* vals,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (n_splits) {
-    const dim3 grid(n_splits, (k + SLICE - 1) / SLICE);
-    if (v4 && acc_into)
-      rows_reduce_kernel<true, true><<<grid, RWARPS * 32, 0, st>>>(
-          scratch, splits, out, k);
-    else if (v4)
-      rows_reduce_kernel<true, false><<<grid, RWARPS * 32, 0, st>>>(
-          scratch, splits, out, k);
-    else if (acc_into)
-      rows_reduce_kernel<false, true><<<grid, RWARPS * 32, 0, st>>>(
-          scratch, splits, out, k);
-    else
-      rows_reduce_kernel<false, false><<<grid, RWARPS * 32, 0, st>>>(
-          scratch, splits, out, k);
+  if (n_splits)
+    launch_reduce(scratch, splits, out, n_splits, k, v4, acc_into, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// flex_gespmm_rows for k <= 64, read by lane groups of `lanes` (a power of
+// two <= 16, 4 lanes >= k): one 16-byte load a lane when k % 4 == 0 and B,
+// out and scratch are 16-byte aligned, else scalar loads.  The same bits as
+// flex_gespmm_rows.
+extern "C" int flex_gespmm_rows_grouped(const int32_t* cols,
+                                        const float* vals,
+                                        const int32_t* row_start,
+                                        const int32_t* units,
+                                        const int32_t* splits, const float* B,
+                                        float* out, float* scratch,
+                                        int n_units, int n_splits, int k,
+                                        int accumulate, int lanes,
+                                        void* stream) {
+  if (lanes < 1 || lanes > 16 || (lanes & (lanes - 1)) || 4 * lanes < k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (k == 0 || (n_units == 0 && n_splits == 0)) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool v4 = k % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(scratch) % 16 == 0;
+  const bool vec = v4 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  const bool acc_into = accumulate != 0;
+  if (n_units) {
+#define FLEX_GROUP(G)                                                       \
+  launch_group_units<G>(cols, vals, row_start, units, B, out, scratch,      \
+                        n_units, k, vec, acc_into, st)
+    switch (lanes) {
+      case 1: FLEX_GROUP(1); break;
+      case 2: FLEX_GROUP(2); break;
+      case 4: FLEX_GROUP(4); break;
+      case 8: FLEX_GROUP(8); break;
+      default: FLEX_GROUP(16); break;
+    }
+#undef FLEX_GROUP
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  if (n_splits)
+    launch_reduce(scratch, splits, out, n_splits, k, v4, acc_into, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -208,6 +208,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         #  n_units, n_splits, k, accumulate, stream)
         lib.flex_gespmm_rows.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
         lib.flex_gespmm_rows.restype = i
+        # (..., accumulate, lanes, stream): k <= 64, lane groups
+        lib.flex_gespmm_rows_grouped.argtypes = [p, p, p, p, p, p, p, p,
+                                                 i, i, i, i, i, p]
+        lib.flex_gespmm_rows_grouped.restype = i
         # (..., accumulate, ldb, lanes, stream): B's row stride, lanes a unit
         lib.flex_gespmm_rows_bf16.argtypes = [p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, i, p]

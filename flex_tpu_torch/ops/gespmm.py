@@ -219,18 +219,45 @@ def gespmm_rows(t: RowTables, B, into=None):
     B is f32, or bf16, which goes to :func:`gespmm_rows_bf16`; any other
     dtype raises.  CUDA tensors launch ``csrc/gespmm.cu`` (and count the
     launch in ``gespmm_rows.launches``): the units, then the pass that adds
-    the split rows' partial rows, both in a fixed order.  CPU tensors take
+    the split rows' partial rows, both in a fixed order.  The units' lanes
+    follow k (:func:`rows_layout`): a warp a unit for k > 64
+    (``flex_gespmm_rows``), else lane groups (``flex_gespmm_rows_grouped``,
+    also counted in ``gespmm_rows.grouped_launches``); both read B by
+    16-byte loads when k % 4 == 0 and the rows are aligned, else by scalar
+    loads, and give the same bits.  CPU tensors take
     :func:`gespmm_rows_plain`.  Anything else raises."""
     if B.dtype == torch.bfloat16:
         return gespmm_rows_bf16(t, B, into)
     if B.dtype != torch.float32:
         raise ValueError(f"B must be float32 or bfloat16, got {B.dtype}")
-    out, launched = _rows_call(t, B, into, "flex_gespmm_rows")
+    if B.dim() != 2:
+        raise ValueError(f"B must be 2-D, got {tuple(B.shape)}")
+    lanes = rows_layout(B.shape[1])[0]
+    if lanes == 32:
+        out, launched = _rows_call(t, B, into, "flex_gespmm_rows")
+    else:
+        out, launched = _rows_call(t, B, into, "flex_gespmm_rows_grouped",
+                                   extra=(lanes,))
+        gespmm_rows.grouped_launches += launched
     gespmm_rows.launches += launched
     return out
 
 
 gespmm_rows.launches = 0
+gespmm_rows.grouped_launches = 0
+
+
+def rows_layout(k: int) -> tuple[int, int]:
+    """How kernel 7's f32 instance spreads a unit over a warp at width
+    ``k``: (lanes G, the smallest power of two with 4·G ≥ k, capped at 32:
+    below 32 the lanes of one unit, 4 columns each (``rows_group_kernel``),
+    at 32 a whole warp (``rows_kernel``, any k); units_per_warp, 32 / G)."""
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    lanes = 1
+    while 4 * lanes < k and lanes < 32:
+        lanes *= 2
+    return lanes, 32 // lanes
 
 
 def bf16_layout(k: int) -> tuple[int, int, int]:

@@ -110,7 +110,8 @@ def trace_table(log_dir: str) -> list[dict]:
 _OP_CLASSES = (
     ("dot", ("window_spmm_kernel", "window_spmm_t_kernel",
              "window_bwd_ga_kernel", "window_bwd_gb_kernel", "band_kernel",
-             "rows_kernel", "rows_reduce_kernel", "reduce_partials",
+             "rows_kernel", "rows_group_kernel", "rows_reduce_kernel",
+             "reduce_partials",
              "gemm", "gemv", "xmma", "cutlass", "csrmm", "spmm",
              "aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
              "aten::_sparse", "dot", "convolution")),

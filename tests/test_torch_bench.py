@@ -266,6 +266,8 @@ def test_trace_table_reads_the_card_events_first(tmp_path):
      "dot"),
     ("void (anonymous namespace)::rows_kernel<8>(int const*, float const*)",
      "dot"),
+    ("void (anonymous namespace)::rows_group_kernel<16, false>(int const*)",
+     "dot"),
     ("void (anonymous namespace)::rows_reduce_kernel(float const*)", "dot"),
     ("void reduce_partials_kernel<float, 256>(float const*, float*)", "dot"),
     ("void reduce_partials_strided_kernel<float>(float const*)", "dot"),

@@ -788,6 +788,44 @@ def test_ell_residue_kernel_with_into_matches_plain(cuda, k):
         _assert_rows_close(out, ref, _rows_tol(ell.rows, B, base))
 
 
+@pytest.mark.parametrize("into", [False, True])
+@pytest.mark.parametrize("k", [1, 7, 16, 41, 64])
+def test_grouped_kernel_gives_the_warp_instances_bits(cuda, k, into):
+    """At k <= 64 kernel 7 runs in lane groups (one launch, counted in
+    ``grouped_launches`` beside ``launches``): on split rows and a
+    zero-degree row, with and without ``into``, its output is bit for bit
+    the first k columns of the one-unit-a-warp instance on B widened with
+    zeros to 128 columns (that k = 128 call is not counted as grouped),
+    on B as it is and misaligned, and it holds to the plain version."""
+    g = _hub_and_empty()
+    t = prepare_gespmm(g, device=cuda).rows
+    assert t.splits.shape[0] > 0 and (g.degrees == 0).any()
+    B = torch.rand((g.n, k), device=cuda) * 2 - 1
+    wide = torch.zeros((g.n, 128), device=cuda)
+    wide[:, :k] = B
+    base = wide_base = None
+    if into:
+        base = torch.rand((g.m, k), device=cuda) * 2 - 1
+        wide_base = torch.zeros((g.m, 128), device=cuda)
+        wide_base[:, :k] = base
+    before = (gespmm_rows.launches, gespmm_rows.grouped_launches)
+    want = gespmm_rows(t, wide, into=wide_base)[:, :k]
+    assert (gespmm_rows.launches, gespmm_rows.grouped_launches) == (
+        before[0] + 1, before[1])
+    out = gespmm_rows(t, B, into=None if base is None else base.clone())
+    assert (gespmm_rows.launches, gespmm_rows.grouped_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(out, want)
+    mis = torch.empty(g.n * k + 1, device=cuda)[1:].view(g.n, k)
+    mis.copy_(B)   # scalar loads at any k
+    assert torch.equal(
+        gespmm_rows(t, mis, into=None if base is None else base.clone()), want)
+    ref = gespmm_rows_plain(t, B, into=None if base is None else base.clone())
+    _assert_rows_close(out, ref, _rows_tol(t, B, base))
+    if not into:
+        assert np.all(out.cpu().numpy()[g.degrees == 0] == 0.0)
+
+
 def test_repeat_calls_are_bit_equal(cuda):
     """A second call equals the first bit for bit: the GE-SpMM plan, the
     ELL plan with ``into=``, the windowed forward and its g_B through

@@ -23,7 +23,7 @@ from flex_tpu_torch.convert import gespmm_plan_from_numpy
 from flex_tpu_torch.io import make_features, rmat_graph, uniform_graph
 from flex_tpu_torch.ops.gespmm import (
     CH, RowTables, gespmm_rows, gespmm_rows_plain, prepare_gespmm,
-    tables_from_buckets,
+    rows_layout, tables_from_buckets,
 )
 from flex_tpu_torch.ops.ref import spmm_scipy
 from flex_tpu_torch.sparse.csr import CSRGraph
@@ -245,3 +245,15 @@ def test_spmm_default_method_is_xla_as_in_jax(k):
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="coverage"):
         spmm(g, B, method="windowed", device="cpu")
+
+
+@pytest.mark.parametrize("k,lanes", [(0, 1), (1, 1), (4, 1), (7, 2),
+                                     (16, 4), (41, 16), (64, 16), (65, 32),
+                                     (128, 32), (300, 32)])
+def test_rows_layout(k, lanes):
+    """Kernel 7's f32 lanes a unit follow k alone: G is the smallest power
+    of two with 4·G ≥ k, capped at 32 (a warp a unit beyond k = 64); a
+    warp runs 32 / G units."""
+    assert rows_layout(k) == (lanes, 32 // lanes)
+    assert lanes == 32 or 4 * lanes >= k
+    assert lanes == 1 or 2 * lanes < k
