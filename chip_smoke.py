@@ -82,12 +82,14 @@ Phases:
      plan, launch counts (kernels 1, 3, 7), ms/step and peak memory over 5
      timed steps; a checkpoint after step 3, restored into a fresh model
      and Adam, must give step 4's loss and parameters bit for bit.
- 11b. GAT(128 -> 4 heads x 16 -> 41, Adam 1e-2) on the main path's graph
-     (unit self-loops): kernel 7 on the dynamic SpMM's forward and g_B
-     tables against plain at k = 16 and 41, the first step's loss and
-     gradients against the plain dynamic SpMM, whether two forwards give
-     the same bits, 2 warm-up and 5 timed steps (16 launches of kernel 7
-     a step), ms/step and peak memory.
+ 11b. GAT in its default two-layer form (128 -> 4 heads x 16 -> 41, Adam
+     1e-2; per-layer heads, widths and a skip run in the benchmark's
+     reddit-gat.train) on the main path's graph (unit self-loops): kernel
+     7 on the dynamic SpMM's forward and g_B tables against plain at
+     k = 16 and 41, the first step's loss and gradients against the plain
+     dynamic SpMM, whether two forwards give the same bits, 2 warm-up and
+     5 timed steps (16 launches of kernel 7 a step), ms/step and peak
+     memory.
  12. band at full size: banded_graph(262144, 256, 64.0, seed=2), tm = 256,
      k = 128, the three impls through ``bench_spmm``, both band kernels
      against plain on the plans' tensors; both kernels' depth ranges (their
@@ -2269,12 +2271,16 @@ def edge_dots_unpadded(torch, dyn, g, B):
 
 
 def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
-    """GAT(128 -> 4 heads x 16 -> 41) on the main path's graph (unit
-    self-loops: attention over N(i) and i): kernel 7 on the dynamic SpMM's
-    forward and g_B tables against plain at k = 16 and 41, the first
-    step's loss and gradients against the plain dynamic SpMM, two forwards
-    compared bit for bit, 2 warm-up and 5 timed Adam(1e-2) steps with
-    kernel 7's launches per step.  Returns kernel 7's numbers here."""
+    """GAT in its default two-layer form, 128 -> 4 heads x 16 -> 41, on
+    the main path's graph (unit self-loops: attention over N(i) and i).
+    The class also takes a list of layers (heads, width, concatenated or
+    averaged each) and a skip layer; the benchmark's ``reddit-gat.train``
+    runs that form at the GAT paper's widths.  Here: kernel 7 on the
+    dynamic SpMM's forward and g_B tables against plain at k = 16 and 41,
+    the first step's loss and gradients against the plain dynamic SpMM,
+    two forwards compared bit for bit, 2 warm-up and 5 timed Adam(1e-2)
+    steps with kernel 7's launches per step.  Returns kernel 7's numbers
+    here."""
     import dataclasses
 
     from flex_tpu_torch.models import (

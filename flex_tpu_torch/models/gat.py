@@ -11,15 +11,19 @@ Per head:  e_ij   = LeakyReLU(a_srcᵀ W h_i + a_dstᵀ W h_j)
 
 aᵀ[Wh_i ‖ Wh_j] = a_srcᵀWh_i + a_dstᵀWh_j turns the per-edge score into
 two m-vectors gathered at the edge endpoints.  The row-wise softmax is a
-max-shifted segment softmax over the CSR rows.  Layer 1 concatenates the
-heads after an ELU, layer 2 averages them.  The model attends over
-exactly the given pattern: for N(i) ∪ {i}, pass a graph with diagonal
-entries.
+max-shifted segment softmax over the CSR rows.
+
+:class:`GAT` stacks layers of heads (:class:`GATLayer`: a head count, a
+width per head, and whether the heads are concatenated after an ELU or
+averaged), optionally with an identity skip connection around one layer.
+By default it is the JAX package's two-layer model: one head count,
+layer 1 concatenated, layer 2 averaged.  The model attends over exactly
+the given pattern: for N(i) ∪ {i}, pass a graph with diagonal entries.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -27,6 +31,7 @@ from torch import nn
 from flex_tpu_torch.models.common import glorot_uniform
 from flex_tpu_torch.ops.dyn_ell import DynEllPlan, prepare_dyn_ell
 from flex_tpu_torch.sparse.csr import CSRGraph
+from flex_tpu_torch.utils import trace as _trace
 
 
 @dataclasses.dataclass
@@ -56,10 +61,17 @@ def prepare_attention(g: CSRGraph, dev=None, device=None) -> AttentionGraph:
     ``g`` moved to ``device``: CUDA unless the caller names another)."""
     from flex_tpu_torch.sparse.device import resident_csr
 
-    dev = resident_csr(g, dev, device)
-    return AttentionGraph(
-        m=g.m, nnz=g.nnz, deg=(dev.row_ptr[1:] - dev.row_ptr[:-1]).long(),
-        plan=prepare_dyn_ell(g, dev=dev))
+    with _trace.setup_span("flex.build.attention", m=g.m, nnz=g.nnz):
+        dev = resident_csr(g, dev, device)
+        return AttentionGraph(
+            m=g.m, nnz=g.nnz,
+            deg=(dev.row_ptr[1:] - dev.row_ptr[:-1]).long(),
+            plan=prepare_dyn_ell(g, dev=dev))
+
+
+def _softmax_attrs(ag: AttentionGraph):
+    """The ``flex.edge_softmax`` span's attrs (host time only)."""
+    return None, {"m": ag.m, "nnz": ag.nnz}
 
 
 def edge_softmax(ag: AttentionGraph, e: torch.Tensor) -> torch.Tensor:
@@ -67,55 +79,104 @@ def edge_softmax(ag: AttentionGraph, e: torch.Tensor) -> torch.Tensor:
     alpha[nnz].  The maximum is detached (the softmax does not change
     under a shift); the row sums are a segment reduction over the CSR runs,
     which sums each row in a fixed order.  Rows with no edges are never
-    gathered, so their -inf maximum never propagates."""
-    mx = torch.full((ag.m,), float("-inf"), dtype=e.dtype, device=e.device)
-    mx = mx.scatter_reduce(0, ag.rows, e.detach(), reduce="amax")
-    ex = torch.exp(e - mx.index_select(0, ag.rows))
-    s = torch.segment_reduce(ex, "sum", lengths=ag.deg)
-    return ex / s.index_select(0, ag.rows)
+    gathered, so their -inf maximum never propagates.  Its forward is the
+    ``flex.edge_softmax`` span."""
+    with _trace.span("flex.edge_softmax", _softmax_attrs, ag):
+        mx = torch.full((ag.m,), float("-inf"), dtype=e.dtype,
+                        device=e.device)
+        mx = mx.scatter_reduce(0, ag.rows, e.detach(), reduce="amax")
+        ex = torch.exp(e - mx.index_select(0, ag.rows))
+        s = torch.segment_reduce(ex, "sum", lengths=ag.deg)
+        return ex / s.index_select(0, ag.rows)
 
 
 def gat_head(ag: AttentionGraph, H, W, a_src, a_dst,
              negative_slope: float = 0.2) -> torch.Tensor:
-    """One attention head: the aggregated (m, d_out) features."""
-    Hw = H @ W
+    """One attention head: the aggregated (m, d_out) features.  H·W is
+    annotated ``flex.gemm`` on a profiler's clock."""
+    with _trace.annotate("flex.gemm"):
+        Hw = H @ W
     e = torch.nn.functional.leaky_relu(
         (Hw @ a_src).index_select(0, ag.rows)
         + (Hw @ a_dst).index_select(0, ag.cols), negative_slope)
     return ag.plan(edge_softmax(ag, e), Hw)
 
 
+class GATLayer(NamedTuple):
+    """One layer of :class:`GAT`: ``heads`` attention heads of ``width``
+    features each, concatenated after an ELU (``concat``) or averaged, with
+    no activation (the output layer's form)."""
+
+    heads: int
+    width: int
+    concat: bool
+
+
+def _names(l: int) -> tuple[str, str, str]:
+    """The parameter names of layer ``l`` (from 1): W, a_src, a_dst."""
+    return f"W{l}", f"a{l}s", f"a{l}d"
+
+
 class GAT(nn.Module):
-    """2-layer multi-head GAT: layer 1 concatenates ``n_heads`` heads of
-    width ``d_hidden``, layer 2 averages ``n_heads`` output heads.  The
-    weights are Glorot-uniform from ``generator`` (a CPU
-    ``torch.Generator``; move the module to the card afterwards), with the
-    JAX package's names and shapes."""
+    """Multi-head GAT: ``layers`` (a sequence of :class:`GATLayer`, or of
+    (heads, width, concat) triples) in order, each with parameters
+    ``W<l>`` (heads, d_in of the layer, width), ``a<l>s`` and ``a<l>d``
+    (heads, width), l counting from 1.  ``skip`` names the layer l whose
+    input is added to its output (an identity skip connection: the two
+    must be of one width), or None.
 
-    def __init__(self, d_in: int, d_hidden: int, n_classes: int,
-                 n_heads: int = 4, *, generator: torch.Generator):
+    Without ``layers`` it is the JAX package's two-layer model:
+    ``GATLayer(n_heads, d_hidden, True)`` then ``GATLayer(n_heads,
+    n_classes, False)``, with its names and shapes (``d_hidden`` and
+    ``n_classes`` are then required; with ``layers`` they and ``n_heads``
+    are not read).  The weights are Glorot-uniform from ``generator`` (a
+    CPU ``torch.Generator``; move the module to the card afterwards),
+    drawn layer by layer in the parameters' order."""
+
+    def __init__(self, d_in: int, d_hidden: int | None = None,
+                 n_classes: int | None = None, n_heads: int = 4, *,
+                 generator: torch.Generator, layers=None,
+                 skip: int | None = None):
         super().__init__()
-        nh, dh = n_heads, d_hidden
-        self.n_heads = n_heads
+        if layers is None:
+            if d_hidden is None or n_classes is None:
+                raise ValueError("GAT needs d_hidden and n_classes, or "
+                                 "layers")
+            layers = ((n_heads, d_hidden, True), (n_heads, n_classes, False))
+        elif d_hidden is not None or n_classes is not None:
+            raise ValueError("give GAT layers, or d_hidden and n_classes, "
+                             "not both")
+        self.layers = tuple(GATLayer(*spec) for spec in layers)
+        if skip is not None and not 1 <= skip <= len(self.layers):
+            raise ValueError(f"skip must name a layer in 1..."
+                             f"{len(self.layers)}, got {skip}")
+        self.skip = skip
 
-        def glorot(*shape):
-            return glorot_uniform(shape, generator)
-
-        self.W1 = nn.Parameter(glorot(nh, d_in, dh))
-        self.a1s = nn.Parameter(glorot(nh, dh, 1)[..., 0])
-        self.a1d = nn.Parameter(glorot(nh, dh, 1)[..., 0])
-        self.W2 = nn.Parameter(glorot(nh, nh * dh, n_classes))
-        self.a2s = nn.Parameter(glorot(nh, n_classes, 1)[..., 0])
-        self.a2d = nn.Parameter(glorot(nh, n_classes, 1)[..., 0])
+        d = d_in
+        for l, (nh, dh, concat) in enumerate(self.layers, 1):
+            # the a vectors are drawn as (heads, width, 1), JAX's fans
+            for name, shape in zip(_names(l), ((nh, d, dh), (nh, dh, 1),
+                                               (nh, dh, 1))):
+                w = glorot_uniform(shape, generator)
+                self.register_parameter(name, nn.Parameter(
+                    w if name[0] == "W" else w[..., 0]))
+            d_out = nh * dh if concat else dh
+            if l == skip and d_out != d:
+                raise ValueError(f"the skip around layer {l} adds its "
+                                 f"{d}-wide input to its {d_out}-wide "
+                                 f"output")
+            d = d_out
 
     def forward(self, ag: AttentionGraph, X) -> torch.Tensor:
-        h1 = torch.cat([
-            torch.nn.functional.elu(gat_head(ag, X, self.W1[h], self.a1s[h],
-                                             self.a1d[h]))
-            for h in range(self.n_heads)], dim=1)
-        out = [gat_head(ag, h1, self.W2[h], self.a2s[h], self.a2d[h])
-               for h in range(self.n_heads)]
-        return sum(out) / self.n_heads
+        h = X
+        for l, (nh, _, concat) in enumerate(self.layers, 1):
+            W, a_s, a_d = (getattr(self, name) for name in _names(l))
+            heads = [gat_head(ag, h, W[k], a_s[k], a_d[k])
+                     for k in range(nh)]
+            out = torch.cat([torch.nn.functional.elu(o) for o in heads],
+                            dim=1) if concat else sum(heads) / nh
+            h = out + h if l == self.skip else out
+        return h
 
 
 def gat_loss(model: GAT, ag, X, y, mask) -> torch.Tensor:

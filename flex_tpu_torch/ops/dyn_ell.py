@@ -25,6 +25,11 @@ Backward (:class:`_DynSpmm`):
 
 CPU tensors take the kernel's plain version (:func:`.gespmm.gespmm_rows`
 dispatches on the device).
+
+Spans (:mod:`.utils.trace`): each kernel-7 call, forward and g_B, is a
+``flex.spmm`` span (m, n, nnz, k: its output rows, B's rows, the
+nonzeros, the width) and g_vals is a ``flex.edge_dots`` span (nnz, k),
+both with device seconds as the ELL plan's ``flex.spmm``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,18 @@ from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import (
     DeviceCSR, resident_csr, rows_from_row_ptr,
 )
+from flex_tpu_torch.utils import trace as _trace
+
+
+def _spmm_attrs(m: int, n: int, nnz: int, B):
+    """A kernel-7 call's ``flex.spmm`` span: B's device, and the attrs of
+    the ELL plan's span but its gather dtype."""
+    return B.device, {"m": m, "n": n, "nnz": nnz, "k": B.shape[1]}
+
+
+def _dots_attrs(nnz: int, g):
+    """The ``flex.edge_dots`` span: g's device, the edges and the width."""
+    return g.device, {"nnz": nnz, "k": g.shape[1]}
 
 
 @dataclasses.dataclass
@@ -68,23 +85,25 @@ class DynEllPlan:
 
     def edge_dots(self, g: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         """⟨g[row_e], B[col_e]⟩ for every edge e (f32 [nnz]), in sub-batches
-        of about ``max_gather_rows`` edges."""
-        if g.shape[1] % 4 == 0:
-            # rows of a multiple of 16 bytes take PyTorch's vectorized row
-            # gather, which on the card is several times slower on narrow
-            # rows than the element gather of the same rows with a zero
-            # column added (chip_smoke.py's [gat] line times both); the
-            # zero adds nothing to the dot products
-            g = torch.nn.functional.pad(g, (0, 1))
-            B = torch.nn.functional.pad(B, (0, 1))
-        out = g.new_empty(self.nnz)
-        step = max(1, self.max_gather_rows)
-        for s in range(0, self.nnz, step):
-            r = self.rows[s:s + step]
-            c = self.cols[s:s + step].long()
-            out[s:s + step] = (g.index_select(0, r)
-                               * B.index_select(0, c)).sum(1)
-        return out
+        of about ``max_gather_rows`` edges: the ``flex.edge_dots`` span."""
+        with _trace.span("flex.edge_dots", _dots_attrs, self.nnz, g) as sp:
+            sp.begin()
+            if g.shape[1] % 4 == 0:
+                # rows of a multiple of 16 bytes take PyTorch's vectorized
+                # row gather, which on the card is several times slower on
+                # narrow rows than the element gather of the same rows
+                # with a zero column added (chip_smoke.py's [gat] line
+                # times both); the zero adds nothing to the dot products
+                g = torch.nn.functional.pad(g, (0, 1))
+                B = torch.nn.functional.pad(B, (0, 1))
+            out = g.new_empty(self.nnz)
+            step = max(1, self.max_gather_rows)
+            for s in range(0, self.nnz, step):
+                r = self.rows[s:s + step]
+                c = self.cols[s:s + step].long()
+                out[s:s + step] = (g.index_select(0, r)
+                                   * B.index_select(0, c)).sum(1)
+            return out
 
 
 class _DynSpmm(torch.autograd.Function):
@@ -97,7 +116,11 @@ class _DynSpmm(torch.autograd.Function):
         B = B.contiguous()
         ctx.plan = plan
         ctx.save_for_backward(vals, B)
-        return gespmm_rows(dataclasses.replace(plan.fwd, vals=vals), B)
+        t = dataclasses.replace(plan.fwd, vals=vals)
+        with _trace.span("flex.spmm", _spmm_attrs, plan.m, plan.n,
+                         plan.nnz, B) as sp:
+            sp.begin()
+            return gespmm_rows(t, B)
 
     @staticmethod
     def backward(ctx, g):
@@ -108,8 +131,12 @@ class _DynSpmm(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             g_vals = plan.edge_dots(g, B)
         if ctx.needs_input_grad[2]:
-            g_B = gespmm_rows(dataclasses.replace(
-                plan.bwd, vals=vals.index_select(0, plan.perm)), g)
+            t = dataclasses.replace(plan.bwd,
+                                    vals=vals.index_select(0, plan.perm))
+            with _trace.span("flex.spmm", _spmm_attrs, plan.n, plan.m,
+                             plan.nnz, g) as sp:
+                sp.begin()
+                g_B = gespmm_rows(t, g)
         return None, g_vals, g_B
 
 
