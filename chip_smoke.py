@@ -29,6 +29,9 @@ Phases:
      256 and 384, k = 16, 32, 41, 128, 200 (beyond its resident depth of 128)
      and a misaligned g at k = 41; its sentinel tiles must be exactly zero,
      and a second launch, one-step units and derived units give its bits.
+     The edge-dot kernel (GAT's g_vals) against float64 dots on a random
+     graph with an empty row and split rows, k = 1 .. 257 (every lane
+     layout, two passes at 257), aligned and misaligned, launched twice.
   4. the forward path at full size: reddit_posts(seed=0) -> rbdeg ->
      window_select(tm=256, W=128, min_count=64, max_dense_bytes=6 GiB) ->
      prepare_windowed on cuda -> plan(B), B = make_features(g, 128),
@@ -86,10 +89,13 @@ Phases:
      1e-2; per-layer heads, widths and a skip run in the benchmark's
      reddit-gat.train) on the main path's graph (unit self-loops): kernel
      7 on the dynamic SpMM's forward and g_B tables against plain at
-     k = 16 and 41, the first step's loss and gradients against the plain
-     dynamic SpMM, whether two forwards give the same bits, 2 warm-up and
-     5 timed steps (16 launches of kernel 7 a step), ms/step and peak
-     memory.
+     k = 16 and 41; g_vals on the edge-dot kernel at k = 16, 41 and 256
+     against float64 dots, launched twice for equal bits, its time beside
+     the plain version's padded and unpadded gathers and the bound; the
+     first step's loss and gradients against the plain dynamic SpMM,
+     whether two forwards give the same bits, 2 warm-up and 5 timed steps
+     (16 launches of kernel 7 and 8 grouped ones of the edge-dot kernel a
+     step, no plain g_vals), ms/step and peak memory.
  12. band at full size: banded_graph(262144, 256, 64.0, seed=2), tm = 256,
      k = 128, the three impls through ``bench_spmm``, both band kernels
      against plain on the plans' tensors; both kernels' depth ranges (their
@@ -215,9 +221,10 @@ Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after (the command-line phases
 count in their own process, from 0, and print the counts last).
-Then one JSON line {"kernels": [...]} (thirteen rows: kernel 7's bf16
+Then one JSON line {"kernels": [...]} (fourteen rows: kernel 7's bf16
 instance is its own, kernels 8-11 are the probes', kernel 12 is E7's
-default rows'; each row also counts its kernel's launches in the
+default rows', the edge-dot kernel is GAT's g_vals at k = 16, 41 and
+256; each row also counts its kernel's launches in the
 phases autotune, gcn_bench, cli_*, sweep, 11e-11h, 16-18, winstep and
 each study), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Any
@@ -2260,14 +2267,92 @@ def plain_dyn(torch, plan):
 
 
 def edge_dots_unpadded(torch, dyn, g, B):
-    """The dynamic SpMM's g_vals as ``DynEllPlan.edge_dots`` computes it,
-    but gathered from g and B as they are: the yardstick of its padding."""
+    """The dynamic SpMM's g_vals as ``edge_dots_plain`` computes it, but
+    gathered from g and B as they are: the yardstick of its padding."""
     out = g.new_empty(dyn.nnz)
     for s in range(0, dyn.nnz, dyn.max_gather_rows):
         e = slice(s, s + dyn.max_gather_rows)
         out[e] = (g.index_select(0, dyn.rows[e].long())
                   * B.index_select(0, dyn.cols[e].long())).sum(1)
     return out
+
+
+def check_edge_dots(torch, dyn, gm, B, label, batch=1 << 20):
+    """g_vals on the edge-dot kernel (``dyn.edge_dots``) against float64
+    dot products, taken in batches of ``batch`` edges: every edge within
+    the f32 order bound 2·k·eps32·Σ|g||B|; a second launch gives the same
+    bits.  Returns the worst edge's gap over its bound."""
+    k = gm.shape[1]
+    out = dyn.edge_dots(gm, B)
+    require_same_bits(torch, "the edge-dot kernel", label, out,
+                      dyn.edge_dots(gm, B))
+    worst = 0.0
+    for s in range(0, dyn.nnz, batch):
+        gr = gm.index_select(0, dyn.rows[s:s + batch]).double()
+        Bc = B.index_select(0, dyn.cols[s:s + batch].long()).double()
+        gap = (out[s:s + batch].double() - (gr * Bc).sum(1)).abs()
+        tol = 2 * max(k, 1) * EPS32 * (gr.abs() * Bc.abs()).sum(1) + 1e-30
+        worst = max(worst, float((gap / tol).max()))
+        del gr, Bc, gap, tol
+    if not worst <= 1.0:
+        raise AssertionError(f"the edge-dot kernel on {label}: an edge "
+                             f"{worst:.3g} × its f32 order bound from the "
+                             f"float64 dot")
+    return worst
+
+
+def phase_edge_dots_kernel_vs_plain(torch):
+    """The edge-dot kernel on a random graph with an empty row and rows
+    split into several units, at k = 1, 7, 16, 41, 64, 65, 128, 256 and
+    257 (every lane layout, float4 and scalar loads, two passes), and on
+    misaligned g and B: :func:`check_edge_dots`."""
+    from flex_tpu_torch.ops.dyn_ell import prepare_dyn_ell
+    from flex_tpu_torch.sparse.csr import CSRGraph
+
+    rng = np.random.default_rng(11)
+    m = 5000
+    deg = rng.integers(0, 120, m)
+    deg[:3] = (0, 1000, 257)
+    rows = np.repeat(np.arange(m), deg)
+    g = CSRGraph.from_coo(rows, rng.integers(0, m, len(rows)),
+                          np.ones(len(rows), np.float32), m, name="dots")
+    dyn = prepare_dyn_ell(g, device="cuda")
+    worst = {}
+    for k in (1, 7, 16, 41, 64, 65, 128, 256, 257):
+        gm = torch.rand((m, k), device="cuda") * 2 - 1
+        B = torch.rand((m, k), device="cuda") * 2 - 1
+        worst[k] = check_edge_dots(torch, dyn, gm, B, f"random k={k}")
+        mg = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
+        mB = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
+        mg.copy_(gm)
+        mB.copy_(B)
+        worst[f"{k}_misaligned"] = check_edge_dots(
+            torch, dyn, mg, mB, f"random k={k}, misaligned")
+    log(f"[kernels] edge_dots_rows vs float64 dots on random tables "
+        f"({g.nnz} edges), worst gap over the f32 order bound: "
+        f"{json.dumps(worst)} ok")
+
+
+def time_edge_dots(torch, dyn, gm, B, peaks, time_cuda_ms, label):
+    """g_vals on the edge-dot kernel checked (:func:`check_edge_dots`),
+    then timed beside the plain version (the zero-column pad at k % 4 ==
+    0), the same gathers without the pad and the bound (g and B read once,
+    two indices and a dot product an edge).  Returns its numbers."""
+    from flex_tpu_torch.ops.dyn_ell import edge_dots_layout, edge_dots_plain
+
+    k = gm.shape[1]
+    worst = check_edge_dots(torch, dyn, gm, B, label)
+    n_bytes = 4 * (gm.shape[0] * k + B.shape[0] * k + 3 * dyn.nnz)
+    bound_ms, bound_by = bound(n_bytes, 2.0 * dyn.nnz * k, peaks)
+    res = dict(err_over_bound=worst, lanes_width=edge_dots_layout(k),
+               ms=time_cuda_ms(dyn.edge_dots, gm, B, iters=10),
+               plain_ms=time_cuda_ms(edge_dots_plain, dyn.rows, dyn.cols, gm,
+                                     B, dyn.max_gather_rows, iters=3),
+               unpadded_ms=time_cuda_ms(lambda: edge_dots_unpadded(
+                   torch, dyn, gm, B), iters=3),
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[gat] edge-dot kernel {label}: {json.dumps(res)}")
+    return res
 
 
 def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
@@ -2277,15 +2362,17 @@ def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
     averaged each) and a skip layer; the benchmark's ``reddit-gat.train``
     runs that form at the GAT paper's widths.  Here: kernel 7 on the
     dynamic SpMM's forward and g_B tables against plain at k = 16 and 41,
-    the first step's loss and gradients against the plain dynamic SpMM,
-    two forwards compared bit for bit, 2 warm-up and 5 timed Adam(1e-2)
-    steps with kernel 7's launches per step.  Returns kernel 7's numbers
-    here."""
+    g_vals on the edge-dot kernel at k = 16, 41 and 256
+    (:func:`time_edge_dots`), the first step's loss and gradients against
+    the plain dynamic SpMM, two forwards compared bit for bit, 2 warm-up
+    and 5 timed Adam(1e-2) steps with kernel 7's and the edge-dot kernel's
+    launches per step.  Returns both kernels' numbers here."""
     import dataclasses
 
     from flex_tpu_torch.models import (
         GAT, gat_loss, make_gat_train_step, prepare_attention,
     )
+    from flex_tpu_torch.ops.dyn_ell import edge_dots_rows
     from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_plain
 
     d_in, d_hid, n_cls, heads = 128, 16, 41, 4
@@ -2315,12 +2402,14 @@ def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
             kern[f"{part}_k{k}"] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                         bound_ms=bound_ms, bound_by=bound_by)
         kern[f"call_fwd_k{k}"] = time_cuda_ms(dyn, vals, Bk, iters=10)
-        # g_vals (plain torch): the plan's gathers, and the same products
-        # gathered without the zero column it adds when k % 4 == 0
+        del Bk
+    # g_vals on the edge-dot kernel at this model's widths and at
+    # reddit-gat's 256
+    for k in (d_hid, n_cls, 256):
         gk = torch.rand((g.m, k), device="cuda") * 2 - 1
-        kern[f"g_vals_k{k}"] = time_cuda_ms(dyn.edge_dots, gk, Bk, iters=5)
-        kern[f"g_vals_unpadded_k{k}"] = time_cuda_ms(
-            lambda: edge_dots_unpadded(torch, dyn, gk, Bk), iters=5)
+        Bk = torch.rand((g.m, k), device="cuda") * 2 - 1
+        kern[f"g_vals_k{k}"] = time_edge_dots(
+            torch, dyn, gk, Bk, peaks, time_cuda_ms, f"k={k}")
         del Bk, gk
     y, mask = node_labels(torch, g.m, n_cls)
     model = GAT(d_in, d_hid, n_cls, n_heads=heads,
@@ -2336,13 +2425,22 @@ def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
     step = make_gat_train_step(model, ag, opt)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    dots_before = {key: getattr(edge_dots_rows, key) for key in (
+        "launches", "grouped_launches", "plain_calls")}
     losses = [step(X, y, mask) for _ in range(2)]            # warm-up
     timed, step_ms, host_ms = timed_steps(torch, step, (X, y, mask), 5)
     launches = read_launches()
+    dots = {key: getattr(edge_dots_rows, key) - at for key, at in
+            dots_before.items()}
     peak = torch.cuda.max_memory_allocated()
-    # per step and head: one dynamic SpMM forward and its g_B, two layers
+    # per step and head: one dynamic SpMM forward and its g_B, and one
+    # g_vals (both layers' widths are at most 64: lane groups), two layers
     expect_launches(launches, "7 GAT train steps",
-                    gespmm_rows=7 * 2 * 2 * heads)
+                    gespmm_rows=7 * 2 * 2 * heads,
+                    edge_dots_rows=7 * 2 * heads)
+    if dots != dict(launches=7 * 2 * heads, grouped_launches=7 * 2 * heads,
+                    plain_calls=0):
+        raise AssertionError(f"[gat] 7 steps' g_vals: {dots}")
     losses = [float(x) for x in losses + timed]
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"[gat] loss {losses}: not finite and falling")
@@ -2352,6 +2450,7 @@ def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
            "ms_per_step_host": host_ms, "step_ms": step_ms,
            "peak_memory_allocated": peak, "launches_7_steps": launches,
            "launches_per_step": launches["gespmm_rows"] // 7,
+           "edge_dots_7_steps": dots,
            "two_forwards_same_bits": same_bits,
            "prepare_attention_s": prep_s, "kernel": kern, "card": smi}
     log(f"[gat] losses {[round(x, 6) for x in losses]}; two forwards give "
@@ -4283,6 +4382,7 @@ def main() -> int:
     phase_new_kernels_vs_plain(torch)
     phase_bf16_kernel_vs_plain(torch)
     phase_grouped_kernel_vs_plain(torch)
+    phase_edge_dots_kernel_vs_plain(torch)
     phase_micro_kernels_vs_plain(torch)
     phase_winstep_kernel_vs_plain(torch)
     if quick:
@@ -4519,11 +4619,21 @@ def main() -> int:
         "gat_ms_per_step": gat["ms_per_step"],
         "launches_panel_hubs_path": panel["hubs"]["launches"],
         "launches_panel_no_hubs_path": panel["no_hubs"]["launches"]})
+    # g_vals' row: the edge-dot kernel, timed at k = 16, 41 and 256
+    dots = gat["kernel"]["g_vals_k256"]
+    dots_row = {"name": "edge_dots_rows", "route": "cuda",
+                "source": "flex_tpu_torch/csrc/edge_dots.cu",
+                "replaces": "none (flex_tpu/ops/dyn_ell.py: g_vals by "
+                            "autodiff of XLA gathers)",
+                "launches": gat["edge_dots_7_steps"]["launches"],
+                **{f: dots[f] for f in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")}}
     for key, r in gat["kernel"].items():
+        row = dots_row if key.startswith("g_vals_") else gespmm_row
         if isinstance(r, dict):
-            gespmm_row.update({f"gat_{key}_{f}": v for f, v in r.items()})
+            row.update({f"gat_{key}_{f}": v for f, v in r.items()})
         else:
-            gespmm_row[f"gat_{key}_ms"] = r
+            row[f"gat_{key}_ms"] = r
     hubs = panel["hubs"]
     gespmm_row.update({f"panel_{f}": hubs[f] for f in (
         "hub_ms", "hub_plain_ms", "hub_bound_ms", "hub_err", "t_elap_ms")})
@@ -4538,6 +4648,7 @@ def main() -> int:
             "bwd_bound_ms", "bwd_err")})
     rows.append(gespmm_row)
     rows.append(bf16_row)
+    rows.append(dots_row)
     rows += micro_rows
     rows.append(row12)
     for r in rows:
@@ -4562,7 +4673,7 @@ def main() -> int:
     for r in rows:
         r.update({f"launches_{ph}": new_launches[ph].get(r["name"], 0)
                   for ph in NEW_PHASES + SHARD_PHASES + ENTRY_PHASES})
-    if len(rows) != 13 or any(r["launches"] < 1 for r in rows):
+    if len(rows) != 14 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")
     log(json.dumps({"kernels": rows}))

@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("window_spmm", "window_spmm_bwd", "window_spmm_t", "band_spmm",
-           "gespmm", "micro", "winstep_bf16")
+           "gespmm", "micro", "winstep_bf16", "edge_dots")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -142,6 +142,7 @@ def wrappers() -> list:
     """The kernel wrappers: one per hand kernel, and kernel 7's bf16
     instance.  Each counts its own launches in its ``launches``
     attribute."""
+    from flex_tpu_torch.ops.dyn_ell import edge_dots_rows
     from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_bf16
     from flex_tpu_torch.ops.pallas_band import band_spmm_v1, band_spmm_v2
     from flex_tpu_torch.ops.window_spmm import (
@@ -149,7 +150,8 @@ def wrappers() -> list:
     )
 
     return [window_spmm_fwd, window_bwd_gA, window_bwd_gB, window_spmm_t_fwd,
-            band_spmm_v2, band_spmm_v1, gespmm_rows, gespmm_rows_bf16]
+            band_spmm_v2, band_spmm_v1, gespmm_rows, gespmm_rows_bf16,
+            edge_dots_rows]
 
 
 def launch_counts() -> dict[str, int]:
@@ -248,5 +250,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         # (W, int* bk, int* stages, int* smem_bytes)
         lib.flex_winstep_bf16_layout.argtypes = [i, ip, ip, ip]
         lib.flex_winstep_bf16_layout.restype = i
+    elif name == "edge_dots":
+        # (cols, row_start, units, g, B, out, n_units, k, lanes, width,
+        #  stream)
+        lib.flex_edge_dots.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.flex_edge_dots.restype = i
     else:
         raise ValueError(f"no CUDA source named {name!r}")

@@ -19,12 +19,15 @@ Backward (:class:`_DynSpmm`):
     pattern, whose tables and permutation ``perm`` (a stable sort of the
     edges by column) are built once; per call its values are
     ``vals[perm]``.
-  - g_vals[e] = ⟨g[row_e], B[col_e]⟩ is plain torch (the JAX package gets
-    it from autodiff of XLA gathers, with no Pallas kernel), in
-    sub-batches of edges, so no nnz × k temporary is built whole.
+  - g_vals[e] = ⟨g[row_e], B[col_e]⟩ (:func:`edge_dots_rows`; the JAX
+    package gets it from autodiff of XLA gathers, with no Pallas kernel)
+    runs on the card in one launch of ``csrc/edge_dots.cu`` over the
+    forward's tables: a unit's lanes hold g[row] in registers and read
+    each B[col] straight from memory, so nothing nnz × k is built.
 
-CPU tensors take the kernel's plain version (:func:`.gespmm.gespmm_rows`
-dispatches on the device).
+CPU tensors take the kernels' plain versions (:func:`.gespmm.gespmm_rows`
+and :func:`edge_dots_rows` dispatch on the device); g_vals' is
+:func:`edge_dots_plain`, torch gathers in sub-batches of edges.
 
 Spans (:mod:`.utils.trace`): each kernel-7 call, forward and g_B, is a
 ``flex.spmm`` span (m, n, nnz, k: its output rows, B's rows, the
@@ -39,7 +42,10 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.ell_spmm import DEFAULT_WIDTHS
-from flex_tpu_torch.ops.gespmm import RowTables, gespmm_rows, row_tables
+from flex_tpu_torch.ops.gespmm import (
+    RowTables, gespmm_rows, row_tables, rows_layout,
+)
+from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import (
     DeviceCSR, resident_csr, rows_from_row_ptr,
@@ -84,26 +90,108 @@ class DynEllPlan:
         return _DynSpmm.apply(self, vals, B)
 
     def edge_dots(self, g: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-        """⟨g[row_e], B[col_e]⟩ for every edge e (f32 [nnz]), in sub-batches
-        of about ``max_gather_rows`` edges: the ``flex.edge_dots`` span."""
+        """⟨g[row_e], B[col_e]⟩ for every edge e (f32 [nnz], CSR order):
+        :func:`edge_dots_rows` on the forward's tables, the
+        ``flex.edge_dots`` span."""
+        if B.dim() != 2 or B.shape[0] != self.n:
+            raise ValueError(f"B must be ({self.n}, k), got "
+                             f"{tuple(B.shape)}")
         with _trace.span("flex.edge_dots", _dots_attrs, self.nnz, g) as sp:
             sp.begin()
-            if g.shape[1] % 4 == 0:
-                # rows of a multiple of 16 bytes take PyTorch's vectorized
-                # row gather, which on the card is several times slower on
-                # narrow rows than the element gather of the same rows
-                # with a zero column added (chip_smoke.py's [gat] line
-                # times both); the zero adds nothing to the dot products
-                g = torch.nn.functional.pad(g, (0, 1))
-                B = torch.nn.functional.pad(B, (0, 1))
-            out = g.new_empty(self.nnz)
-            step = max(1, self.max_gather_rows)
-            for s in range(0, self.nnz, step):
-                r = self.rows[s:s + step]
-                c = self.cols[s:s + step].long()
-                out[s:s + step] = (g.index_select(0, r)
-                                   * B.index_select(0, c)).sum(1)
-            return out
+            return edge_dots_rows(self.fwd, self.rows, g, B,
+                                  self.max_gather_rows)
+
+
+def edge_dots_layout(k: int) -> tuple[int, int]:
+    """How the edge-dot kernel spreads a unit over a warp at width ``k``:
+    (lanes G, kernel 7's :func:`.gespmm.rows_layout`: a whole warp at
+    k > 64, else the smallest power of two with 4·G ≥ k; width, the columns
+    a lane holds in each pass of G·width columns: 8 at 32 lanes and
+    k > 128, so that k = 256 is one pass, else 4)."""
+    lanes = rows_layout(k)[0]
+    return lanes, 8 if lanes == 32 and k > 128 else 4
+
+
+def edge_dots_plain(rows, cols, g, B,
+                    max_gather_rows: int = 2 * 1024 * 1024) -> torch.Tensor:
+    """Plain PyTorch version of :func:`edge_dots_rows`: g[rows] and B[cols]
+    gathered in sub-batches of about ``max_gather_rows`` edges, multiplied
+    and summed along k (f32 [len(rows)])."""
+    if g.shape[1] % 4 == 0:
+        # rows of a multiple of 16 bytes take PyTorch's vectorized row
+        # gather, which on the card is several times slower on narrow rows
+        # than the element gather of the same rows with a zero column added
+        # (chip_smoke.py's [gat] line times both); the zero adds nothing to
+        # the dot products
+        g = torch.nn.functional.pad(g, (0, 1))
+        B = torch.nn.functional.pad(B, (0, 1))
+    nnz = rows.shape[0]
+    out = g.new_empty(nnz)
+    step = max(1, max_gather_rows)
+    for s in range(0, nnz, step):
+        r = rows[s:s + step]
+        c = cols[s:s + step].long()
+        out[s:s + step] = (g.index_select(0, r)
+                           * B.index_select(0, c)).sum(1)
+    return out
+
+
+def edge_dots_rows(t: RowTables, rows: torch.Tensor, g: torch.Tensor,
+                   B: torch.Tensor,
+                   max_gather_rows: int = 2 * 1024 * 1024) -> torch.Tensor:
+    """out[e] = ⟨g[rows[e]], B[t.cols[e]]⟩ for every entry e of ``t``'s
+    store (f32 [T]), whose units cover it whole, as the dynamic plan's
+    forward tables do; ``rows`` (i64 [T]) names each entry's row, g is
+    f32 [t.m, k] and B f32 [n, k].
+
+    CUDA tensors launch ``csrc/edge_dots.cu`` once (counted in
+    ``edge_dots_rows.launches``; at k ≤ 64, in lane groups, also in
+    ``.grouped_launches``), with the lanes of :func:`edge_dots_layout`:
+    16-byte loads of g and B when k % 4 == 0 and both are aligned, else
+    scalar loads; the sums' order is fixed by k, so two launches give the
+    same bits; at k = 0 nothing is launched and the dots are 0.  CPU
+    tensors take :func:`edge_dots_plain` (counted in ``.plain_calls``).
+    Anything else raises."""
+    if g.dim() != 2 or B.dim() != 2 or g.shape[1] != B.shape[1]:
+        raise ValueError(f"g and B must be 2-D and of one width, got "
+                         f"{tuple(g.shape)} and {tuple(B.shape)}")
+    T, k = t.cols.shape[0], g.shape[1]
+    if g.shape[0] != t.m:
+        raise ValueError(f"g must have the tables' {t.m} rows, got "
+                         f"{g.shape[0]}")
+    if tuple(rows.shape) != (T,):
+        raise ValueError(f"rows must have shape ({T},), got "
+                         f"{tuple(rows.shape)}")
+    check_operands({"cols": (t.cols, T), "row_start": (t.row_start, t.m),
+                    "units": (t.units, (t.units.shape[0], 4))},
+                   {"g": g, "B": B})
+    if g.device.type == "cpu":
+        edge_dots_rows.plain_calls += 1
+        return edge_dots_plain(rows, t.cols, g, B, max_gather_rows)
+    if g.device.type != "cuda":
+        raise ValueError(f"no edge-dot kernel for device {g.device}")
+    check_kernel_operands(("units",), cols=t.cols, row_start=t.row_start,
+                          units=t.units, g=g, B=B)
+    if T and B.shape[0] == 0:
+        raise ValueError("B has no rows for cols to point at")
+    if k == 0:  # empty dot products: the kernel would write nothing
+        return torch.zeros(T, dtype=torch.float32, device=g.device)
+    from flex_tpu_torch import kernels
+
+    lanes, width = edge_dots_layout(k)
+    out = torch.empty(T, dtype=torch.float32, device=g.device)
+    kernels.launch("edge_dots", "flex_edge_dots", g.device,
+                   t.cols.data_ptr(), t.row_start.data_ptr(),
+                   t.units.data_ptr(), g.data_ptr(), B.data_ptr(),
+                   out.data_ptr(), t.units.shape[0], k, lanes, width)
+    edge_dots_rows.launches += 1
+    edge_dots_rows.grouped_launches += lanes < 32
+    return out
+
+
+edge_dots_rows.launches = 0
+edge_dots_rows.grouped_launches = 0
+edge_dots_rows.plain_calls = 0
 
 
 class _DynSpmm(torch.autograd.Function):

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
 forward, g_A, g_B, transposed forward, the two band kernels, the row-unit
-kernel of GE-SpMM, the ELL residue, the dynamic-value SpMM, the panel
+kernel of GE-SpMM, the ELL residue, the dynamic-value SpMM and its
+edge-dot kernel (g_vals, with a GAT step at ``reddit-gat``'s widths), the panel
 plan's hub rows, the probes' kernels 8-11 and kernel 12 with the E7 and
 E8 mains) against their plain twins, the unit
 kernels (g_A too) on the edges of their work units and the ranged band kernels on
@@ -939,6 +940,119 @@ def test_dyn_spmm_forward_and_gB_match_plain(cuda, k):
     want = (co.cpu().numpy()[rows] * B.detach().cpu().numpy()[g.col]).sum(1)
     np.testing.assert_allclose(vals.grad.cpu().numpy(), want, rtol=1e-4,
                                atol=1e-4)
+
+
+def _dots_bound(g, gm, B):
+    """float64 dot products of every CSR edge, and the f32 rounding bound
+    of a k-term dot product summed in any order."""
+    rows = np.repeat(np.arange(g.m), g.degrees)
+    gr, Bc = gm.double()[rows], B.double()[g.col]
+    k = max(B.shape[1], 1)
+    return (gr * Bc).sum(1), 2 * k * EPS32 * (gr.abs() * Bc.abs()).sum(1) \
+        + 1e-30
+
+
+@pytest.mark.parametrize("k", [0, 1, 7, 16, 41, 64, 65, 128, 256, 257])
+def test_edge_dots_kernel_matches_float64_dots(cuda, k):
+    """g_vals on the edge-dot kernel: one launch (grouped at k <= 64, no
+    plain call; none at k = 0, where every dot is 0), every edge's dot
+    product within the f32 order bound of
+    float64 dots, on split rows and zero-degree rows, at one pass and two
+    (k = 257); a second launch gives the same bits; g and B as
+    non-16-byte-aligned views take scalar loads and hold to the same
+    bound (the same bits where k % 4 != 0, where both load by scalars)."""
+    from flex_tpu_torch.ops.dyn_ell import edge_dots_rows, prepare_dyn_ell
+
+    g = _hub_and_empty()
+    plan = prepare_dyn_ell(g, device=cuda)
+    assert plan.fwd.splits.shape[0] > 0 and (g.degrees == 0).any()
+    gm = torch.rand((g.m, k), device=cuda) * 2 - 1
+    B = torch.rand((g.n, k), device=cuda) * 2 - 1
+    before = (edge_dots_rows.launches, edge_dots_rows.grouped_launches,
+              edge_dots_rows.plain_calls)
+    out = plan.edge_dots(gm, B)
+    assert (edge_dots_rows.launches, edge_dots_rows.grouped_launches,
+            edge_dots_rows.plain_calls) == (
+        before[0] + (k > 0), before[1] + (0 < k <= 64), before[2])
+    assert torch.equal(out, plan.edge_dots(gm, B))
+    want, tol = _dots_bound(g, gm, B)
+    assert bool(((out.double() - want).abs() <= tol).all())
+    mg = torch.empty(g.m * k + 1, device=cuda)[1:].view(g.m, k)
+    mB = torch.empty(g.n * k + 1, device=cuda)[1:].view(g.n, k)
+    mg.copy_(gm)
+    mB.copy_(B)
+    mis = plan.edge_dots(mg, mB)
+    assert bool(((mis.double() - want).abs() <= tol).all())
+    if k % 4:
+        assert torch.equal(mis, out)
+
+
+def test_edge_dots_kernel_refuses_what_it_cannot_take(cuda):
+    from flex_tpu_torch.ops.dyn_ell import edge_dots_rows, prepare_dyn_ell
+
+    g = _hub_and_empty()
+    plan = prepare_dyn_ell(g, device=cuda)
+    gm, B = torch.ones((g.m, 8), device=cuda), torch.ones((g.n, 8),
+                                                          device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        plan.edge_dots(torch.ones((8, g.m), device=cuda).t(), B)
+    with pytest.raises(ValueError, match="several devices"):
+        plan.edge_dots(gm, B.cpu())
+    off = torch.zeros(plan.fwd.units.numel() + 1, dtype=torch.int32,
+                      device=cuda)[1:].view(-1, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        edge_dots_rows(dataclasses.replace(plan.fwd, units=off), plan.rows,
+                       gm, B)
+
+
+def test_gat_step_on_the_edge_dot_kernel_matches_the_plain_plan(cuda):
+    """``reddit-gat``'s layers (4 × 256 concatenated, 4 × 256 with the
+    skip, 6 × 41 averaged) on a small graph with self-loops: a step
+    launches the edge-dot kernel once a head (8 at k = 256, 6 grouped at
+    k = 41) and takes no plain call; the first step's parameter gradients
+    match those through the plain dynamic plan (all tensor ops, g_vals by
+    autograd's gathers) within 1e-4 of each parameter's largest."""
+    from flex_tpu_torch.models import GAT, gat_loss, prepare_attention
+    from flex_tpu_torch.ops.dyn_ell import DynEllPlan, edge_dots_rows
+
+    base = community_graph(2000, 40_000, n_comm=4, seed=2)
+    loops = np.arange(base.m)
+    rows = np.r_[np.repeat(loops, base.degrees), loops]
+    g = CSRGraph.from_coo(rows, np.r_[base.col, loops],
+                          np.ones(len(rows), np.float32), base.m,
+                          name="loops")
+    ag = prepare_attention(g, device=cuda)
+
+    class PlainDynPlan(DynEllPlan):
+        def __call__(self, vals, B):
+            return gespmm_rows_plain(dataclasses.replace(self.fwd, vals=vals),
+                                     B)
+
+    plain = dataclasses.replace(ag, plan=PlainDynPlan(**{
+        f.name: getattr(ag.plan, f.name)
+        for f in dataclasses.fields(ag.plan)}))
+    model = GAT(32, layers=[(4, 256, True), (4, 256, True), (6, 41, False)],
+                skip=2, generator=torch.Generator().manual_seed(0)).to(cuda)
+    rng = np.random.default_rng(3)
+    X = torch.from_numpy(rng.standard_normal((g.m, 32)).astype(
+        np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 41, g.m)).to(cuda)
+    mask = torch.ones(g.m, device=cuda)
+    grads = []
+    for p in (ag, plain):
+        before = (edge_dots_rows.launches, edge_dots_rows.grouped_launches,
+                  edge_dots_rows.plain_calls)
+        model.zero_grad(set_to_none=True)
+        gat_loss(model, p, X, y, mask).backward()
+        grads.append({n: q.grad.clone() for n, q in model.named_parameters()})
+        counts = (edge_dots_rows.launches - before[0],
+                  edge_dots_rows.grouped_launches - before[1],
+                  edge_dots_rows.plain_calls - before[2])
+        assert counts == ((14, 6, 0) if p is ag else (0, 0, 0))
+    for n, ref in grads[1].items():
+        assert bool(grads[0][n].isfinite().all())
+        assert float((grads[0][n] - ref).abs().max()) <= \
+            1e-4 * float(ref.abs().max()), n
 
 
 @pytest.mark.parametrize("k", [32, 128])
