@@ -1133,10 +1133,10 @@ def phase_gradient(torch, g, plan, B_dev, time_cuda_ms):
     launches = read_launches()
     log(f"[grad] loss={float(loss.detach()):.6e} launches={launches} peak_mem="
         f"{torch.cuda.max_memory_allocated()}")
-    # the residue's forward is kernel 7; its g_B without a bwd_plan is the
-    # plain transposed scatter
+    # the residue's forward is kernel 7; so is its g_B without a bwd_plan,
+    # on the transposed plan its first backward builds and keeps
     expect_launches(launches, "the gradient path", window_spmm_fwd=1,
-                    window_bwd_gA=1, window_bwd_gB=1, gespmm_rows=1)
+                    window_bwd_gA=1, window_bwd_gB=1, gespmm_rows=2)
     check_gB_against_scipy(g, Bg.grad, gold, col_deg, "plan")
     # g_A of the backward against the plain version, on the same cotangent
     g_dense = dense_cotangent(torch, plan, co)
@@ -3042,7 +3042,7 @@ def phase_grouped(torch, g, peaks, smi):
             else (lambda *a: time_device_ms(*a, n=200))
         ell = with_bwd_plan(prepare_ell(graph, device="cuda"), graph.n)
         for what, e in (("forward", ell), ("transposed", ell.bwd_plan)):
-            t = e.row_tables()
+            t = e.rows
             B = torch.rand((graph.n, k), device="cuda") * 2 - 1
             label = f"{name} {what} k={k}"
             r = {"k": k, "lanes": rows_layout(k)[0],

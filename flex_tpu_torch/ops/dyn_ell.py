@@ -43,9 +43,8 @@ import torch
 
 from flex_tpu_torch.ops.ell_spmm import DEFAULT_WIDTHS
 from flex_tpu_torch.ops.gespmm import (
-    RowTables, gespmm_rows, row_tables, rows_layout,
+    RowTables, check_call, gespmm_rows, row_tables, rows_layout,
 )
-from flex_tpu_torch.ops.operands import check_kernel_operands, check_operands
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import (
     DeviceCSR, resident_csr, rows_from_row_ptr,
@@ -74,16 +73,13 @@ class DynEllPlan:
     nnz: int
     rows: torch.Tensor   # i64 [nnz] CSR-order row ids
     cols: torch.Tensor   # i32 [nnz] CSR-order column ids (the CSR's own)
-    fwd: RowTables       # over the CSR (values replaced at each call)
+    fwd: RowTables       # over the CSR, its values; each call gives its own
     bwd: RowTables       # over the transposed pattern; no value store: each
-    #                      call passes vals[perm]
+    #                      call gives vals[perm]
     perm: torch.Tensor   # i64 [nnz]: transposed entry t is CSR entry perm[t]
     max_gather_rows: int = 2 * 1024 * 1024
 
     def __call__(self, vals: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-        if tuple(vals.shape) != (self.nnz,):
-            raise ValueError(f"vals must have shape ({self.nnz},), got "
-                             f"{tuple(vals.shape)}")
         if B.dim() != 2 or B.shape[0] != self.n:
             raise ValueError(f"B must be ({self.n}, k), got "
                              f"{tuple(B.shape)}")
@@ -162,18 +158,9 @@ def edge_dots_rows(t: RowTables, rows: torch.Tensor, g: torch.Tensor,
     if tuple(rows.shape) != (T,):
         raise ValueError(f"rows must have shape ({T},), got "
                          f"{tuple(rows.shape)}")
-    check_operands({"cols": (t.cols, T), "row_start": (t.row_start, t.m),
-                    "units": (t.units, (t.units.shape[0], 4))},
-                   {"g": g, "B": B})
-    if g.device.type == "cpu":
+    if not check_call(t, "edge-dot", B, g=g, B=B):
         edge_dots_rows.plain_calls += 1
         return edge_dots_plain(rows, t.cols, g, B, max_gather_rows)
-    if g.device.type != "cuda":
-        raise ValueError(f"no edge-dot kernel for device {g.device}")
-    check_kernel_operands(("units",), cols=t.cols, row_start=t.row_start,
-                          units=t.units, g=g, B=B)
-    if T and B.shape[0] == 0:
-        raise ValueError("B has no rows for cols to point at")
     if k == 0:  # empty dot products: the kernel would write nothing
         return torch.zeros(T, dtype=torch.float32, device=g.device)
     from flex_tpu_torch import kernels
@@ -204,11 +191,10 @@ class _DynSpmm(torch.autograd.Function):
         B = B.contiguous()
         ctx.plan = plan
         ctx.save_for_backward(vals, B)
-        t = dataclasses.replace(plan.fwd, vals=vals)
         with _trace.span("flex.spmm", _spmm_attrs, plan.m, plan.n,
                          plan.nnz, B) as sp:
             sp.begin()
-            return gespmm_rows(t, B)
+            return gespmm_rows(plan.fwd, B, vals=vals)
 
     @staticmethod
     def backward(ctx, g):
@@ -219,12 +205,11 @@ class _DynSpmm(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             g_vals = plan.edge_dots(g, B)
         if ctx.needs_input_grad[2]:
-            t = dataclasses.replace(plan.bwd,
-                                    vals=vals.index_select(0, plan.perm))
+            vals_t = vals.index_select(0, plan.perm)
             with _trace.span("flex.spmm", _spmm_attrs, plan.n, plan.m,
                              plan.nnz, g) as sp:
                 sp.begin()
-                g_B = gespmm_rows(t, g)
+                g_B = gespmm_rows(plan.bwd, g, vals=vals_t)
         return None, g_vals, g_B
 
 

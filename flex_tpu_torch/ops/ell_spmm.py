@@ -27,9 +27,10 @@ inherits it.
 Training: on the CPU autograd differentiates the plain ops as they
 stand.  A plan that carries a ``bwd_plan`` (:func:`with_bwd_plan`, the
 transposed pattern without the forward's pad entries) computes g_B = Aᵀ·g
-with that pattern's own forward, on the card through the same kernel.  On the card without a ``bwd_plan``, g_B is
-the plain transposed scatter of vals·g (``index_add_``, so it is the one
-residue path whose sums run in no fixed order).
+with that pattern's own forward, on the card through the same kernel;
+without one the card's first backward builds that plan and keeps it.  A
+call through which no gradient can flow (``torch.no_grad()``) skips
+autograd.
 """
 from __future__ import annotations
 
@@ -39,8 +40,7 @@ import numpy as np
 import torch
 
 from flex_tpu_torch.ops.gespmm import (
-    RowTables, gespmm_rows, row_tables, tables_from_buckets, to_bf16_padded,
-    unit_entries,
+    RowTables, gespmm_rows, row_tables, to_bf16_padded, unit_entries,
 )
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.sparse.device import (
@@ -351,23 +351,23 @@ class EllPlan:
     chunk1: torch.Tensor | None = None  # i32[m] row -> first chunk
     extras: tuple | None = None         # (extra_idx, extra_first) split rows
     bwd_plan: "EllPlan | None" = None   # transposed pattern (training)
-    # the row-unit kernel's tables over the buckets' flat store; None =
-    # derive them at each call on the card
+    # the row-unit kernel's tables over the buckets' flat store (None only
+    # for an empty residue, which takes the plain path)
     rows: RowTables | None = None
     b_dtype: str = "float32"  # gather dtype (:func:`check_b_dtype`)
+    # without a bwd_plan: the one the first backward builds (_EllApply)
+    _kept_bwd: "EllPlan | None" = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def __call__(self, B: torch.Tensor, into: torch.Tensor | None = None
                  ) -> torch.Tensor:
-        if self.bwd_plan is None and B.device.type == "cpu":
+        """Through :class:`_EllApply` only if a gradient can reach B or
+        ``into`` (and not on the CPU without a ``bwd_plan``)."""
+        grad = torch.is_grad_enabled() and (
+            B.requires_grad or (into is not None and into.requires_grad))
+        if not grad or (self.bwd_plan is None and B.device.type == "cpu"):
             return _ell_raw_call(self, B, into)
         return _EllApply.apply(self, B, into)
-
-    def row_tables(self) -> RowTables:
-        """The kernel's tables: the plan's own, or derived from the
-        buckets (:func:`.gespmm.tables_from_buckets`)."""
-        if self.rows is not None:
-            return self.rows
-        return tables_from_buckets(self.buckets, self.chunk_row, self.m)
 
     def traffic_model(self, k: int) -> dict:
         """Predicted bytes per call of the JAX package's byte model (the
@@ -425,36 +425,17 @@ def _ell_raw_call(plan: EllPlan, B, into):
         sp.begin()
         Bc = to_bf16_padded(B) if plan.b_dtype == "bfloat16" \
             else B.to(torch.float32)
-        return gespmm_rows(plan.row_tables(), Bc, into=into)
-
-
-def _ell_transpose_scatter(plan: EllPlan, g, n: int):
-    """Plain g_B = A_resᵀ·g over the padded buckets: vals·g[row] scatter-
-    added into the columns' rows (``index_add_``: on the card in no fixed
-    order), in sub-batches of about ``max_gather_rows`` entries."""
-    k = g.shape[1]
-    out = g.new_zeros((n, k))
-    o = 0
-    for cols, vals in plan.buckets:
-        N, w = cols.shape
-        step = max(1, plan.max_gather_rows // w)
-        for s in range(0, N, step):
-            c, v = cols[s:s + step], vals[s:s + step]
-            gr = g.index_select(0, plan.chunk_row[o + s:o + s + c.shape[0]])
-            out.index_add_(0, c.reshape(-1),
-                           (v[:, :, None] * gr[:, None, :]).reshape(-1, k))
-        o += N
-    return out
+        return gespmm_rows(plan.rows, Bc, into=into)
 
 
 class _EllApply(torch.autograd.Function):
     """``plan(B, into)`` through the row-unit kernel on the card (the plain
-    version on the CPU), with g_B = ``plan.bwd_plan(g)`` (A_resᵀ·g through
-    the forward of the transposed pattern; counterpart of the JAX package's
-    ``_ell_apply_cv`` / ``_ell_apply_cv0``) or, without a ``bwd_plan``, the
-    plain transposed scatter of vals·g, which sums in no fixed order on the
-    card.  The cotangent of ``into`` is g; the plan gets none, so gradients
-    wrt A's values are not propagated here, as in the JAX package."""
+    version on the CPU), with g_B = A_resᵀ·g (the JAX package's
+    ``_ell_apply_cv`` / ``_ell_apply_cv0``) through ``plan.bwd_plan`` or
+    else the plan :func:`with_bwd_plan` attaches, built at the first
+    backward and kept: on the card in a fixed order.  The cotangent of
+    ``into`` is g; the plan gets none, so gradients wrt A's values are not
+    propagated here, as in the JAX package."""
 
     @staticmethod
     def forward(ctx, plan, B, into):
@@ -470,8 +451,13 @@ class _EllApply(torch.autograd.Function):
         g_B = None
         if ctx.needs_input_grad[1]:
             plan = ctx.plan
-            g_B = plan.bwd_plan(g.contiguous()) if plan.bwd_plan is not None \
-                else _ell_transpose_scatter(plan, g, ctx.n)
+            bwd = plan.bwd_plan
+            if bwd is None:
+                bwd = plan._kept_bwd
+                if bwd is None or bwd.m != ctx.n:
+                    bwd = plan._kept_bwd = prepare_ell_transpose(
+                        plan, ctx.n, keep_pads=False)
+            g_B = bwd(g.contiguous())
         return None, g_B, g if ctx.has_into else None
 
 
@@ -532,7 +518,7 @@ def prepare_ell_transpose(plan: EllPlan, n: int,
             offs += N
         rows = torch.cat(rows_parts)
         if not keep_pads:
-            _, real = unit_entries(plan.row_tables())
+            _, real = unit_entries(plan.rows)
             cols, vals, rows = cols[real], vals[real], rows[real]
         counts = torch.bincount(cols, minlength=n)
         t_row_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
@@ -544,8 +530,9 @@ def prepare_ell_transpose(plan: EllPlan, n: int,
 
 def with_bwd_plan(plan: EllPlan, n: int) -> EllPlan:
     """Copy of ``plan`` carrying the transposed-pattern backward plan
-    (``n`` = B's row count); its call then goes through :class:`_EllApply`.
-    Only valid when A's values are constants (a graph adjacency).  The
+    (``n`` = B's row count), built now rather than at the first backward;
+    on the CPU its call then goes through :class:`_EllApply` too.  Only
+    valid when A's values are constants (a graph adjacency).  The
     backward plan leaves out the forward's pad entries
     (``prepare_ell_transpose(keep_pads=False)``): the same g_B, and on an
     H100 its kernel ran 17 % faster on the reddit_posts residue, whose pads

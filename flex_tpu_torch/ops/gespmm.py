@@ -51,13 +51,31 @@ class RowTables:
     ``cols/vals[row_start[r] + lo .. row_start[r] + hi)`` over its units
     (r, lo, hi, part); a row of one unit has part -1, the units of a longer
     row write partial rows ``part`` that ``splits`` (r, part_lo, part_hi)
-    adds up."""
+    adds up.  Empty ``vals``: each call gives them (``gespmm_rows(vals=)``).
+    The tables check themselves once, when made (on a CUDA device also
+    what the kernels' raw pointers need, ``units`` read by float4); a call
+    checks only what changes between calls (:func:`check_call`)."""
     cols: torch.Tensor       # i32 [T] the flat store of chunks
-    vals: torch.Tensor       # f32 [T]
+    vals: torch.Tensor       # f32 [T], or [0]: values given per call
     row_start: torch.Tensor  # i32 [m]
     units: torch.Tensor      # i32 [U, 4] (row, lo, hi, part)
     splits: torch.Tensor     # i32 [S, 3] (row, part_lo, part_hi)
     n_parts: int
+
+    def __post_init__(self):
+        T = self.cols.shape[0]
+        check_operands({"cols": (self.cols, T),
+                        "row_start": (self.row_start, self.m),
+                        "units": (self.units, (self.units.shape[0], 4)),
+                        "splits": (self.splits, (self.splits.shape[0], 3))},
+                       {"vals": self.vals})
+        if tuple(self.vals.shape) not in ((T,), (0,)):
+            raise ValueError(f"vals must be float32[{T}] or empty, got "
+                             f"{list(self.vals.shape)}")
+        if self.cols.device.type == "cuda":
+            check_kernel_operands(("units",), cols=self.cols, vals=self.vals,
+                                  row_start=self.row_start, units=self.units,
+                                  splits=self.splits)
 
     @property
     def m(self) -> int:
@@ -150,52 +168,62 @@ def unit_entries(t: RowTables):
 
 
 def gespmm_rows_plain(t: RowTables, B, into=None,
-                      max_gather_rows: int = 1 << 21):
+                      max_gather_rows: int = 1 << 21, vals=None):
     """Plain PyTorch version of :func:`gespmm_rows`: every covered nonzero's
     vals · B[cols] scatter-added into its row (in sub-batches of about
     ``max_gather_rows`` gathered rows), then added into ``into`` when
-    given.  A bf16 B is widened to f32 row by row as it is gathered.
-    Returns f32 [m, k]."""
+    given.  ``vals`` replaces the tables' values.  A bf16 B is widened to
+    f32 row by row as it is gathered.  Returns f32 [m, k]."""
+    vals = t.vals if vals is None else vals
     rows, idx = unit_entries(t)
     out = torch.zeros((t.m, B.shape[1]), dtype=torch.float32,
                       device=B.device)
     for s in range(0, len(idx), max_gather_rows):
         e = idx[s:s + max_gather_rows]
-        out.index_add_(0, rows[s:s + max_gather_rows], t.vals[e, None]
+        out.index_add_(0, rows[s:s + max_gather_rows], vals[e, None]
                        * B.index_select(0, t.cols[e].long()).float())
     return into.add_(out) if into is not None else out
 
 
-def _rows_call(t: RowTables, B, into, symbol: str, row_strided=(),
-               extra=()):
-    """Checks, then the plain version on the CPU or ``symbol`` of
-    ``csrc/gespmm.cu`` on the card, with the ints ``extra`` after its
-    others; returns (out, launched).  ``row_strided=("B",)`` lets B be a
-    column slice of a wider buffer
-    (:func:`.operands.check_kernel_operands`)."""
-    if B.dim() != 2:
-        raise ValueError(f"B must be 2-D, got {tuple(B.shape)}")
-    m, k = t.m, B.shape[1]
-    floats = {"vals": t.vals}
-    if into is not None:
-        if tuple(into.shape) != (m, k):
-            raise ValueError(f"into shape {tuple(into.shape)} != ({m}, {k})")
-        floats["into"] = into
-    check_operands({"cols": (t.cols, t.vals.shape[0]), "row_start": (
-        t.row_start, m), "units": (t.units, (t.units.shape[0], 4)),
-        "splits": (t.splits, (t.splits.shape[0], 3))}, floats)
-    if B.device != t.vals.device:
-        raise ValueError(f"arguments lie on several devices: "
-                         f"{ {B.device, t.vals.device} }")
+def check_call(t: RowTables, kernel: str, B, /, row_strided=(),
+               **floats) -> bool:
+    """A call's checks: ``floats`` float32, they and B (the rows ``cols``
+    names) on the tables' device, on the card what ``kernel``'s pointers
+    need.  True if the call launches it, False for CPU tensors."""
+    for name, x in floats.items():
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+    devices = {t.cols.device, B.device} | {x.device for x in floats.values()}
+    if len(devices) != 1:
+        raise ValueError(f"arguments lie on several devices: {devices}")
     if B.device.type == "cpu":
-        return gespmm_rows_plain(t, B, into), False
+        return False
     if B.device.type != "cuda":
-        raise ValueError(f"no gespmm kernel for device {B.device}")
-    check_kernel_operands(("units",), row_strided, cols=t.cols,
-                          row_start=t.row_start, units=t.units,
-                          splits=t.splits, B=B, **floats)
-    if t.cols.numel() and B.shape[0] == 0:
+        raise ValueError(f"no {kernel} kernel for device {B.device}")
+    check_kernel_operands((), row_strided, **{"B": B, **floats})
+    if t.cols.shape[0] and B.shape[0] == 0:
         raise ValueError("B has no rows for cols to point at")
+    return True
+
+
+def _rows_call(t: RowTables, B, into, vals, symbol: str, row_strided=(),
+               extra=()):
+    """Checks of what changes between calls (B, ``into``, the call's
+    ``vals``: the callers check B's dtype and rank), then the plain
+    version on the CPU or ``symbol`` of ``csrc/gespmm.cu`` on the card,
+    with the ints ``extra`` after its others; returns (out, launched).
+    ``row_strided=("B",)`` lets B be a column slice of a wider buffer."""
+    m, k, T = t.m, B.shape[1], t.cols.shape[0]
+    if into is not None and tuple(into.shape) != (m, k):
+        raise ValueError(f"into shape {tuple(into.shape)} != ({m}, {k})")
+    v = t.vals if vals is None else vals
+    if tuple(v.shape) != (T,):
+        raise ValueError(f"vals must have shape ({T},), got {tuple(v.shape)}"
+                         + (": the tables hold none" if vals is None else ""))
+    floats = {n: x for n, x in (("into", into), ("vals", vals))
+              if x is not None}
+    if not check_call(t, "gespmm", B, row_strided, **floats):
+        return gespmm_rows_plain(t, B, into, vals=v), False
     from flex_tpu_torch import kernels
 
     out = into if into is not None else torch.empty(
@@ -203,7 +231,7 @@ def _rows_call(t: RowTables, B, into, symbol: str, row_strided=(),
     scratch = torch.empty((t.n_parts, k), dtype=torch.float32,
                           device=B.device)
     kernels.launch("gespmm", symbol, B.device,
-                   t.cols.data_ptr(), t.vals.data_ptr(),
+                   t.cols.data_ptr(), v.data_ptr(),
                    t.row_start.data_ptr(), t.units.data_ptr(),
                    t.splits.data_ptr(), B.data_ptr(), out.data_ptr(),
                    scratch.data_ptr(), t.units.shape[0], t.splits.shape[0], k,
@@ -211,10 +239,11 @@ def _rows_call(t: RowTables, B, into, symbol: str, row_strided=(),
     return out, True
 
 
-def gespmm_rows(t: RowTables, B, into=None):
+def gespmm_rows(t: RowTables, B, into=None, vals=None):
     """C[r, :] = Σ over row r's nonzeros of vals · B[cols, :] for every row
     of ``t`` (f32 [m, k]); with ``into`` (f32 [m, k]) the sums are added to
-    it IN PLACE and it is returned.
+    it IN PLACE and it is returned.  ``vals`` (f32 [T]) replaces the
+    tables' values for this call; tables without values need it.
 
     B is f32, or bf16, which goes to :func:`gespmm_rows_bf16`; any other
     dtype raises.  CUDA tensors launch ``csrc/gespmm.cu`` (and count the
@@ -227,16 +256,17 @@ def gespmm_rows(t: RowTables, B, into=None):
     loads, and give the same bits.  CPU tensors take
     :func:`gespmm_rows_plain`.  Anything else raises."""
     if B.dtype == torch.bfloat16:
-        return gespmm_rows_bf16(t, B, into)
+        return gespmm_rows_bf16(t, B, into, vals)
     if B.dtype != torch.float32:
         raise ValueError(f"B must be float32 or bfloat16, got {B.dtype}")
     if B.dim() != 2:
         raise ValueError(f"B must be 2-D, got {tuple(B.shape)}")
     lanes = rows_layout(B.shape[1])[0]
     if lanes == 32:
-        out, launched = _rows_call(t, B, into, "flex_gespmm_rows")
+        out, launched = _rows_call(t, B, into, vals, "flex_gespmm_rows")
     else:
-        out, launched = _rows_call(t, B, into, "flex_gespmm_rows_grouped",
+        out, launched = _rows_call(t, B, into, vals,
+                                   "flex_gespmm_rows_grouped",
                                    extra=(lanes,))
         gespmm_rows.grouped_launches += launched
     gespmm_rows.launches += launched
@@ -287,7 +317,7 @@ def to_bf16_padded(B: torch.Tensor) -> torch.Tensor:
     return buf[:, :k]
 
 
-def gespmm_rows_bf16(t: RowTables, B, into=None):
+def gespmm_rows_bf16(t: RowTables, B, into=None, vals=None):
     """:func:`gespmm_rows` with B in bf16 (the JAX package's
     ``b_dtype="bfloat16"`` gather): bf16 rows of B, widened to f32, times
     the f32 values, summed in f32; out and ``into`` are f32.  B is
@@ -312,7 +342,7 @@ def gespmm_rows_bf16(t: RowTables, B, into=None):
         if have < (n - 1) * ldb + bf16_layout(k)[0]:
             raise ValueError("B's storage ends inside its last row's pad "
                              "(16-byte loads would read past it)")
-    out, launched = _rows_call(t, B, into, "flex_gespmm_rows_bf16",
+    out, launched = _rows_call(t, B, into, vals, "flex_gespmm_rows_bf16",
                                row_strided=("B",),
                                extra=(ldb, bf16_layout(k)[1]))
     gespmm_rows_bf16.launches += launched
@@ -331,13 +361,10 @@ class GeSpmmPlan:
     chunk_row: torch.Tensor  # i32 [N] (pad chunks point at dump row m)
     nnz: int
     padded_nnz: int
-    # the kernel's tables over cols/vals; None = derive them at each call
-    rows: RowTables | None = None
+    rows: RowTables          # the kernel's tables over cols/vals
 
     def __call__(self, B: torch.Tensor) -> torch.Tensor:
-        t = self.rows if self.rows is not None else tables_from_buckets(
-            ((self.cols, self.vals),), self.chunk_row, self.m)
-        return gespmm_rows(t, B)
+        return gespmm_rows(self.rows, B)
 
     @property
     def stats(self) -> dict:

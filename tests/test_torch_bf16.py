@@ -84,7 +84,7 @@ def test_bf16_ell_matches_jax(name, k):
             torch.from_numpy(_bf16(B))).numpy())
     # kernel 7's bf16 instance, emulated: the f32 order on widened bf16 B
     absprod = np.abs(g.to_scipy()) @ np.abs(_bf16(B))
-    assert_sums_close(emulate_row_units(plan.row_tables(), _bf16(B)), C_jax,
+    assert_sums_close(emulate_row_units(plan.rows, _bf16(B)), C_jax,
                       g.degrees, absprod)
 
 
@@ -94,7 +94,7 @@ def test_bf16_rows_wrapper_on_the_cpu(into):
     is the plain version on B widened; f32 stays f32, and any other dtype
     is refused.  No launch is counted on the CPU."""
     g = hub_graph_with_empty_rows()
-    t = prepare_ell(g, device="cpu").row_tables()
+    t = prepare_ell(g, device="cpu").rows
     B = torch.from_numpy(_features(g, 24))
     acc = torch.from_numpy(_features(g, 24, seed=3)) if into else None
     before = (gespmm_rows.launches, gespmm_rows_bf16.launches)
@@ -256,7 +256,7 @@ def test_bf16_plain_on_padded_view_matches_jax(k):
     plan = prepare_ell(g, b_dtype="bfloat16", device="cpu")
     C_jax = np.asarray(j_prepare_ell(jax_graph(g), b_dtype="bfloat16")(
         jnp.asarray(B)))
-    t = plan.row_tables()
+    t = plan.rows
     want = plan(torch.from_numpy(B)).numpy()
     for C in (ell_spmm_plain(plan, P), gespmm_rows_plain(t, P),
               gespmm_rows_bf16(t, P)):

@@ -178,14 +178,14 @@ def test_refuses_wrong_shapes_types_and_devices(case):
         edge_dots_rows(t, plan.rows[1:], gt, Bt)
     with pytest.raises(ValueError, match="float32"):
         edge_dots_rows(t, plan.rows, gt.double(), Bt)
-    with pytest.raises(ValueError, match="int32"):
-        edge_dots_rows(dataclasses.replace(t, cols=t.cols.long()), plan.rows,
-                       gt, Bt)
+    with pytest.raises(ValueError, match="int32"):   # when the table is made
+        dataclasses.replace(t, cols=t.cols.long())
     with pytest.raises(ValueError, match="several devices"):
         edge_dots_rows(t, plan.rows, gt, Bt.to("meta"))
-    meta = dataclasses.replace(t, cols=t.cols.to("meta"),
-                               row_start=t.row_start.to("meta"),
-                               units=t.units.to("meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        dataclasses.replace(t, cols=t.cols.to("meta"))
+    meta = dataclasses.replace(t, **{f: getattr(t, f).to("meta") for f in (
+        "cols", "vals", "row_start", "units", "splits")})
     with pytest.raises(ValueError, match="no edge-dot kernel"):
         edge_dots_rows(meta, plan.rows, gt.to("meta"), Bt.to("meta"))
     with pytest.raises(ValueError, match="B must be"):

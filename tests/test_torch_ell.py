@@ -9,7 +9,8 @@ the JAX package's ``_ell_spmm`` with ``into=`` (rtol = atol = 1e-5,
 widened for rows of thousands of nonzeros to the rounding bound of two
 f32 sums in different orders).  The
 plan's byte model and counters against the JAX plan's; the residue's
-autograd path of the card (plain transposed scatter) on the CPU."""
+autograd path of the card (its call route, and the transposed plan that
+a backward without a ``bwd_plan`` builds and keeps) on the CPU."""
 import dataclasses
 
 import numpy as np
@@ -28,6 +29,7 @@ from flex_tpu.sparse.csr import CSRGraph as JCSRGraph
 from flex_tpu_torch import spmm
 from flex_tpu_torch.convert import ell_plan_from_numpy
 from flex_tpu_torch.io import community_graph, make_features
+from flex_tpu_torch.ops import ell_spmm
 from flex_tpu_torch.ops.ell_spmm import (
     DEFAULT_WIDTHS, _EllApply, ell_spmm_plain, prepare_ell,
     prepare_ell_transpose, with_bwd_plan,
@@ -449,30 +451,56 @@ def test_transposed_plan_without_pads():
     check_row_tables(drop.rows, *_residue_csr(drop))
 
 
+@pytest.mark.parametrize("grad", [False, True])
 @pytest.mark.parametrize("with_into", [False, True])
-def test_residue_autograd_of_the_card_path(with_into):
-    """The autograd function the card takes without a ``bwd_plan`` (run
-    here on CPU tensors, where its forward is the plain version): g_B is
-    the plain transposed scatter, equal to autograd through the plain ops;
-    the cotangent of ``into`` is g."""
+def test_residue_autograd_of_the_card_path(with_into, grad, monkeypatch):
+    """The autograd function the card takes (run here on CPU tensors, where
+    its forward is the plain version).  Without a ``bwd_plan`` its first
+    backward builds the transposed plan ``with_bwd_plan`` attaches and
+    keeps it: one build in two backwards, and g_B bit for bit that plan's
+    and equal to autograd through the plain ops; the cotangent of ``into``
+    is g.  A plan's call enters it only when a gradient can flow
+    (``grad``): never under ``torch.no_grad()``."""
     g = hub_graph_with_empty_rows()
     plan = prepare_ell(g, device="cpu")
+    tb = with_bwd_plan(plan, g.n)
     rng = np.random.default_rng(0)
     B0 = torch.from_numpy(make_features(g, 8))
     co = torch.from_numpy(rng.random((g.m, 8), dtype=np.float32))
+    if not grad:
+        monkeypatch.setattr(_EllApply, "apply", lambda *a: 1 / 0)
+        B = B0.clone().requires_grad_()
+        with torch.no_grad():
+            out = tb(B, torch.ones((g.m, 8), requires_grad=True)
+                     if with_into else None)
+        want = ell_spmm_plain(plan, B0, torch.ones((g.m, 8))
+                              if with_into else None)
+        assert torch.equal(out, want) and out.grad_fn is None
+        return
+    entered, built, apply = [], [], _EllApply.apply
+    monkeypatch.setattr(_EllApply, "apply",
+                        lambda *a: entered.append(1) or apply(*a))
+    monkeypatch.setattr(ell_spmm, "prepare_ell_transpose",
+                        lambda *a, **kw: built.append(kw) or
+                        prepare_ell_transpose(*a, **kw))
     grads = []
     for fn in (lambda B, i: _EllApply.apply(plan, B, i),
-               lambda B, i: ell_spmm_plain(plan, B, i)):
+               lambda B, i: _EllApply.apply(plan, B, i),
+               lambda B, i: ell_spmm_plain(plan, B, i), tb):
         B = B0.clone().requires_grad_()
         base = torch.ones((g.m, 8), requires_grad=True)
         into = base.clone() if with_into else None
         (fn(B, into) * co).sum().backward()
         grads.append((B.grad, base.grad))
-    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-5,
+    assert built == [{"keep_pads": False}] and plan.bwd_plan is None
+    assert plan._kept_bwd is not None and len(entered) == 3
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][0], grads[3][0])
+    torch.testing.assert_close(grads[0][0], grads[2][0], rtol=1e-5,
                                atol=1e-5)
     if with_into:
-        torch.testing.assert_close(grads[0][1], co)
-        torch.testing.assert_close(grads[1][1], co)
+        for _, g_into in grads:
+            torch.testing.assert_close(g_into, co)
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
@@ -506,7 +534,7 @@ def test_prepare_ell_honours_widths_as_jax(name, ladder):
     C_jax = np.asarray(j_spmm(jax_graph(g), jnp.asarray(B), "ell",
                               widths=widths))
     np.testing.assert_allclose(C, C_jax, rtol=1e-5, atol=1e-5)
-    t = port.row_tables()
+    t = port.rows
     check_row_tables(t, g.row_ptr, g.col, g.vals)
     absprod = np.abs(g.to_scipy()) @ np.abs(B)
     assert_sums_close(emulate_row_units(t, B), C_jax, g.degrees, absprod)

@@ -36,6 +36,7 @@ from flex_tpu_torch.models import (
 )
 from flex_tpu_torch.models.gat import edge_softmax, gat_head
 from flex_tpu_torch.ops.dyn_ell import prepare_dyn_ell, spmm_dyn
+from flex_tpu_torch.ops.gespmm import RowTables, gespmm_rows
 from test_torch_ell import (
     assert_sums_close, check_row_tables, dup_graph, emulate_row_units,
     hub_graph_with_empty_rows, jax_graph,
@@ -101,13 +102,23 @@ def test_dyn_spmm_and_gradients_match_jax(name, k):
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
-def test_dyn_tables_cover_the_csr_and_its_transpose(name):
+def test_dyn_tables_cover_the_csr_and_its_transpose(name, monkeypatch):
     """Forward tables: the CSR itself, row r at row_ptr[r].  Backward
     tables: the transposed pattern, a stable sort by column, its values
     vals[perm] (passed at each call: the plan keeps no value store for
-    them); the emulated kernel on both gives A(vals)·B and A(vals)ᵀ·co."""
+    them, and a kernel call on them that gives no values is refused); the
+    emulated kernel on both gives A(vals)·B and A(vals)ᵀ·co.  A call and
+    its backward make no tables."""
     g = GRAPHS[name]()
     plan = prepare_dyn_ell(g, device="cpu")
+    with pytest.raises(ValueError, match="the tables hold none"):
+        gespmm_rows(plan.bwd, torch.ones((g.m, 4)))
+    with monkeypatch.context() as mp:
+        mp.setattr(RowTables, "__post_init__", lambda self: 1 / 0)
+        v = torch.rand(g.nnz, requires_grad=True)
+        b = torch.rand((g.n, 4), requires_grad=True)
+        plan(v, b).sum().backward()
+        assert v.grad is not None and b.grad is not None
     check_row_tables(plan.fwd, g.row_ptr, g.col, g.vals)
     perm = plan.perm.numpy()
     np.testing.assert_array_equal(perm, np.argsort(g.col, kind="stable"))

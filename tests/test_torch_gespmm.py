@@ -141,20 +141,19 @@ def test_gespmm_rejects_bad_arguments():
     t = plan.rows
     B = torch.ones((plan.m, 4))
     gespmm_rows(t, B)
-    bad_tables = (
-        dataclasses.replace(t, cols=t.cols.long()),
-        dataclasses.replace(t, vals=t.vals.double()),
-        dataclasses.replace(t, vals=t.vals[:-1]),
-        dataclasses.replace(t, units=t.units[:, :3].contiguous()),
-        dataclasses.replace(t, splits=t.splits.long()),
-        dataclasses.replace(t, row_start=t.row_start.long()),
-    )
-    for tab, b, into in [(x, B, None) for x in bad_tables] + [
-            (t, B.double(), None), (t, B[0], None),
-            (t, B, torch.ones((plan.m + 1, 4))),
-            (t, B, torch.ones((plan.m, 4), dtype=torch.float64))]:
+    # malformed tables are refused when they are made
+    for bad in (dict(cols=t.cols.long()), dict(vals=t.vals.double()),
+                dict(vals=t.vals[:-1]),
+                dict(units=t.units[:, :3].contiguous()),
+                dict(splits=t.splits.long()),
+                dict(row_start=t.row_start.long())):
         with pytest.raises(ValueError):
-            gespmm_rows(tab, b, into=into)
+            dataclasses.replace(t, **bad)
+    for b, into in [(B.double(), None), (B[0], None),
+                    (B, torch.ones((plan.m + 1, 4))),
+                    (B, torch.ones((plan.m, 4), dtype=torch.float64))]:
+        with pytest.raises(ValueError):
+            gespmm_rows(t, b, into=into)
     with pytest.raises(ValueError, match="no gespmm kernel"):
         meta = RowTables(*(x.to("meta") for x in (
             t.cols, t.vals, t.row_start, t.units, t.splits)), t.n_parts)
@@ -212,13 +211,13 @@ def test_gespmm_convert_carries_the_same_row_tables(name):
         np.testing.assert_array_equal(getattr(conv.rows, f).numpy(),
                                       getattr(mine.rows, f).numpy(), f)
     assert conv.rows.n_parts == mine.rows.n_parts
-    # a plan without tables derives the same at its call
+    # the tables derived from the buckets alone compute the same
     derived = tables_from_buckets(((mine.cols, mine.vals),), mine.chunk_row,
                                   mine.m)
     np.testing.assert_array_equal(derived.units.numpy(),
                                   mine.rows.units.numpy())
     B = torch.from_numpy(make_features(g, 8))
-    bare = dataclasses.replace(mine, rows=None)
+    bare = dataclasses.replace(mine, rows=derived)
     torch.testing.assert_close(bare(B), mine(B), rtol=0, atol=0)
 
 

@@ -102,8 +102,8 @@ def test_fused_builds_match_jax(name, fused):
     base = prepare_windowed(g, device="cpu", **kw)
     res = plan.ell
     if res.buckets:
-        want = base.ell.row_tables()
-        got = res.row_tables()
+        want = base.ell.rows
+        got = res.rows
         for f in ("row_start", "units", "splits"):
             np.testing.assert_array_equal(getattr(got, f).numpy(),
                                           getattr(want, f).numpy(), err_msg=f)
@@ -236,7 +236,7 @@ def test_prepare_ell_device_bucket_alloc_matches_jax(name):
     assert padded == plan.padded_nnz
     with pytest.raises(ValueError, match="bucket_alloc"):
         ell_scatter_layout(deg, widths, {w: 0 for w in alloc})
-    check_row_tables(plan.row_tables(), g.row_ptr, g.col, g.vals)
+    check_row_tables(plan.rows, g.row_ptr, g.col, g.vals)
     B = torch.from_numpy(make_features(g, 16))
     plain = prepare_ell_device(dev.row_ptr, dev.col, dev.vals, m=g.m,
                                nnz=g.nnz, res_row_ptr_host=g.row_ptr,
