@@ -32,6 +32,10 @@ Phases:
      The edge-dot kernel (GAT's g_vals) against float64 dots on a random
      graph with an empty row and split rows, k = 1 .. 257 (every lane
      layout, two passes at 257), aligned and misaligned, launched twice.
+     The edge-softmax kernel pair (GAT's scores and softmax, forward and
+     backward) against float64 on a random graph with rows of 5000 .. 255
+     edges, rows of one edge, empty rows and columns of ~3000 and 300
+     edges, at slopes 0.2 and 0.01, launched twice.
   4. the forward path at full size: reddit_posts(seed=0) -> rbdeg ->
      window_select(tm=256, W=128, min_count=64, max_dense_bytes=6 GiB) ->
      prepare_windowed on cuda -> plan(B), B = make_features(g, 128),
@@ -87,15 +91,21 @@ Phases:
      and Adam, must give step 4's loss and parameters bit for bit.
  11b. GAT in its default two-layer form (128 -> 4 heads x 16 -> 41, Adam
      1e-2; per-layer heads, widths and a skip run in the benchmark's
-     reddit-gat.train) on the main path's graph (unit self-loops): kernel
-     7 on the dynamic SpMM's forward and g_B tables against plain at
-     k = 16 and 41; g_vals on the edge-dot kernel at k = 16, 41 and 256
-     against float64 dots, launched twice for equal bits, its time beside
-     the plain version's padded and unpadded gathers and the bound; the
-     first step's loss and gradients against the plain dynamic SpMM,
-     whether two forwards give the same bits, 2 warm-up and 5 timed steps
-     (16 launches of kernel 7 and 8 grouped ones of the edge-dot kernel a
-     step, no plain g_vals), ms/step and peak memory.
+     reddit-gat.train) on the main path's graph (unit self-loops, the
+     graph of reddit-gat): kernel 7 on the dynamic SpMM's forward and g_B
+     tables against plain at k = 16 and 41; g_vals on the edge-dot kernel
+     at k = 16, 41 and 256 against float64 dots, launched twice for equal
+     bits, its time beside the plain version's padded and unpadded
+     gathers and the bound; the scores and softmax on the edge-softmax
+     kernel pair against float64, launched twice for equal bits, the
+     forward's and backward's times on the card alone beside the plain
+     composition's forward and forward + autograd backward and the
+     bounds, with the longest row and the share of edges in rows over 256;
+     the first step's loss and gradients against the plain dynamic SpMM
+     and plain softmax, whether two forwards give the same bits, 2
+     warm-up and 5 timed steps (16 launches of kernel 7, 8 grouped ones of
+     the edge-dot kernel and 8 of each edge-softmax kernel a step, no
+     plain g_vals or softmax), ms/step and peak memory.
  12. band at full size: banded_graph(262144, 256, 64.0, seed=2), tm = 256,
      k = 128, the three impls through ``bench_spmm``, both band kernels
      against plain on the plans' tensors; both kernels' depth ranges (their
@@ -221,10 +231,12 @@ Phase 3 also holds the transposed, band and GE-SpMM kernels to their plain
 versions on random tables.  Each path is driven with the launch counts
 set to 0 just before it and read just after (the command-line phases
 count in their own process, from 0, and print the counts last).
-Then one JSON line {"kernels": [...]} (fourteen rows: kernel 7's bf16
+Then one JSON line {"kernels": [...]} (fifteen rows: kernel 7's bf16
 instance is its own, kernels 8-11 are the probes', kernel 12 is E7's
 default rows', the edge-dot kernel is GAT's g_vals at k = 16, 41 and
-256; each row also counts its kernel's launches in the
+256, the edge-softmax pair GAT's scores and softmax on the main graph
+(its forward's launches; ms the forward and backward together); each
+row also counts its kernel's launches in the
 phases autotune, gcn_bench, cli_*, sweep, 11e-11h, 16-18, winstep and
 each study), the card's
 name and power limit, and last {"ok": true, "device": {...}}.  Any
@@ -2249,18 +2261,22 @@ def phase_sage(torch, g, plan, tplan, X, smi):
 
 def plain_dyn(torch, plan):
     """A copy of the plan whose call, (vals, B) -> A(vals)·B, is the
-    row-unit kernel's plain version on the plan's forward tables: all
-    tensor ops, so autograd differentiates it in vals and B with no kernel
-    of the package."""
+    row-unit kernel's plain version on the plan's forward tables, and
+    whose edge attention is the plain scores and softmax: all tensor ops,
+    so autograd differentiates them with no kernel of the package."""
     import dataclasses
 
     from flex_tpu_torch.ops.dyn_ell import DynEllPlan
+    from flex_tpu_torch.ops.edge_softmax import edge_attention_plain
     from flex_tpu_torch.ops.gespmm import gespmm_rows_plain
 
     class PlainDynPlan(DynEllPlan):
         def __call__(self, vals, B):
             return gespmm_rows_plain(dataclasses.replace(self.fwd, vals=vals),
                                      B)
+
+        def edge_attention(self, s_src, s_dst, negative_slope=0.2):
+            return edge_attention_plain(self, s_src, s_dst, negative_slope)
 
     return PlainDynPlan(**{f.name: getattr(plan, f.name)
                            for f in dataclasses.fields(plan)})
@@ -2355,6 +2371,139 @@ def time_edge_dots(torch, dyn, gm, B, peaks, time_cuda_ms, label):
     return res
 
 
+def check_edge_softmax(torch, dyn, s_src, s_dst, w, label, slope=0.2):
+    """GAT's scores and softmax on the edge-softmax kernel pair
+    (``edge_attention_rows`` and ``_bwd``) against float64 (the plain
+    composition and its formulas): alpha within alpha64·eps32·(2·|z|max +
+    4·√L + 8) an edge (L its row's length), each gradient in s_src and
+    s_dst within eps32·(2·|z|max + 4·√Lmax + 8)·Σ alpha·(|w| + |t|) over
+    its row or column; a second launch of each gives the same bits.
+    Returns the worst gap over its bound of each output."""
+    from flex_tpu_torch.ops.edge_softmax import (
+        edge_attention_bwd_plain, edge_attention_plain, edge_attention_rows,
+        edge_attention_rows_bwd,
+    )
+
+    alpha = edge_attention_rows(dyn, s_src, s_dst, slope)
+    grads = edge_attention_rows_bwd(dyn, alpha, w, s_src, s_dst, slope)
+    require_same_bits(torch, "the edge-softmax forward", label, alpha,
+                      edge_attention_rows(dyn, s_src, s_dst, slope))
+    for a, b in zip(grads, edge_attention_rows_bwd(dyn, alpha, w, s_src,
+                                                   s_dst, slope)):
+        require_same_bits(torch, "the edge-softmax backward", label, a, b)
+    a64, b64, w64 = s_src.double(), s_dst.double(), w.double()
+    ref = edge_attention_plain(dyn, a64, b64, slope)
+    r_src, r_dst = edge_attention_bwd_plain(dyn, ref, w64, a64, b64, slope)
+    z = a64.index_select(0, dyn.rows) + b64.index_select(0, dyn.cols.long())
+    zmax = float(z.abs().max())
+    del z
+    L = (dyn.row_ptr[1:] - dyn.row_ptr[:-1]).double()
+    tol = ref * EPS32 * (2 * zmax + 4 * L.sqrt().index_select(0, dyn.rows)
+                         + 8) + 1e-30
+    worst = {"alpha": float(((alpha.double() - ref).abs() / tol).max())}
+    del tol
+    t = ref.new_zeros(dyn.m).index_add_(0, dyn.rows, ref * w64)
+    terms = ref * (w64.abs() + t.abs().index_select(0, dyn.rows))
+    k = EPS32 * (2 * zmax + 4 * float(L.max()) ** 0.5 + 8)
+    for name, got, want, idx, n in (
+            ("d_src", grads[0], r_src, dyn.rows, dyn.m),
+            ("d_dst", grads[1], r_dst, dyn.cols.long(), dyn.n)):
+        bnd = k * ref.new_zeros(n).index_add_(0, idx, terms) + 1e-30
+        worst[name] = float(((got.double() - want).abs() / bnd).max())
+    if not max(worst.values()) <= 1.0:
+        raise AssertionError(f"the edge-softmax kernels on {label}: "
+                             f"{worst} × their f32 bounds from float64")
+    return worst
+
+
+def attention_case(torch, m, nnz, seed=5):
+    """s_src, s_dst (z of both signs) and a cotangent w on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = torch.randn((2, m), generator=gen, device="cuda") * 3
+    return (s[0].contiguous(), (s[1] - 0.5).contiguous(),
+            torch.randn(nnz, generator=gen, device="cuda"))
+
+
+def phase_edge_softmax_kernel_vs_plain(torch):
+    """The edge-softmax kernel pair on a random graph with rows of 5000,
+    1000, 257, 256 and 255 edges, rows of one edge and empty rows, and
+    columns of about 3000 and 300 edges (a warp takes up to 256 edges, a
+    block 2048 at once), at two slopes: :func:`check_edge_softmax`."""
+    from flex_tpu_torch.ops.dyn_ell import prepare_dyn_ell
+    from flex_tpu_torch.sparse.csr import CSRGraph
+
+    rng = np.random.default_rng(12)
+    m = 5000
+    deg = rng.integers(0, 121, m)
+    deg[:5] = (5000, 1000, 257, 256, 255)
+    deg[5:60] = 1
+    deg[60:90] = 0
+    rows = np.repeat(np.arange(m), deg)
+    cols = rng.integers(2, m, len(rows))
+    cols[rng.choice(len(rows), 3300, replace=False)[:3000]] = 0
+    cols[rng.choice(len(rows), 300, replace=False)] = 1
+    g = CSRGraph.from_coo(rows, cols, np.ones(len(rows), np.float32), m,
+                          name="softmax")
+    dyn = prepare_dyn_ell(g, device="cuda")
+    s_src, s_dst, w = attention_case(torch, m, g.nnz)
+    worst = {slope: check_edge_softmax(torch, dyn, s_src, s_dst, w,
+                                       f"random slope={slope}", slope)
+             for slope in (0.2, 0.01)}
+    log(f"[kernels] edge_attention_rows(_bwd) vs float64 on random tables "
+        f"({g.nnz} edges), worst gap over the f32 bound: "
+        f"{json.dumps(worst)} ok")
+
+
+def time_edge_softmax(torch, dyn, peaks, time_cuda_ms):
+    """GAT's scores and softmax at the graph's size: the kernel pair
+    checked (:func:`check_edge_softmax`), then timed on the card alone
+    (forward; backward, both its kernels) beside the plain composition's
+    forward and its autograd backward (host clock of the card's work, one
+    call each, as the step ran them), and the bounds: forward s_src, s_dst,
+    a column id an edge and alpha once, (m + n + 2·nnz)·4 bytes; backward
+    alpha, dalpha, a column id an edge, s_src and s_dst read and both
+    gradients written, (2m + 2n + 3·nnz)·4.  Also the row lengths the
+    kernel walks: the longest, and the share of edges in rows over 256.
+    Returns its numbers."""
+    from flex_tpu_torch.bench.harness import time_device_ms
+    from flex_tpu_torch.ops.edge_softmax import (
+        edge_attention_plain, edge_attention_rows, edge_attention_rows_bwd,
+    )
+
+    m, n, nnz = dyn.m, dyn.n, dyn.nnz
+    s_src, s_dst, w = attention_case(torch, m, nnz)
+    worst = check_edge_softmax(torch, dyn, s_src, s_dst, w, "the graph")
+    alpha = edge_attention_rows(dyn, s_src, s_dst, 0.2)
+
+    def plain_both():
+        a = s_src.detach().requires_grad_()
+        b = s_dst.detach().requires_grad_()
+        return torch.autograd.grad(edge_attention_plain(dyn, a, b, 0.2),
+                                   (a, b), w)
+
+    L = (dyn.row_ptr[1:] - dyn.row_ptr[:-1]).long()
+    fwd_bytes, bwd_bytes = 4 * (m + n + 2 * nnz), 4 * (2 * m + 2 * n
+                                                       + 3 * nnz)
+    res = dict(
+        err_over_bound=worst,
+        fwd_ms=time_device_ms(edge_attention_rows, dyn, s_src, s_dst, 0.2),
+        bwd_ms=time_device_ms(edge_attention_rows_bwd, dyn, alpha, w, s_src,
+                              s_dst, 0.2),
+        plain_fwd_ms=time_cuda_ms(edge_attention_plain, dyn, s_src, s_dst,
+                                  0.2, iters=5),
+        plain_fwd_bwd_ms=time_cuda_ms(plain_both, iters=5),
+        fwd_bound_ms=bound(fwd_bytes, 0.0, peaks)[0],
+        bwd_bound_ms=bound(bwd_bytes, 0.0, peaks)[0],
+        longest_row=int(L.max()),
+        edges_in_rows_over_256=float(L[L > 256].sum() / max(nnz, 1)))
+    res["ms"] = res["fwd_ms"] + res["bwd_ms"]
+    res["plain_ms"] = res["plain_fwd_bwd_ms"]
+    res["bound_ms"] = res["fwd_bound_ms"] + res["bwd_bound_ms"]
+    res["bound_by"] = "bytes"
+    log(f"[gat] edge-softmax kernels: {json.dumps(res)}")
+    return res
+
+
 def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
     """GAT in its default two-layer form, 128 -> 4 heads x 16 -> 41, on
     the main path's graph (unit self-loops: attention over N(i) and i).
@@ -2373,6 +2522,9 @@ def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
         GAT, gat_loss, make_gat_train_step, prepare_attention,
     )
     from flex_tpu_torch.ops.dyn_ell import edge_dots_rows
+    from flex_tpu_torch.ops.edge_softmax import (
+        edge_attention_rows, edge_attention_rows_bwd,
+    )
     from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_plain
 
     d_in, d_hid, n_cls, heads = 128, 16, 41, 4
@@ -2411,6 +2563,9 @@ def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
         kern[f"g_vals_k{k}"] = time_edge_dots(
             torch, dyn, gk, Bk, peaks, time_cuda_ms, f"k={k}")
         del Bk, gk
+    # the scores and softmax on their kernel pair (no width: one path
+    # serves every head)
+    kern["softmax"] = time_edge_softmax(torch, dyn, peaks, time_cuda_ms)
     y, mask = node_labels(torch, g.m, n_cls)
     model = GAT(d_in, d_hid, n_cls, n_heads=heads,
                 generator=torch.Generator().manual_seed(0)).cuda()
@@ -2427,6 +2582,8 @@ def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
     reset_launches()
     dots_before = {key: getattr(edge_dots_rows, key) for key in (
         "launches", "grouped_launches", "plain_calls")}
+    softmax_plain_before = (edge_attention_rows.plain_calls,
+                            edge_attention_rows_bwd.plain_calls)
     losses = [step(X, y, mask) for _ in range(2)]            # warm-up
     timed, step_ms, host_ms = timed_steps(torch, step, (X, y, mask), 5)
     launches = read_launches()
@@ -2435,12 +2592,18 @@ def phase_gat(torch, g, dev, X, peaks, time_cuda_ms, smi, profile=False):
     peak = torch.cuda.max_memory_allocated()
     # per step and head: one dynamic SpMM forward and its g_B, and one
     # g_vals (both layers' widths are at most 64: lane groups), two layers
+    # and one edge-softmax forward and backward a head
     expect_launches(launches, "7 GAT train steps",
                     gespmm_rows=7 * 2 * 2 * heads,
-                    edge_dots_rows=7 * 2 * heads)
+                    edge_dots_rows=7 * 2 * heads,
+                    edge_attention_rows=7 * 2 * heads,
+                    edge_attention_rows_bwd=7 * 2 * heads)
     if dots != dict(launches=7 * 2 * heads, grouped_launches=7 * 2 * heads,
                     plain_calls=0):
         raise AssertionError(f"[gat] 7 steps' g_vals: {dots}")
+    if (edge_attention_rows.plain_calls, edge_attention_rows_bwd.plain_calls
+            ) != softmax_plain_before:
+        raise AssertionError("[gat] 7 steps took the plain edge softmax")
     losses = [float(x) for x in losses + timed]
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"[gat] loss {losses}: not finite and falling")
@@ -2942,7 +3105,7 @@ def warp_call(t, B, into=None):
     ``gespmm_rows`` launched it for every k before the lane groups."""
     from flex_tpu_torch.ops.gespmm import _rows_call
 
-    return _rows_call(t, B, into, "flex_gespmm_rows")[0]
+    return _rows_call(t, B, into, None, "flex_gespmm_rows")[0]
 
 
 def widened_bits(torch, t, B, into=None):
@@ -3465,7 +3628,8 @@ EXAMPLE_STEPS = 5
 EXAMPLE_WRAPPERS = {
     "gcn_windowed": ("window_spmm_fwd", "window_bwd_gB", "gespmm_rows"),
     "gcn_pubmed": ("gespmm_rows",),
-    "gat_pubmed": ("gespmm_rows",)}
+    "gat_pubmed": ("gespmm_rows", "edge_dots_rows", "edge_attention_rows",
+                   "edge_attention_rows_bwd")}
 
 
 def phase_headline(g, cli_auto):
@@ -4383,6 +4547,7 @@ def main() -> int:
     phase_bf16_kernel_vs_plain(torch)
     phase_grouped_kernel_vs_plain(torch)
     phase_edge_dots_kernel_vs_plain(torch)
+    phase_edge_softmax_kernel_vs_plain(torch)
     phase_micro_kernels_vs_plain(torch)
     phase_winstep_kernel_vs_plain(torch)
     if quick:
@@ -4628,6 +4793,13 @@ def main() -> int:
                 "launches": gat["edge_dots_7_steps"]["launches"],
                 **{f: dots[f] for f in ("ms", "plain_ms", "bound_ms",
                                         "bound_by")}}
+    soft = gat["kernel"].pop("softmax")
+    softmax_row = {"name": "edge_attention_rows", "route": "cuda",
+                   "source": "flex_tpu_torch/csrc/edge_softmax.cu",
+                   "replaces": "none (flex_tpu/models/gat.py: edge_softmax "
+                               "by jax.ops.segment_max and segment_sum)",
+                   "launches": gat["launches_7_steps"]["edge_attention_rows"],
+                   **soft}
     for key, r in gat["kernel"].items():
         row = dots_row if key.startswith("g_vals_") else gespmm_row
         if isinstance(r, dict):
@@ -4649,6 +4821,7 @@ def main() -> int:
     rows.append(gespmm_row)
     rows.append(bf16_row)
     rows.append(dots_row)
+    rows.append(softmax_row)
     rows += micro_rows
     rows.append(row12)
     for r in rows:
@@ -4673,7 +4846,7 @@ def main() -> int:
     for r in rows:
         r.update({f"launches_{ph}": new_launches[ph].get(r["name"], 0)
                   for ph in NEW_PHASES + SHARD_PHASES + ENTRY_PHASES})
-    if len(rows) != 14 or any(r["launches"] < 1 for r in rows):
+    if len(rows) != 15 or any(r["launches"] < 1 for r in rows):
         raise AssertionError(f"a kernel was never launched on its path: "
                              f"{[(r['name'], r['launches']) for r in rows]}")
     log(json.dumps({"kernels": rows}))

@@ -23,7 +23,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("window_spmm", "window_spmm_bwd", "window_spmm_t", "band_spmm",
-           "gespmm", "micro", "winstep_bf16", "edge_dots")
+           "gespmm", "micro", "winstep_bf16", "edge_dots", "edge_softmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -139,10 +139,13 @@ def launch(name: str, symbol: str, device, *args) -> None:
 
 
 def wrappers() -> list:
-    """The kernel wrappers: one per hand kernel, and kernel 7's bf16
-    instance.  Each counts its own launches in its ``launches``
-    attribute."""
+    """The kernel wrappers: one per hand kernel, kernel 7's bf16
+    instance, and the edge softmax's forward and backward.  Each counts
+    its own launches in its ``launches`` attribute."""
     from flex_tpu_torch.ops.dyn_ell import edge_dots_rows
+    from flex_tpu_torch.ops.edge_softmax import (
+        edge_attention_rows, edge_attention_rows_bwd,
+    )
     from flex_tpu_torch.ops.gespmm import gespmm_rows, gespmm_rows_bf16
     from flex_tpu_torch.ops.pallas_band import band_spmm_v1, band_spmm_v2
     from flex_tpu_torch.ops.window_spmm import (
@@ -151,7 +154,7 @@ def wrappers() -> list:
 
     return [window_spmm_fwd, window_bwd_gA, window_bwd_gB, window_spmm_t_fwd,
             band_spmm_v2, band_spmm_v1, gespmm_rows, gespmm_rows_bf16,
-            edge_dots_rows]
+            edge_dots_rows, edge_attention_rows, edge_attention_rows_bwd]
 
 
 def launch_counts() -> dict[str, int]:
@@ -255,5 +258,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         #  stream)
         lib.flex_edge_dots.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.flex_edge_dots.restype = i
+    elif name == "edge_softmax":
+        f = ctypes.c_float
+        # (row_ptr, cols, long_rows, n_long, warp_edges, s_src, s_dst,
+        #  alpha, m, slope, stream)
+        lib.flex_edge_softmax_fwd.argtypes = [p, p, p, i, i, p, p, p, i, f,
+                                              p]
+        lib.flex_edge_softmax_fwd.restype = i
+        # (row_ptr, cols, long_rows, n_long, col_ptr, long_cols, n_long_cols,
+        #  warp_edges, perm, alpha, g, s_src, s_dst, dz, d_src, d_dst, m, n,
+        #  slope, stream)
+        lib.flex_edge_softmax_bwd.argtypes = [p, p, p, i, p, p, i, i, p, p,
+                                              p, p, p, p, p, p, i, i, f, p]
+        lib.flex_edge_softmax_bwd.restype = i
     else:
         raise ValueError(f"no CUDA source named {name!r}")

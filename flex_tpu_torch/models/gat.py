@@ -11,7 +11,11 @@ Per head:  e_ij   = LeakyReLU(a_srcᵀ W h_i + a_dstᵀ W h_j)
 
 aᵀ[Wh_i ‖ Wh_j] = a_srcᵀWh_i + a_dstᵀWh_j turns the per-edge score into
 two m-vectors gathered at the edge endpoints.  The row-wise softmax is a
-max-shifted segment softmax over the CSR rows.
+max-shifted segment softmax over the CSR rows.  Scores and softmax are
+one differentiable call of the plan (:meth:`.DynEllPlan.edge_attention`):
+on the card a hand-written kernel pair (a warp a row, a block a long
+one) with no scatter and nothing read on the host; on the CPU the plain
+composition.
 
 :class:`GAT` stacks layers of heads (:class:`GATLayer`: a head count, a
 width per head, and whether the heads are concatenated after an ELU or
@@ -30,6 +34,7 @@ from torch import nn
 
 from flex_tpu_torch.models.common import glorot_uniform
 from flex_tpu_torch.ops.dyn_ell import DynEllPlan, prepare_dyn_ell
+from flex_tpu_torch.ops.edge_softmax import segment_softmax_plain
 from flex_tpu_torch.sparse.csr import CSRGraph
 from flex_tpu_torch.utils import trace as _trace
 
@@ -76,30 +81,24 @@ def _softmax_attrs(ag: AttentionGraph):
 
 def edge_softmax(ag: AttentionGraph, e: torch.Tensor) -> torch.Tensor:
     """Row-wise max-shifted softmax of CSR-order edge scores e[nnz] ->
-    alpha[nnz].  The maximum is detached (the softmax does not change
-    under a shift); the row sums are a segment reduction over the CSR runs,
-    which sums each row in a fixed order.  Rows with no edges are never
-    gathered, so their -inf maximum never propagates.  Its forward is the
-    ``flex.edge_softmax`` span."""
+    alpha[nnz] (:func:`.ops.edge_softmax.segment_softmax_plain`): the
+    plain building block, differentiable in e.  Its call is the
+    ``flex.edge_softmax`` span (host time only)."""
     with _trace.span("flex.edge_softmax", _softmax_attrs, ag):
-        mx = torch.full((ag.m,), float("-inf"), dtype=e.dtype,
-                        device=e.device)
-        mx = mx.scatter_reduce(0, ag.rows, e.detach(), reduce="amax")
-        ex = torch.exp(e - mx.index_select(0, ag.rows))
-        s = torch.segment_reduce(ex, "sum", lengths=ag.deg)
-        return ex / s.index_select(0, ag.rows)
+        return segment_softmax_plain(ag.rows, ag.deg, e)
 
 
 def gat_head(ag: AttentionGraph, H, W, a_src, a_dst,
              negative_slope: float = 0.2) -> torch.Tensor:
     """One attention head: the aggregated (m, d_out) features.  H·W is
-    annotated ``flex.gemm`` on a profiler's clock."""
+    annotated ``flex.gemm`` on a profiler's clock; the scores' products
+    H·W·a stay matrix-vector products, and the edge scores and their
+    softmax are :meth:`.DynEllPlan.edge_attention` (on the card, the
+    kernel pair of ``csrc/edge_softmax.cu``)."""
     with _trace.annotate("flex.gemm"):
         Hw = H @ W
-    e = torch.nn.functional.leaky_relu(
-        (Hw @ a_src).index_select(0, ag.rows)
-        + (Hw @ a_dst).index_select(0, ag.cols), negative_slope)
-    return ag.plan(edge_softmax(ag, e), Hw)
+    alpha = ag.plan.edge_attention(Hw @ a_src, Hw @ a_dst, negative_slope)
+    return ag.plan(alpha, Hw)
 
 
 class GATLayer(NamedTuple):

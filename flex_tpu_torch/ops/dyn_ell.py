@@ -25,14 +25,23 @@ Backward (:class:`_DynSpmm`):
     forward's tables: a unit's lanes hold g[row] in registers and read
     each B[col] straight from memory, so nothing nnz × k is built.
 
-CPU tensors take the kernels' plain versions (:func:`.gespmm.gespmm_rows`
-and :func:`edge_dots_rows` dispatch on the device); g_vals' is
-:func:`edge_dots_plain`, torch gathers in sub-batches of edges.
+GAT's edge scores and softmax over the same pattern
+(:meth:`DynEllPlan.edge_attention`, :class:`_EdgeAttention`) run on the
+kernel pair of :mod:`.edge_softmax`, which reads the CSR's ``row_ptr``
+and, for the backward's column sums, the transposed order's ``col_ptr``
+and ``perm``.
+
+CPU tensors take the kernels' plain versions (:func:`.gespmm.gespmm_rows`,
+:func:`edge_dots_rows` and :mod:`.edge_softmax`'s wrappers dispatch on the
+device); g_vals' is :func:`edge_dots_plain`, torch gathers in sub-batches
+of edges.
 
 Spans (:mod:`.utils.trace`): each kernel-7 call, forward and g_B, is a
 ``flex.spmm`` span (m, n, nnz, k: its output rows, B's rows, the
-nonzeros, the width) and g_vals is a ``flex.edge_dots`` span (nnz, k),
-both with device seconds as the ELL plan's ``flex.spmm``.
+nonzeros, the width) and g_vals is a ``flex.edge_dots`` span (nnz, k);
+the attention's forward is a ``flex.edge_softmax`` span and its backward
+a ``flex.edge_softmax.bwd`` span (m, nnz), all with device seconds as the
+ELL plan's ``flex.spmm``.
 """
 from __future__ import annotations
 
@@ -41,6 +50,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from flex_tpu_torch.ops.edge_softmax import (
+    edge_attention_rows, edge_attention_rows_bwd, long_runs,
+)
 from flex_tpu_torch.ops.ell_spmm import DEFAULT_WIDTHS
 from flex_tpu_torch.ops.gespmm import (
     RowTables, check_call, gespmm_rows, row_tables, rows_layout,
@@ -63,6 +75,11 @@ def _dots_attrs(nnz: int, g):
     return g.device, {"nnz": nnz, "k": g.shape[1]}
 
 
+def _softmax_attrs(m: int, nnz: int, x):
+    """The ``flex.edge_softmax`` spans: x's device, the rows and edges."""
+    return x.device, {"m": m, "nnz": nnz}
+
+
 @dataclasses.dataclass
 class DynEllPlan:
     """The static structure; ``plan(vals, B)`` is A(vals) · B with fresh
@@ -77,6 +94,12 @@ class DynEllPlan:
     bwd: RowTables       # over the transposed pattern; no value store: each
     #                      call gives vals[perm]
     perm: torch.Tensor   # i64 [nnz]: transposed entry t is CSR entry perm[t]
+    row_ptr: torch.Tensor  # i32 [m + 1]: row i is CSR entries row_ptr[i] ..
+    #                        row_ptr[i + 1]
+    col_ptr: torch.Tensor  # i32 [n + 1]: column j is transposed entries
+    #                        col_ptr[j] .. col_ptr[j + 1]
+    long_rows: torch.Tensor  # i32: the rows and the columns the edge-
+    long_cols: torch.Tensor  # softmax kernels give a block (long_runs)
     max_gather_rows: int = 2 * 1024 * 1024
 
     def __call__(self, vals: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -96,6 +119,16 @@ class DynEllPlan:
             sp.begin()
             return edge_dots_rows(self.fwd, self.rows, g, B,
                                   self.max_gather_rows)
+
+    def edge_attention(self, s_src: torch.Tensor, s_dst: torch.Tensor,
+                       negative_slope: float = 0.2) -> torch.Tensor:
+        """GAT's attention weights alpha (f32 [nnz], CSR order): the
+        row-wise softmax of LeakyReLU(s_src[row] + s_dst[col]) for the
+        score vectors s_src (f32 [m]) and s_dst (f32 [n]), differentiable
+        in both (:class:`_EdgeAttention`, on :mod:`.edge_softmax`'s
+        kernels for CUDA tensors and its plain versions for CPU
+        tensors)."""
+        return _EdgeAttention.apply(self, s_src, s_dst, negative_slope)
 
 
 def edge_dots_layout(k: int) -> tuple[int, int]:
@@ -213,6 +246,34 @@ class _DynSpmm(torch.autograd.Function):
         return None, g_vals, g_B
 
 
+class _EdgeAttention(torch.autograd.Function):
+    """alpha = softmax over each row of LeakyReLU(s_src[row] + s_dst[col]);
+    only alpha is saved, the backward recomputes the scores.  The forward
+    is the ``flex.edge_softmax`` span, the backward the
+    ``flex.edge_softmax.bwd`` span."""
+
+    @staticmethod
+    def forward(ctx, plan, s_src, s_dst, negative_slope):
+        ctx.plan, ctx.slope = plan, negative_slope
+        with _trace.span("flex.edge_softmax", _softmax_attrs, plan.m,
+                         plan.nnz, s_src) as sp:
+            sp.begin()
+            alpha = edge_attention_rows(plan, s_src, s_dst, negative_slope)
+        ctx.save_for_backward(alpha, s_src, s_dst)
+        return alpha
+
+    @staticmethod
+    def backward(ctx, g):
+        plan = ctx.plan
+        alpha, s_src, s_dst = ctx.saved_tensors
+        with _trace.span("flex.edge_softmax.bwd", _softmax_attrs, plan.m,
+                         plan.nnz, g) as sp:
+            sp.begin()
+            d_src, d_dst = edge_attention_rows_bwd(
+                plan, alpha, g.contiguous(), s_src, s_dst, ctx.slope)
+        return None, d_src, d_dst, None
+
+
 def prepare_dyn_ell(g: CSRGraph, dev: DeviceCSR | None = None,
                     widths: tuple[int, ...] = DEFAULT_WIDTHS,
                     device=None) -> DynEllPlan:
@@ -230,12 +291,17 @@ def prepare_dyn_ell(g: CSRGraph, dev: DeviceCSR | None = None,
                      dev.row_ptr[:m], deg, m)
     perm = torch.argsort(dev.col, stable=True)
     deg_t = torch.bincount(dev.col.long(), minlength=n)
-    start_t = torch.cumsum(deg_t, 0) - deg_t
+    col_ptr = torch.zeros(n + 1, dtype=torch.int64, device=d)
+    torch.cumsum(deg_t, 0, out=col_ptr[1:])
+    start_t = col_ptr[:n]
     bwd = row_tables(rows.index_select(0, perm).to(torch.int32),
                      dev.vals[:0], torch.arange(n, device=d), start_t,
                      deg_t, n)
+    col_ptr = col_ptr.to(torch.int32)
     return DynEllPlan(m=m, n=n, nnz=nnz, rows=rows, cols=dev.col, fwd=fwd,
-                      bwd=bwd, perm=perm)
+                      bwd=bwd, perm=perm, row_ptr=dev.row_ptr,
+                      col_ptr=col_ptr, long_rows=long_runs(dev.row_ptr),
+                      long_cols=long_runs(col_ptr))
 
 
 def spmm_dyn(g: CSRGraph, vals, B, **kwargs) -> torch.Tensor:

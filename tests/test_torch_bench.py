@@ -335,9 +335,11 @@ def test_device_info_on_the_cpu(monkeypatch):
 
 def test_launch_counts_name_every_wrapper():
     counts = kernels.launch_counts()
-    assert len(counts) == 9 and "gespmm_rows" in counts
+    assert len(counts) == 11 and "gespmm_rows" in counts
     assert "gespmm_rows_bf16" in counts  # kernel 7's bf16 instance
     assert "edge_dots_rows" in counts  # g_vals of the dynamic SpMM
+    # GAT's edge softmax, forward and backward
+    assert {"edge_attention_rows", "edge_attention_rows_bwd"} <= set(counts)
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
 

@@ -1,7 +1,9 @@
 """Card-only tests of the PyTorch port: the hand CUDA kernels (windowed
 forward, g_A, g_B, transposed forward, the two band kernels, the row-unit
 kernel of GE-SpMM, the ELL residue, the dynamic-value SpMM and its
-edge-dot kernel (g_vals, with a GAT step at ``reddit-gat``'s widths), the panel
+edge-dot kernel (g_vals, with a GAT step at ``reddit-gat``'s widths), GAT's
+edge-softmax kernel pair (against float64, and a GAT step with no host
+sync), the panel
 plan's hub rows, the probes' kernels 8-11 and kernel 12 with the E7 and
 E8 mains) against their plain twins, the unit
 kernels (g_A too) on the edges of their work units and the ranged band kernels on
@@ -1019,24 +1021,27 @@ def test_gat_step_on_the_edge_dot_kernel_matches_the_plain_plan(cuda):
     """``reddit-gat``'s layers (4 × 256 concatenated, 4 × 256 with the
     skip, 6 × 41 averaged) on a small graph with self-loops: a step
     launches the edge-dot kernel once a head (8 at k = 256, 6 grouped at
-    k = 41) and takes no plain call; the first step's parameter gradients
-    match those through the plain dynamic plan (all tensor ops, g_vals by
-    autograd's gathers) within 1e-4 of each parameter's largest."""
+    k = 41) and the edge-softmax kernels once a head each way, and takes
+    no plain call; the first step's parameter gradients match those
+    through the plain dynamic plan (all tensor ops: the plain scores and
+    softmax, g_vals by autograd's gathers) within 1e-4 of each
+    parameter's largest."""
     from flex_tpu_torch.models import GAT, gat_loss, prepare_attention
     from flex_tpu_torch.ops.dyn_ell import DynEllPlan, edge_dots_rows
+    from flex_tpu_torch.ops.edge_softmax import (
+        edge_attention_plain, edge_attention_rows, edge_attention_rows_bwd,
+    )
 
-    base = community_graph(2000, 40_000, n_comm=4, seed=2)
-    loops = np.arange(base.m)
-    rows = np.r_[np.repeat(loops, base.degrees), loops]
-    g = CSRGraph.from_coo(rows, np.r_[base.col, loops],
-                          np.ones(len(rows), np.float32), base.m,
-                          name="loops")
+    g = _with_self_loops(community_graph(2000, 40_000, n_comm=4, seed=2))
     ag = prepare_attention(g, device=cuda)
 
     class PlainDynPlan(DynEllPlan):
         def __call__(self, vals, B):
             return gespmm_rows_plain(dataclasses.replace(self.fwd, vals=vals),
                                      B)
+
+        def edge_attention(self, s_src, s_dst, negative_slope=0.2):
+            return edge_attention_plain(self, s_src, s_dst, negative_slope)
 
     plain = dataclasses.replace(ag, plan=PlainDynPlan(**{
         f.name: getattr(ag.plan, f.name)
@@ -1048,21 +1053,195 @@ def test_gat_step_on_the_edge_dot_kernel_matches_the_plain_plan(cuda):
         np.float32)).to(cuda)
     y = torch.from_numpy(rng.integers(0, 41, g.m)).to(cuda)
     mask = torch.ones(g.m, device=cuda)
+    counters = [(edge_dots_rows, "launches"),
+                (edge_dots_rows, "grouped_launches"),
+                (edge_dots_rows, "plain_calls"),
+                (edge_attention_rows, "launches"),
+                (edge_attention_rows, "plain_calls"),
+                (edge_attention_rows_bwd, "launches"),
+                (edge_attention_rows_bwd, "plain_calls")]
     grads = []
     for p in (ag, plain):
-        before = (edge_dots_rows.launches, edge_dots_rows.grouped_launches,
-                  edge_dots_rows.plain_calls)
+        before = [getattr(fn, c) for fn, c in counters]
         model.zero_grad(set_to_none=True)
         gat_loss(model, p, X, y, mask).backward()
         grads.append({n: q.grad.clone() for n, q in model.named_parameters()})
-        counts = (edge_dots_rows.launches - before[0],
-                  edge_dots_rows.grouped_launches - before[1],
-                  edge_dots_rows.plain_calls - before[2])
-        assert counts == ((14, 6, 0) if p is ag else (0, 0, 0))
+        counts = tuple(getattr(fn, c) - b
+                       for (fn, c), b in zip(counters, before))
+        assert counts == ((14, 6, 0, 14, 0, 14, 0) if p is ag
+                          else (0, 0, 0, 0, 0, 0, 0))
     for n, ref in grads[1].items():
         assert bool(grads[0][n].isfinite().all())
         assert float((grads[0][n] - ref).abs().max()) <= \
             1e-4 * float(ref.abs().max()), n
+
+
+def _with_self_loops(base):
+    loops = np.arange(base.m)
+    rows = np.r_[np.repeat(loops, base.degrees), loops]
+    return CSRGraph.from_coo(rows, np.r_[base.col, loops],
+                             np.ones(len(rows), np.float32), base.m,
+                             name="loops")
+
+
+def _attention_graph(m=3000):
+    """Rows of 5000, 1000, 257, 256 and 255 edges, rows of one edge,
+    empty rows and rows of up to 120 edges; columns 0 and 1 of about 3000
+    and 300 edges (the kernels' warp takes up to 256, a block 2048 at
+    once)."""
+    rng = np.random.default_rng(5)
+    deg = rng.integers(0, 121, m)
+    deg[:5] = (5000, 1000, 257, 256, 255)
+    deg[5:60] = 1
+    deg[60:90] = 0
+    rows = np.repeat(np.arange(m), deg)
+    cols = rng.integers(2, m, len(rows))
+    cols[rng.choice(len(rows), 3300, replace=False)[:3000]] = 0
+    cols[rng.choice(len(rows), 300, replace=False)] = 1
+    return CSRGraph.from_coo(rows, cols, np.ones(len(rows), np.float32), m,
+                             name="attention")
+
+
+def _attention_case(cuda, g, seed):
+    """s_src, s_dst (z of both signs) and a cotangent w on the card."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = torch.randn((2, g.m), generator=gen, device=cuda) * 3
+    w = torch.randn(g.nnz, generator=gen, device=cuda)
+    return s[0].contiguous(), (s[1] - 0.5).contiguous(), w
+
+
+def _attention_float64(plan, s_src, s_dst, w, slope):
+    """alpha and the gradients of (alpha·w).sum() in s_src and s_dst in
+    float64 (the plain composition and its formulas), and the f32 bounds
+    of each, from the size of the scores and the rows' lengths L (the
+    rounding of a sum of L terms grows as √L): alpha64·eps32·(2·|z|max +
+    4·√L + 8) an edge, L its row's; eps32·(2·|z|max + 4·√Lmax +
+    8)·Σ|terms| a gradient, the terms alpha·(|w| + |t|) of its row or
+    column.  The plain version stays within a sixth of them on the CPU."""
+    from flex_tpu_torch.ops.edge_softmax import (
+        edge_attention_bwd_plain, edge_attention_plain,
+    )
+
+    a, b, w = s_src.double(), s_dst.double(), w.double()
+    alpha = edge_attention_plain(plan, a, b, slope)
+    d_src, d_dst = edge_attention_bwd_plain(plan, alpha, w, a, b, slope)
+    z = a.index_select(0, plan.rows) + b.index_select(0, plan.cols.long())
+    L = (plan.row_ptr[1:] - plan.row_ptr[:-1]).double()
+    zmax = float(z.abs().max())
+    t = alpha.new_zeros(plan.m).index_add_(0, plan.rows, alpha * w)
+    terms = alpha * (w.abs() + t.abs().index_select(0, plan.rows))
+    k = EPS32 * (2 * zmax + 4 * float(L.max()) ** 0.5 + 8)
+    return (alpha, d_src, d_dst,
+            alpha * EPS32 * (2 * zmax + 4 * L.sqrt().index_select(
+                0, plan.rows) + 8) + 1e-30,
+            k * alpha.new_zeros(plan.m).index_add_(0, plan.rows, terms)
+            + 1e-30,
+            k * alpha.new_zeros(plan.n).index_add_(0, plan.cols.long(),
+                                                   terms) + 1e-30)
+
+
+@pytest.mark.parametrize("slope", [0.2, 0.01])
+def test_edge_softmax_kernels_match_float64(cuda, slope):
+    """The scores and softmax on the card: one forward launch and one
+    backward call (its two kernels), no plain call; alpha and both
+    gradients within their f32 bounds of float64 (as the plain version
+    is), on rows and columns a block takes (longer than 256 edges, read
+    at once up to 2048 and in chunks above), rows of one edge (alpha
+    exactly 1) and empty rows, z of both signs; two launches give the
+    same bits."""
+    from flex_tpu_torch.ops.dyn_ell import prepare_dyn_ell
+    from flex_tpu_torch.ops.edge_softmax import (
+        edge_attention_bwd_plain, edge_attention_plain, edge_attention_rows,
+        edge_attention_rows_bwd,
+    )
+
+    g = _attention_graph()
+    plan = prepare_dyn_ell(g, device=cuda)
+    assert plan.long_rows.tolist() == [0, 1, 2]
+    assert plan.long_cols.shape[0] >= 2
+    s_src, s_dst, w = _attention_case(cuda, g, 7)
+    z = s_src.index_select(0, plan.rows) + s_dst.index_select(
+        0, plan.cols.long())
+    assert bool((z > 0).any()) and bool((z < 0).any())
+    counters = (edge_attention_rows.launches, edge_attention_rows.plain_calls,
+                edge_attention_rows_bwd.launches,
+                edge_attention_rows_bwd.plain_calls)
+    a = s_src.clone().requires_grad_()
+    b = s_dst.clone().requires_grad_()
+    alpha = plan.edge_attention(a, b, slope)
+    (alpha * w).sum().backward()
+    assert (edge_attention_rows.launches, edge_attention_rows.plain_calls,
+            edge_attention_rows_bwd.launches,
+            edge_attention_rows_bwd.plain_calls) == (
+        counters[0] + 1, counters[1], counters[2] + 1, counters[3])
+    ref, r_src, r_dst, tol, tol_src, tol_dst = _attention_float64(
+        plan, s_src, s_dst, w, slope)
+    plain = edge_attention_plain(plan, s_src, s_dst, slope)
+    p_src, p_dst = edge_attention_bwd_plain(plan, plain, w, s_src, s_dst,
+                                            slope)
+    for label, got, want, bound in (
+            ("alpha", alpha.detach(), ref, tol),
+            ("d_src", a.grad, r_src, tol_src),
+            ("d_dst", b.grad, r_dst, tol_dst),
+            ("plain alpha", plain, ref, tol),
+            ("plain d_src", p_src, r_src, tol_src),
+            ("plain d_dst", p_dst, r_dst, tol_dst)):
+        gap = (got.double() - want).abs() / bound
+        assert float(gap.max()) <= 1.0, (label, float(gap.max()))
+    single = torch.from_numpy(g.row_ptr[:-1][g.degrees == 1]).to(cuda)
+    assert bool((alpha.detach()[single] == 1).all())
+    again = edge_attention_rows(plan, s_src, s_dst, slope)
+    assert torch.equal(again, alpha.detach())
+    d2 = edge_attention_rows_bwd(plan, again, w, s_src, s_dst, slope)
+    assert torch.equal(d2[0], a.grad) and torch.equal(d2[1], b.grad)
+
+
+def test_gat_forward_and_backward_read_nothing_on_the_host(cuda):
+    """A GAT forward and backward on the card (after one warm-up step,
+    which builds the kernels) under ``set_sync_debug_mode("error")``: no
+    device-to-host copy or synchronise anywhere on the path."""
+    from flex_tpu_torch.models import GAT, gat_loss, prepare_attention
+
+    g = _with_self_loops(community_graph(1000, 20_000, n_comm=4, seed=4))
+    ag = prepare_attention(g, device=cuda)
+    model = GAT(16, layers=[(2, 32, True), (2, 8, False)],
+                generator=torch.Generator().manual_seed(0)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    X = torch.randn((g.m, 16), generator=gen, device=cuda)
+    y = torch.randint(0, 8, (g.m,), generator=gen, device=cuda)
+    mask = torch.ones(g.m, device=cuda)
+    gat_loss(model, ag, X, y, mask).backward()
+    model.zero_grad(set_to_none=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gat_loss(model, ag, X, y, mask).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(p.grad.isfinite().all()) for p in model.parameters())
+
+
+def test_edge_softmax_kernels_refuse_what_they_cannot_take(cuda):
+    from flex_tpu_torch.ops.dyn_ell import prepare_dyn_ell
+    from flex_tpu_torch.ops.edge_softmax import edge_attention_rows_bwd
+
+    g = _attention_graph(m=400)
+    plan = prepare_dyn_ell(g, device=cuda)
+    s = torch.zeros(g.m, device=cuda)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        plan.edge_attention(s.cpu(), s)
+    with pytest.raises(ValueError, match="float32"):
+        plan.edge_attention(s, s.double())
+    with pytest.raises(ValueError, match="shape"):
+        plan.edge_attention(s[1:], s)
+    with pytest.raises(ValueError, match="contiguous"):
+        plan.edge_attention(torch.zeros(2 * g.m, device=cuda)[::2], s)
+    alpha = torch.zeros(g.nnz, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_attention_rows_bwd(plan, alpha,
+                                torch.zeros(2 * g.nnz, device=cuda)[::2],
+                                s, s, 0.2)
 
 
 @pytest.mark.parametrize("k", [32, 128])

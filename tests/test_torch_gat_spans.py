@@ -2,8 +2,11 @@
 the CPU after ``trace.enable(True)``: one forward and backward of the
 dynamic-value SpMM records ``flex.spmm`` twice (m, n, nnz, k) and g_vals
 ``flex.edge_dots`` (nnz, k), both marking their device work (fake CUDA
-events standing in for the card's); ``edge_softmax`` records
-``flex.edge_softmax`` (m, nnz); ``prepare_attention`` records the set-up
+events standing in for the card's); the attention's scores and softmax
+(``DynEllPlan.edge_attention``) record ``flex.edge_softmax`` and its
+backward ``flex.edge_softmax.bwd`` (m, nnz), both marking their device
+work too; the plain ``edge_softmax`` records ``flex.edge_softmax`` (m,
+nnz) with host time only; ``prepare_attention`` records the set-up
 span ``flex.build.attention`` (m, nnz), which the benchmark's
 ``plan_build_ms`` does not count; off, the per-call spans record
 nothing."""
@@ -42,10 +45,15 @@ def _named(name):
     return [e for e in trace.snapshot().values() if e["name"] == name]
 
 
-def _forward_backward(g):
+def _forward_backward(g, attention=False):
+    """One dynamic SpMM forward and backward; with ``attention``, its
+    values from the plan's edge attention, whose backward runs too."""
     plan = prepare_dyn_ell(g, device="cpu")
     gen = torch.Generator().manual_seed(0)
     vals = torch.rand(g.nnz, generator=gen).requires_grad_(True)
+    if attention:
+        s = torch.randn((2, g.m), generator=gen).requires_grad_(True)
+        vals = plan.edge_attention(s[0], s[1])
     B = torch.randn((g.n, K), generator=gen).requires_grad_(True)
     plan(vals, B).sum().backward()
     return plan
@@ -79,19 +87,24 @@ def test_edge_dots_records_the_width_it_was_given(graph, k):
 
 def test_spans_time_their_device_work(graph, fake_events, monkeypatch):
     """Each call's spans mark their device work: with the describe
-    functions naming a CUDA device, every span has device seconds."""
-    for name in ("_spmm_attrs", "_dots_attrs"):
+    functions naming a CUDA device, every span has device seconds, the
+    attention's forward and backward too."""
+    for name in ("_spmm_attrs", "_dots_attrs", "_softmax_attrs"):
         orig = getattr(dyn_ell, name)
         monkeypatch.setattr(dyn_ell, name, lambda *a, orig=orig: (
             torch.device("cuda", 0), orig(*a)[1]))
     trace.enable(True)
-    _forward_backward(graph)
+    _forward_backward(graph, attention=True)
     snap = trace.snapshot()
     timed = {e["name"]: e for e in snap.values() if e["device_s"] > 0}
-    assert set(timed) == {"flex.spmm", "flex.edge_dots"}
+    assert set(timed) == {"flex.spmm", "flex.edge_dots",
+                          "flex.edge_softmax", "flex.edge_softmax.bwd"}
     # the first call of an aggregate is timed
-    assert timed["flex.spmm"]["device_calls"] == 1
-    assert timed["flex.edge_dots"]["device_calls"] == 1
+    for name in timed:
+        assert timed[name]["device_calls"] == 1, name
+    assert timed["flex.edge_softmax"]["attrs"] == \
+        timed["flex.edge_softmax.bwd"]["attrs"] == {"m": graph.m,
+                                                    "nnz": graph.nnz}
 
 
 def test_edge_softmax_records_its_span(graph):
@@ -104,8 +117,9 @@ def test_edge_softmax_records_its_span(graph):
 
 
 def test_a_gat_step_records_every_head(graph):
-    """Two layers of three heads: six softmaxes, six forwards and six g_B
-    calls, six g_vals; the dense products are annotations, no span."""
+    """Two layers of three heads: six softmaxes and their six backwards,
+    six forwards and six g_B calls, six g_vals; the dense products are
+    annotations, no span."""
     ag = prepare_attention(graph, device="cpu")
     model = GAT(8, 4, 3, n_heads=3,
                 generator=torch.Generator().manual_seed(1))
@@ -117,13 +131,13 @@ def test_a_gat_step_records_every_head(graph):
     counts = {}
     for e in trace.snapshot().values():
         counts[e["name"]] = counts.get(e["name"], 0) + e["count"]
-    assert counts == {"flex.edge_softmax": 6, "flex.spmm": 12,
-                      "flex.edge_dots": 6}
+    assert counts == {"flex.edge_softmax": 6, "flex.edge_softmax.bwd": 6,
+                      "flex.spmm": 12, "flex.edge_dots": 6}
 
 
 def test_off_the_per_call_spans_record_nothing(graph):
     ag = prepare_attention(graph, device="cpu")
-    _forward_backward(graph)
+    _forward_backward(graph, attention=True)
     edge_softmax(ag, torch.zeros(graph.nnz))
     # only set-up spans, which record always
     assert {e["name"] for e in trace.snapshot().values()} == {
