@@ -9,6 +9,20 @@ where it finds nothing to read).  Adding a configuration, a model, a
 traffic mix or kind, a cell or a metric adds files and entries; no file
 here changes.
 
+A kind's window returns a record whose ``counts`` names what its
+``count`` counts: ``train_steps``, ``requests`` (with their
+``latencies``) or ``spmm_calls``.  The end-to-end readers
+(``train_step_ms``, ``infer_p95_ms``, ``spmm_gflops``) key on that, so
+a new kind whose window counts one of these reports that metric in any
+cell listed under it.  The per-layer readers that count a whole-graph
+model's work per counted unit (``spmm_mfu``, ``spmm_roofline``,
+``kernels_per_request`` and the ``*_mfu`` of the models) key on the
+kind's name instead, since a unit of another kind (a sampled step) is
+not that work; a new kind brings per-layer readers of its own.  Every
+cell reports one of the end-to-end metrics the benchmark has: a record
+with no ``counts``, or an untraced run that lacks an end-to-end metric
+its cell is listed under, raises, and no result is printed.
+
 A run: set-up (the cell's graph, ordering and plan, the seed's inputs,
 the warm-up), the window (traced with ``torch.profiler`` under
 ``--trace 1``), the peak memory read, the program's state released, then
@@ -165,6 +179,11 @@ def run(root: str, cell_name: str, seed: int, seconds: float, traced: bool,
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     log(f"[window] {rec['count']} in {rec['window_s']:.3f}s; peak "
         f"{peak} bytes")
+    if "counts" not in rec:
+        raise ValueError(
+            f"traffic kind {cell.traffic['kind']!r}: its window's record "
+            "has no 'counts', so no end-to-end reader knows what its "
+            f"count of {rec['count']} counts")
 
     w.release()
     cell.release()
@@ -180,10 +199,17 @@ def run(root: str, cell_name: str, seed: int, seconds: float, traced: bool,
                traffic=cell.traffic, m=cell.m, n=cell.g.n, nnz=cell.nnz,
                setup_s=setup_s, spans=spans.durations, trace=trace)
     metrics = {}
-    for m in bench.metrics(cell_name, traced):
+    wanted = bench.metrics(cell_name, traced)
+    for m in wanted:
         value = bench.reader(m["name"])(rec)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    missing = [m["name"] for m in wanted if m["name"] not in metrics]
+    if missing and not traced:
+        raise ValueError(
+            f"cell {cell_name!r} is listed under {', '.join(missing)}, "
+            f"which found nothing to read in a window that counts "
+            f"{rec['counts']!r} (traffic kind {rec['kind']!r})")
     info = card_info(dev)
     info["memory_peak_bytes"] = int(peak)
     line = {"correct": bool(correct), "attempted": rec["count"],

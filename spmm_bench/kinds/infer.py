@@ -3,7 +3,8 @@ full-graph forward of the configuration's model on a feature matrix
 cycled from a pool of ``pool`` seed-made ones, then a synchronise, timed
 on the host clock from issue to the synchronise's return.  ``warmup``
 forwards come before the window; ``sample`` answers are judged: the
-largest logit gap over the largest reference logit, ``logit_err``."""
+largest logit gap over the largest reference logit, ``logit_err``.  The
+window counts ``requests`` and keeps their ``latencies``."""
 import math
 import time
 
@@ -53,7 +54,8 @@ class Infer(Workload):
                     break
         t1 = time.perf_counter()
         self._keep((i - 1) % P, Z)
-        return {"count": i, "window_s": t1 - t0, "latencies": lat}
+        return {"count": i, "counts": "requests", "window_s": t1 - t0,
+                "latencies": lat}
 
     def release(self):
         del self.plan, self.model, self.like

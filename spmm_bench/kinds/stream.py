@@ -1,7 +1,8 @@
 """Traffic kind ``stream``: SpMM calls back to back at width ``k`` on B
 operands cycled from a pool of ``pool`` seed-made matrices, one
 synchronise at each end of the window; ``sample`` answers are judged
-(``spmm_err``).  Parameters: ``k``, ``pool``, ``sample``."""
+(``spmm_err``).  The window counts ``spmm_calls``.  Parameters: ``k``,
+``pool``, ``sample``."""
 import time
 
 import torch
@@ -46,7 +47,7 @@ class Stream(SpmmJudged):
             sync(self.dev)
         t1 = time.perf_counter()
         self._keep((i - 1) % P, C)
-        return {"count": i, "window_s": t1 - t0}
+        return {"count": i, "counts": "spmm_calls", "window_s": t1 - t0}
 
     def release(self):
         del self.plan, self.like

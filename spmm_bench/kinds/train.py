@@ -1,8 +1,8 @@
 """Traffic kind ``train``: full-graph training steps of the
 configuration's model (masked cross-entropy, Adam at ``lr``) back to
 back, a synchronise only at each end of the window; set-up drives the
-same step object through ``first_steps`` steps, which are judged.
-Parameters: ``lr``, ``first_steps``."""
+same step object through ``first_steps`` steps, which are judged.  The
+window counts ``train_steps``.  Parameters: ``lr``, ``first_steps``."""
 import math
 import time
 
@@ -101,7 +101,8 @@ class Train(Workload):
                 if time.perf_counter() >= end:
                     break
             sync(self.dev)
-        return {"count": i, "window_s": time.perf_counter() - t0}
+        return {"count": i, "counts": "train_steps",
+                "window_s": time.perf_counter() - t0}
 
     def release(self):
         del self.step, self.opt, self.model, self.plan

@@ -1,5 +1,10 @@
 """gcn_infer_mfu: a forward's model operations over the mean request
-latency at the published float32 peak.  In %."""
+latency at the published float32 peak.  In %.
+
+Keyed on the kind's name, ``infer``, and not on what the window
+counts: it takes each request for a forward over the whole graph, which
+a request of another kind need not be.  A new kind brings per-layer
+readers of its own."""
 from spmm_bench.arith import PEAK_FP32_FLOPS, gcn_forward_flops
 
 

@@ -1,6 +1,11 @@
 """gcn_train_mfu: a step's model operations (four SpMMs at the layers'
 widths and the dense products the step needs, no pads) times the steps,
-over the traced window's seconds at the published float32 peak.  In %."""
+over the traced window's seconds at the published float32 peak.  In %.
+
+Keyed on the kind's name, ``train``, and not on what the window
+counts: it takes each counted step for a full-graph step, which a
+sampled step (a subgraph a step) is not.  A new kind brings per-layer
+readers of its own."""
 from spmm_bench.arith import PEAK_FP32_FLOPS, gcn_train_step_flops
 
 

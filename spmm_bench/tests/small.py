@@ -63,11 +63,17 @@ def tiny_root(root: str, m: int = 3000, nnz: int = 60000) -> str:
 def run(root: str, cell: str, trace: bool = False, seed: int = 2**31 + 7,
         device: str = "cpu", seconds: float = 0.3):
     """harness.run on ``root`` with a cache beside it; returns (line,
-    rows)."""
+    rows).  The program's span registry starts empty, as in the new
+    process of every ``run.py``: the spans of an earlier run in this
+    process (with device seconds, where it ran on the card) would
+    otherwise be read as this run's."""
     import time
+
+    from flex_tpu_torch.utils import trace as program_trace
 
     from spmm_bench import harness
 
+    program_trace.reset()
     return harness.run(root, cell, seed, seconds, trace, device,
                        time.perf_counter(), lambda msg: None,
                        cache_dir=os.path.join(root, "cache"))

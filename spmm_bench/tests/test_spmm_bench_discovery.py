@@ -2,13 +2,20 @@
 found by name, and no file that was there changes: a configuration, a
 traffic mix, a per-layer metric, a traffic kind (``kinds/<kind>.py``)
 and a model (``models/<kind>.py`` with ``reference/<kind>.py``).  A
-model or traffic kind with no file raises."""
+model or traffic kind with no file raises.  The end-to-end readers key
+on what a window counts, not on the kind's name, so a new kind reports
+the end-to-end metric the benchmark has; a window that does not say
+what it counts, or a cell that lacks an end-to-end metric it is listed
+under, raises."""
 import hashlib
 import json
 import os
+import shutil
 
 import pytest
 
+from spmm_bench import harness
+from spmm_bench.arith import percentile, spmm_flops
 from spmm_bench.tests.small import BENCH, REPO, copy_bench, run
 
 # a traffic kind: two SpMMs in a row, C = A'·(A'·B), judged against the
@@ -47,7 +54,8 @@ class Chain(Workload):
             if time.perf_counter() >= t0 + seconds:
                 break
         sync(self.dev)
-        return {"count": i, "window_s": time.perf_counter() - t0}
+        return {"count": i, "counts": "chain_calls",
+                "window_s": time.perf_counter() - t0}
 
     def release(self):
         del self.plan, self.like
@@ -65,6 +73,47 @@ class Chain(Workload):
 
 
 WORKLOAD = Chain
+'''
+
+# a traffic kind under a new name: the ``train`` kind's steps, in the
+# window on alternate halves of the training mask; its record says that
+# it counts COUNTS, set by the test (no ``counts`` where None)
+HALVES = '''
+import os
+import time
+
+import torch
+
+from spmm_bench import workload
+from spmm_bench.workload import sync
+
+TRAIN = workload.load(os.path.dirname(os.path.dirname(__file__)), "kinds",
+                      "train", "traffic kind")
+FAULTS = TRAIN.FAULTS
+COUNTS = None
+
+
+class Halves(TRAIN.WORKLOAD):
+    def window(self, seconds, spans):
+        rows = torch.arange(len(self.mask), device=self.dev)
+        halves = [self.mask * (rows % 2 == r) for r in (0, 1)]
+        i = 0
+        sync(self.dev)
+        t0 = time.perf_counter()
+        with spans.span("window"):
+            while True:
+                self.step(self.X, self.y, halves[i % 2])
+                i += 1
+                if time.perf_counter() >= t0 + seconds:
+                    break
+            sync(self.dev)
+        rec = {"count": i, "window_s": time.perf_counter() - t0}
+        if COUNTS is not None:
+            rec["counts"] = COUNTS
+        return rec
+
+
+WORKLOAD = Halves
 '''
 
 # a model: the program's 2-layer mean-aggregator GraphSAGE
@@ -190,7 +239,7 @@ def test_new_files_are_found_by_name(tmp_path):
            json.dumps({"chain_err": 1e-5}))
     _write(os.path.join(bdir, "metrics", "chain_ms.py"),
            "def read(rec):\n"
-           "    if rec['kind'] != 'chain':\n"
+           "    if rec['counts'] != 'chain_calls':\n"
            "        return None\n"
            "    return rec['window_s'] / rec['count'] * 1e3\n")
     spec["end_to_end"].append({"name": "chain_ms", "unit": "ms",
@@ -257,3 +306,92 @@ def test_a_kind_with_no_file_raises(tmp_path, part, what):
     _write(os.path.join(root, "BENCHMARK.json"), json.dumps(spec))
     with pytest.raises(ValueError, match=f"unknown {what}"):
         run(root, "little-gat.odd")
+
+
+@pytest.mark.parametrize("counts,error", [
+    ("train_steps", None),
+    (None, "has no 'counts'"),
+    ("epochs", "listed under train_step_ms"),
+], ids=["train_steps", "no counts", "epochs"])
+def test_a_new_kind_reports_train_step_ms(tmp_path, counts, error):
+    """A kind under a new name whose window counts training steps reports
+    ``train_step_ms`` in its cell, with no file of the benchmark edited;
+    the per-layer readers of a full-graph step stay silent there.  A
+    window that does not say what it counts, or counts something no
+    end-to-end metric of its cell reads, raises and names the cause."""
+    root = str(tmp_path)
+    copy_bench(root)
+    bdir = os.path.join(root, "spmm_bench")
+    before = _digests(bdir)
+    spec_path = os.path.join(root, "BENCHMARK.json")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    spec["configs"].append(_little(bdir, "little-gcn", "gcn2"))
+    _write(os.path.join(bdir, "kinds", "halves.py"),
+           HALVES.replace("COUNTS = None", f"COUNTS = {counts!r}"))
+    _write(os.path.join(bdir, "traffic", "halves.json"), json.dumps(
+        {"kind": "halves", "lr": 0.01, "first_steps": 3}))
+    cell = "little-gcn.halves"
+    shutil.copy(os.path.join(BENCH, "limits", "reddit-gcn.train.json"),
+                os.path.join(bdir, "limits", f"{cell}.json"))
+    _cell(spec, cell, "little-gcn", "halves")
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if m["name"] in ("train_step_ms", "gcn_train_mfu",
+                         "device_idle.train"):
+            m["workloads"].append(cell)
+    _write(spec_path, json.dumps(spec))
+
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            run(root, cell)
+    else:
+        line, rows = run(root, cell)
+        assert line["correct"] is True, rows
+        assert set(line["metrics"]) == {"train_step_ms", "setup_s"}
+        assert line["metrics"]["train_step_ms"]["value"] > 0
+        line, rows = run(root, cell, trace=True)
+        assert line["correct"] is True, rows
+        # keyed on the kind's name: a step of another kind is not the
+        # full-graph step whose work gcn_train_mfu counts
+        assert set(line["metrics"]) == {"device_idle.train"}
+    after = _digests(bdir)
+    assert {p: h for p, h in after.items() if p in before} == before
+
+
+# each end-to-end reader's formula as it was when it keyed on the kind's
+# name, and a record of that kind
+OLD = {
+    "train_step_ms": lambda rec: rec["window_s"] / rec["count"] * 1e3,
+    "infer_p95_ms": lambda rec: percentile(rec["latencies"], 95) * 1e3,
+    "spmm_gflops": lambda rec: spmm_flops(
+        rec["nnz"], rec["traffic"]["k"]) * rec["count"]
+    / rec["window_s"] / 1e9,
+}
+RECS = {
+    "train_step_ms": {"kind": "train", "counts": "train_steps",
+                      "count": 1351, "window_s": 10.003127},
+    "infer_p95_ms": {"kind": "infer", "counts": "requests", "count": 400,
+                     "window_s": 0.2931,
+                     "latencies": [7.0e-4 + 1e-6 * ((i * 37) % 101)
+                                   for i in range(400)]},
+    "spmm_gflops": {"kind": "stream", "counts": "spmm_calls", "count": 7613,
+                    "window_s": 10.001733, "nnz": 23446803,
+                    "traffic": {"k": 128}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(OLD))
+def test_end_to_end_readers_keep_their_formulas(name):
+    read = harness.Bench(REPO).reader(name)
+    for metric, rec in RECS.items():
+        if metric == name:
+            want = OLD[name](rec)
+            assert read(rec) == want  # to the last bit
+            assert read({**rec, "kind": "sampled"}) == want
+            assert read({k: v for k, v in rec.items()
+                         if k != "counts"}) is None
+        else:
+            assert read(rec) is None
+    no_latencies = {k: v for k, v in RECS["infer_p95_ms"].items()
+                    if k != "latencies"}
+    assert read(no_latencies) is None

@@ -146,8 +146,9 @@ def make(cell: Cell, seed: int, plan_options: dict | None = None):
 
 class Workload:
     """One seed's run of a cell: set-up in the constructor, then
-    :meth:`window` (returns the record the metrics read: ``count`` and
-    ``window_s`` at least), :meth:`release` and :meth:`judge`, which
+    :meth:`window` (returns the record the metrics read: ``count``,
+    ``counts``, which names what ``count`` counts, and ``window_s`` at
+    least), :meth:`release` and :meth:`judge`, which
     returns the compared numbers by name and each judged answer as
     (name, number); :meth:`control` puts the reference in TF32 in the
     program's place before :meth:`judge`."""
